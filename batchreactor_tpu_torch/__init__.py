@@ -1,0 +1,30 @@
+"""batchreactor_tpu_torch — the PyTorch/CUDA port of batchreactor_tpu.
+
+The JAX package ``batchreactor_tpu`` stays the reference; this package
+mirrors its module names (``models/gas.py``, ``ops/gas_kinetics.py``,
+``solver/bdf.py``, ...) with plain functions on lane-batched tensors, float64
+state, rates and Jacobians, and an explicit ``device=`` on every entry point
+(``None`` = ``cuda``; without a GPU that raises unless ``device="cpu"``).
+The JAX package's one Pallas kernel, the batched float32 LU behind
+``linsolve="lu32p"``, is a hand-written CUDA kernel here
+(``csrc/lu32p.cu``, built with ``nvcc`` at first use).
+
+Importing the package sets no default dtype and touches no device.
+"""
+
+from .api import (Chemistry, batch_reactor, batch_reactor_sweep,
+                  get_solution_vector, resolve_jac_window)
+from .models.gas import GasMechanism, compile_gaschemistry
+from .models.thermo import ThermoTable, create_thermo
+
+__all__ = [
+    "Chemistry",
+    "GasMechanism",
+    "ThermoTable",
+    "batch_reactor",
+    "batch_reactor_sweep",
+    "compile_gaschemistry",
+    "create_thermo",
+    "get_solution_vector",
+    "resolve_jac_window",
+]

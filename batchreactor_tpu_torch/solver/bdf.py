@@ -1,0 +1,502 @@
+"""Lane-batched variable-order BDF (1..5) — the CVODE-class integrator.
+
+Port of ``batchreactor_tpu/solver/bdf.py``: backward-difference form of
+Shampine & Reichelt (ode15s, kappa = 0),
+
+  predictor   y_pred = sum_{j<=q} D_j,   psi = sum_{1<=j<=q} g_j D_j / g_q
+  corrector   solve d:  c f(t+h, y_pred + d) - psi - d = 0,  c = h / g_q
+  error       err = d / (q + 1); accept if ||err||_scaled <= 1
+  order       after q+1 equal steps, compare error estimates at q-1/q/q+1
+
+The JAX solve is per-lane under ``vmap``; here the lane axis is written out
+and every tensor carries it first.  Under ``vmap`` each ``lax.while_loop``
+runs while any lane's condition holds and a lane's carry freezes once its
+own condition is false.  The Python loops below reproduce that with
+per-lane masks at all three levels:
+
+* the outer step loop runs while any lane is RUNNING; a terminated lane's
+  carry is held by ``step_once`` itself;
+* the jac-window loop (``jac_window > 1``) runs attempt ``i`` for lanes
+  with ``~newton_failed & running`` — a lane whose Newton failed stops
+  stepping in this window while its siblings continue;
+* the Newton loop updates only lanes that have neither converged nor
+  diverged.
+
+The any-lane tests are host syncs; CUDA graphs come later.
+
+Options the main path does not run are not ported yet and raise
+``NotImplementedError``: ``freeze_precond`` (ROADMAP A4b), ``tangent``
+(A11), ``stats`` and ``timeline`` (A14), ``step_audit`` (A14).
+"""
+
+import math
+
+import torch
+
+from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
+                     SolveResult, check_deferred, scaled_norm)
+from .linalg import (apply_factor, factor_m, factor_zeros, make_solve_m,
+                     resolve_linsolve)
+
+MAXORD = 5
+_ROWS = MAXORD + 3          # D rows 0..MAXORD+2
+_M = MAXORD + 1             # active change_D block, 6
+
+# gamma_j = sum_{i<=j} 1/i  (alpha = gamma for kappa = 0); padded to _ROWS
+_GAMMA_TAB = [0.0]
+for _j in range(1, _ROWS):
+    _GAMMA_TAB.append(_GAMMA_TAB[-1] + 1.0 / _j)
+# setup-economy backstop: a carried factorization is refreshed after
+# serving this many jac windows (CVODE's msbp)
+_ECON_MAX_AGE = 20
+# local error constant at order q is 1/(q+1)
+_ERRC_TAB = [1.0 / (q + 1) for q in range(_ROWS)]
+
+
+# (keyword, default, ROADMAP item) of the JAX solver's options that wait
+# for a later slice
+_DEFERRED = (("freeze_precond", False, "A4b"), ("tangent", None, "A11"),
+             ("step_audit", False, "A14"), ("stats", False, "A14"),
+             ("timeline", None, "A14"))
+
+
+def _change_D(D, order, factor):
+    """Rescale backward differences for h -> factor*h at each lane's order.
+
+    Order-masked build of the Shampine-Reichelt (R U)^T transform at fixed
+    (6, 6): rows/cols beyond a lane's order act as identity.  D: (B, 8, n),
+    order (B,) int64, factor (B,)."""
+    dt, dev = D.dtype, D.device
+    i = torch.arange(_M, dtype=dt, device=dev)[:, None]
+    j = torch.arange(_M, dtype=dt, device=dev)[None, :]
+    o = order.to(dt)[:, None, None]
+    act = (i <= o) & (j <= o)                                   # (B, 6, 6)
+
+    def w_of(fac):
+        base = torch.where((i >= 1) & (j >= 1) & act,
+                           (i - 1.0 - fac[:, None, None] * j)
+                           / torch.clamp(i, min=1.0), 0.0)
+        base = torch.where(i == 0, 1.0, base)
+        return torch.cumprod(base, dim=1)
+
+    RU = torch.matmul(w_of(factor), w_of(torch.ones_like(factor)))
+    eye = torch.eye(_M, dtype=dt, device=dev)
+    RU_eff = torch.where(act, RU, eye)
+    D_active = torch.matmul(RU_eff.transpose(1, 2), D[:, :_M])  # (B, 6, n)
+    return torch.cat([D_active, D[:, _M:]], dim=1)
+
+
+def _masked_row_sum(D, weights, order, lo=0):
+    """sum_{j=lo..order} weights[j] * D[:, j] per lane, (B, n)."""
+    jidx = torch.arange(_ROWS, device=D.device)
+    keep = (jidx >= lo) & (jidx <= order[:, None])              # (B, 8)
+    w = torch.where(keep, weights[:_ROWS], 0.0)
+    return torch.matmul(w[:, None, :], D)[:, 0]
+
+
+def _row(D, r):
+    """D[b, r[b]] per lane, (B, n)."""
+    idx = r[:, None, None].expand(-1, 1, D.shape[-1])
+    return torch.gather(D, 1, idx)[:, 0]
+
+
+def _where(mask, a, b):
+    """Per-lane select over tensors or dicts of tensors."""
+    if isinstance(a, dict):
+        return {k: _where(mask, a[k], b[k]) for k in a}
+    m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
+    return torch.where(m, a, b)
+
+
+def _jacfwd(rhs):
+    """Per-lane forward-mode Jacobian of a batched RHS (the solver's
+    ``jac=None`` fallback, as ``jax.jacfwd`` is in the JAX package)."""
+    from torch.func import jacfwd, vmap
+
+    def jac(t, y, cfg):
+        def one(t1, y1, cfg1):
+            return rhs(t1[None], y1[None],
+                       {k: v[None] for k, v in cfg1.items()})[0]
+
+        return vmap(jacfwd(one, argnums=1))(t, y, cfg)
+
+    return jac
+
+
+def solve(
+    rhs,
+    y0,
+    t0,
+    t1,
+    cfg,
+    *,
+    rtol=1e-6,
+    atol=1e-10,
+    max_steps=100_000,
+    n_save=0,
+    dt0=None,
+    max_newton=6,
+    dt_min_factor=1e-22,
+    linsolve="auto",
+    jac=None,
+    observer=None,
+    observer_init=None,
+    solver_state=None,
+    jac_window=1,
+    setup_economy=False,
+    stale_tol=0.3,
+    **deferred,
+):
+    """Integrate ``dy/dt = rhs(t, y, cfg)`` per lane with BDF(1..5).
+
+    ``y0`` (B, n) float64; ``t0``/``t1`` floats or (B,) tensors; ``cfg`` a
+    dict of (B,) tensors; ``rhs(t, y, cfg) -> (B, n)`` and ``jac(t, y, cfg)
+    -> (B, n, n)`` (``jac=None`` takes ``torch.func.jacfwd`` of the RHS).
+    ``dt0`` is a float or a (B,) tensor whose entries <= 0 ask for the
+    heuristic first step.  ``observer(t, y, acc) -> acc`` folds over
+    accepted steps from ``observer_init`` (a dict of (B,) tensors).
+    ``n_save`` > 0 keeps the first ``n_save`` accepted rows per lane.
+
+    ``solver_state`` is the opaque carry ``(D, order, h, n_equal[, econ])``
+    a previous call returned in ``SolveResult.solver_state``: pass it back
+    to resume the multistep history (lanes whose history is all zero start
+    cold).  ``jac_window=K`` evaluates the Jacobian once per window of up
+    to K attempts; a Newton failure closes the window early.
+    ``setup_economy=True`` (with ``jac_window > 1``) carries the
+    iteration-matrix factorization across windows and refreshes it only on
+    a cj-ratio breach ``|c/c0 - 1| > stale_tol``, a Newton failure, or
+    after ``_ECON_MAX_AGE`` windows (CVODE's setup economy); under economy
+    the fresh factorization is computed for every lane at each window open
+    and selected per lane, as the JAX package does under ``vmap``.
+    """
+    check_deferred(deferred, _DEFERRED)
+    if jac_window < 1:
+        raise ValueError(f"jac_window must be >= 1, got {jac_window}")
+    if not 0.0 <= float(stale_tol) <= 1.0:
+        raise ValueError(f"stale_tol must be in [0, 1], got {stale_tol}")
+    if (observer is None) != (observer_init is None):
+        raise ValueError("observer and observer_init must be given together")
+    if y0.ndim != 2:
+        raise ValueError(f"y0 must be (B, n), got {tuple(y0.shape)}")
+
+    dt, dev = y0.dtype, y0.device
+    B, n = y0.shape
+    linsolve = resolve_linsolve(linsolve, method="bdf", device=dev, batch=B,
+                                n=n)
+    economy = bool(setup_economy) and jac_window > 1
+
+    def lanes(x):
+        return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
+
+    t0 = lanes(t0)
+    t1 = lanes(t1)
+    span = t1 - t0
+    eye = torch.eye(n, dtype=dt, device=dev)
+    gamma_tab = torch.tensor(_GAMMA_TAB, dtype=dt, device=dev)
+    errc_tab = torch.tensor(_ERRC_TAB, dtype=dt, device=dev)
+    ones_rows = torch.ones(_ROWS, dtype=dt, device=dev)
+
+    def _norm(e, y):
+        return scaled_norm(e, y, rtol, atol)
+
+    def f(t, y):
+        return rhs(t, y, cfg)
+
+    if jac is None:
+        jac = _jacfwd(rhs)
+
+    def J_at(t, y):
+        return jac(t, y, cfg)
+
+    newton_tol = max(10.0 * 2.220446049250313e-16 / rtol,
+                     min(0.03, math.sqrt(rtol)))
+
+    # ---- initial h (Hairer heuristic) -------------------------------------
+    f0 = f(t0, y0)
+    if dt0 is None or not isinstance(dt0, (int, float)):
+        d0 = _norm(y0, y0)
+        d1 = _norm(f0, y0)
+        h_heur = torch.minimum(
+            torch.maximum(0.01 * d0 / torch.clamp(d1, min=1e-30),
+                          span * 1e-24), span)
+        if dt0 is None:
+            h_init = h_heur
+        else:
+            dt0 = torch.as_tensor(dt0, dtype=dt, device=dev)
+            h_init = torch.where(dt0 > 0, dt0, h_heur)
+    else:
+        h_init = lanes(dt0)
+
+    econ_cold = None
+    if economy:
+        econ_cold = {"fac": factor_zeros(linsolve, B, n, dt, dev),
+                     "c0": torch.zeros(B, dtype=dt, device=dev),
+                     "ok": torch.zeros(B, dtype=torch.bool, device=dev),
+                     "age": torch.zeros(B, dtype=torch.int64, device=dev)}
+    econ = econ_cold
+    D_cold = torch.zeros((B, _ROWS, n), dtype=dt, device=dev)
+    D_cold[:, 0] = y0
+    D_cold[:, 1] = h_init[:, None] * f0
+    if solver_state is None:
+        D = D_cold
+        order = torch.ones(B, dtype=torch.int64, device=dev)
+        h = h_init
+        n_equal = torch.zeros(B, dtype=torch.int64, device=dev)
+    else:
+        D_prev, order_prev, h_prev, nequal_prev = solver_state[:4]
+        econ_prev = solver_state[4] if len(solver_state) > 4 else None
+        cold = torch.all((D_prev == 0).reshape(B, -1), dim=1)
+        D = _where(cold, D_cold, D_prev)
+        order = torch.where(cold, 1, order_prev.to(torch.int64))
+        h = torch.where(cold, h_init, h_prev)
+        n_equal = torch.where(cold, 0, nequal_prev.to(torch.int64))
+        if economy and econ_prev is not None:
+            econ = _where(cold, econ_cold, econ_prev)
+
+    nsb = max(n_save, 1)
+    carry = {
+        "t": t0.clone(), "D": D, "order": order, "h": h, "n_equal": n_equal,
+        "status": torch.full((B,), RUNNING, dtype=torch.int32, device=dev),
+        "n_acc": torch.zeros(B, dtype=torch.int64, device=dev),
+        "n_rej": torch.zeros(B, dtype=torch.int64, device=dev),
+        "ts": torch.full((B, nsb), math.inf, dtype=dt, device=dev),
+        "ys": torch.zeros((B, nsb, n), dtype=dt, device=dev),
+        "n_saved": torch.zeros(B, dtype=torch.int64, device=dev),
+        "obs": (dict(observer_init) if observer is not None
+                else {"_": torch.zeros(B, dtype=dt, device=dev)}),
+    }
+
+    def newton(solve_m, t_new, y_pred, psi, c, scale, live):
+        """Solve c f(t_new, y_pred + d) = psi + d per lane; returns
+        (d, converged).  A lane that converged or diverged keeps its d;
+        lanes outside ``live`` (their attempt is discarded anyway) do not
+        iterate at all."""
+        d = torch.zeros_like(y_pred)
+        ynew = y_pred
+        dw_old = torch.full((B,), -1.0, dtype=dt, device=dev)
+        conv = torch.zeros(B, dtype=torch.bool, device=dev)
+        div = ~live
+        for it in range(max_newton):
+            active = ~conv & ~div
+            if not bool(active.any()):
+                break
+            res = c[:, None] * f(t_new, ynew) - psi - d
+            dd = solve_m(res)
+            dw = torch.sqrt(torch.mean(torch.square(dd / scale), dim=-1))
+            rate = torch.where(dw_old > 0, dw / dw_old, 0.0)
+            slow = (dw_old > 0) & (
+                (rate >= 1.0)
+                | (rate ** (max_newton - it)
+                   / torch.clamp(1 - rate, min=1e-10) * dw > newton_tol))
+            bad = ~torch.isfinite(dw)
+            d2 = d + dd
+            conv2 = (dw == 0.0) | torch.where(
+                dw_old > 0,
+                rate / torch.clamp(1 - rate, min=1e-10) * dw < newton_tol,
+                dw < 0.1 * newton_tol)
+            d = _where(active, d2, d)
+            ynew = y_pred + d
+            dw_old = torch.where(active, dw, dw_old)
+            conv = torch.where(active, conv2 & ~bad, conv)
+            div = torch.where(active, slow | bad, div)
+        return d, conv
+
+    def step_once(c, J_stale, pre=None, stale_pre=None):
+        """One step attempt for every lane (terminated lanes hold their
+        carry).  ``J_stale=None`` evaluates a fresh Jacobian at this
+        attempt's predictor; ``pre=(solve0, c0)`` solves with a frozen
+        factorization and CVODE's cj-ratio rescale 2/(1 + c/c0)."""
+        t, D, order, h = c["t"], c["D"], c["order"], c["h"]
+        n_equal, status = c["n_equal"], c["status"]
+        running = status == RUNNING
+        # zero-span guard: a lane already at t1 succeeds, touching nothing
+        already = t >= t1 - torch.abs(span) * 1e-14
+
+        # clip the final step to land on t1 exactly (rescales history)
+        factor_clip = torch.where((h > t1 - t) & ~already & running,
+                                  (t1 - t) / h, 1.0)
+        factor_clip = torch.clamp(factor_clip, min=1e-14)
+        clip = factor_clip < 1.0
+        D = _where(clip, _change_D(D, order, factor_clip), D)
+        h = h * factor_clip
+        n_equal = torch.where(clip, 0, n_equal)
+
+        t_new = t + h
+        gam = gamma_tab[order]
+        y_pred = _masked_row_sum(D, ones_rows, order)
+        psi = _masked_row_sum(D, gamma_tab, order, lo=1) / gam[:, None]
+        cc = h / gam
+        scale = atol + rtol * torch.abs(y_pred)
+
+        J = J_at(t_new, y_pred) if J_stale is None else J_stale
+        if pre is None:
+            solve_m = make_solve_m(eye - cc[:, None, None] * J, linsolve, dt)
+        else:
+            solve0, c0 = pre
+            cj_fac = 2.0 / (1.0 + cc / c0)
+
+            def solve_m(b):
+                return solve0(b) * cj_fac[:, None]
+        d, conv = newton(solve_m, t_new, y_pred, psi, cc, scale,
+                         running & ~already)
+
+        err = _norm(errc_tab[order][:, None] * d, y_pred)
+        accept = conv & (err <= 1.0) & torch.isfinite(err) & running & ~already
+
+        # rejected: Newton failure halves h (or retries at the same h when
+        # the failing setup was stale, economy only); error failure takes
+        # the asymptotic factor
+        conv_fac = (0.5 if stale_pre is None
+                    else torch.where(stale_pre, 1.0, 0.5))
+        of = order.to(dt)
+        fac_rej = torch.where(
+            conv, torch.clamp(0.9 * err ** (-1.0 / (of + 1.0)), 0.1, 1.0),
+            conv_fac)
+
+        # accepted: D[q+2] = d - D[q+1]; D[q+1] = d; D[j] += D[j+1], j <= q
+        ridx = torch.arange(_ROWS, device=dev)[None, :, None]   # (1, 8, 1)
+        o3 = order[:, None, None]
+        Dq1 = _row(D, order + 1)
+        D_acc = torch.where(ridx == o3 + 2, (d - Dq1)[:, None, :], D)
+        D_acc = torch.where(ridx == o3 + 1, d[:, None, :], D_acc)
+        kidx = torch.arange(_ROWS, device=dev)[None, None, :]
+        take = (kidx >= ridx) & (kidx <= o3 + 1) & (ridx <= o3)  # (B, 8, 8)
+        D_summed = torch.matmul(take.to(dt), D_acc)
+        D_acc = torch.where(ridx <= o3, D_summed, D_acc)
+
+        y_new = D_acc[:, 0]
+        n_equal_acc = n_equal + 1
+
+        # order/step selection after the history settles
+        sel = accept & (n_equal_acc >= order + 1)
+        e_mid = err
+        e_m = torch.where(
+            order > 1,
+            _norm(errc_tab[order - 1][:, None] * _row(D_acc, order), y_new),
+            math.inf)
+        e_p = torch.where(
+            order < MAXORD,
+            _norm(errc_tab[order + 1][:, None] * _row(D_acc, order + 2),
+                  y_new),
+            math.inf)
+        f_m = torch.where(order > 1,
+                          torch.clamp(e_m, min=1e-16) ** (-1.0 / of), 0.0)
+        f_0 = torch.clamp(e_mid, min=1e-16) ** (-1.0 / (of + 1.0))
+        f_p = torch.where(order < MAXORD,
+                          torch.clamp(e_p, min=1e-16) ** (-1.0 / (of + 2.0)),
+                          0.0)
+        best = torch.maximum(f_0, torch.maximum(f_m, f_p))
+        delta = torch.where(f_p >= best, 1, torch.where(f_m >= best, -1, 0))
+        delta = torch.where(f_0 >= best, 0, delta)
+        order_sel = torch.clamp(order + delta, 1, MAXORD)
+        fac_sel = torch.clamp(0.9 * best, 0.2, 10.0)
+
+        # merge the three outcomes
+        order_new = torch.where(sel, order_sel, order)
+        factor = torch.where(accept, torch.where(sel, fac_sel, 1.0), fac_rej)
+        D_base = _where(accept, D_acc, D)
+        D_new = _where(factor != 1.0, _change_D(D_base, order_new, factor),
+                       D_base)
+        h_new = h * factor
+        n_equal_new = torch.where(accept & ~sel, n_equal_acc, 0)
+
+        t_out = torch.where(accept, t_new, t)
+        n_acc2 = c["n_acc"] + accept
+        n_rej2 = c["n_rej"] + (~accept & running & ~already)
+        # freeze the carry of lanes that are terminated OR already at t1
+        hold = ~running | already
+        D_new = _where(hold, D, D_new)
+        h_new = torch.where(hold, h, h_new)
+        order_new = torch.where(hold, order, order_new)
+        n_equal_new = torch.where(hold, n_equal, n_equal_new)
+
+        # trajectory row scatter (first n_save accepted rows)
+        ts, ys, n_saved = c["ts"], c["ys"], c["n_saved"]
+        if n_save > 0:
+            do_save = accept & (n_saved < nsb)
+            idx = torch.clamp(n_saved, max=nsb - 1)[:, None]
+            ts = ts.scatter(1, idx, torch.where(
+                do_save[:, None], t_new[:, None], ts.gather(1, idx)))
+            yidx = idx[:, :, None].expand(-1, 1, n)
+            ys = ys.scatter(1, yidx, torch.where(
+                do_save[:, None, None], y_new[:, None, :],
+                ys.gather(1, yidx)))
+            n_saved = n_saved + do_save
+
+        obs = c["obs"]
+        if observer is not None:
+            obs = _where(accept, observer(t_new, y_new, obs), obs)
+
+        finished = (accept & (t_out >= t1 - span * 1e-14)) | already
+        too_small = (~accept) & ~already & (
+            (h_new < span * dt_min_factor) | ~torch.isfinite(h_new))
+        out_of_steps = (n_acc2 + n_rej2) >= max_steps
+        status2 = torch.where(
+            finished, SUCCESS,
+            torch.where(too_small, DT_UNDERFLOW,
+                        torch.where(out_of_steps, MAX_STEPS_REACHED,
+                                    RUNNING))).to(torch.int32)
+        status2 = torch.where(running, status2, status)
+        newton_failed = running & ~already & ~conv
+        out = {"t": t_out, "D": D_new, "order": order_new, "h": h_new,
+               "n_equal": n_equal_new, "status": status2, "n_acc": n_acc2,
+               "n_rej": n_rej2, "ts": ts, "ys": ys, "n_saved": n_saved,
+               "obs": obs}
+        return out, newton_failed
+
+    def window(c):
+        """One jac window: one Jacobian (at the window-opening predictor)
+        serves up to ``jac_window`` attempts per lane."""
+        nonlocal econ
+        t, D, order, h = c["t"], c["D"], c["order"], c["h"]
+        y_pred = _masked_row_sum(D, ones_rows, order)
+        J = J_at(t + h, y_pred)
+        reuse = None
+        if economy:
+            live0 = c["status"] == RUNNING
+            c_open = h / gamma_tab[order]
+            ratio = torch.where(econ["c0"] > 0, c_open / econ["c0"],
+                                math.inf)
+            reuse = (econ["ok"] & (torch.abs(ratio - 1.0) <= stale_tol)
+                     & (econ["age"] + 1 < _ECON_MAX_AGE))
+            need = ~reuse
+            fac_fresh = factor_m(eye - c_open[:, None, None] * J, linsolve)
+            fac = _where(need, fac_fresh, econ["fac"])
+            c0 = torch.where(need, c_open, econ["c0"])
+            age = torch.where(need, 0, econ["age"] + 1)
+            pre = ((lambda b: apply_factor(fac, b, linsolve, dt)), c0)
+        else:
+            pre = None
+        nf = torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(jac_window):
+            active = ~nf & (c["status"] == RUNNING)
+            if not bool(active.any()):
+                break
+            stale = None if reuse is None else (reuse | (i > 0))
+            c2, nf2 = step_once(c, J, pre, stale_pre=stale)
+            c = _where(active, c2, c)
+            nf = torch.where(active, nf2, nf)
+        if economy:
+            # a clean window close validates the factorization for the next
+            # window's test; a Newton failure invalidates it
+            econ = {"fac": _where(live0, fac, econ["fac"]),
+                    "c0": torch.where(live0, c0, econ["c0"]),
+                    "ok": torch.where(live0, ~nf, econ["ok"]),
+                    "age": torch.where(live0, age, econ["age"])}
+        return c
+
+    while bool((carry["status"] == RUNNING).any()):
+        if jac_window == 1:
+            carry = step_once(carry, None)[0]
+        else:
+            carry = window(carry)
+
+    state_out = (carry["D"], carry["order"], carry["h"], carry["n_equal"])
+    if economy:
+        state_out = state_out + (econ,)
+    return SolveResult(
+        t=carry["t"], y=carry["D"][:, 0], status=carry["status"],
+        n_accepted=carry["n_acc"], n_rejected=carry["n_rej"],
+        ts=carry["ts"], ys=carry["ys"], n_saved=carry["n_saved"],
+        h=carry["h"], observed=carry["obs"] if observer is not None else None,
+        solver_state=state_out)

@@ -1,0 +1,146 @@
+"""Newton linear algebra on lane-batched iteration matrices.
+
+Port of ``batchreactor_tpu/solver/linalg.py`` for the modes the main path
+runs:
+
+* ``"lu"``    exact float64 partially pivoted elimination (plain batched
+              torch) — the CPU / parity mode;
+* ``"lu32p"`` float32 LU with partial pivoting, the Hopper kernel of
+              :mod:`.linalg_cuda` (its plain version on the CPU) — a
+              float32 preconditioner for the quasi-Newton corrector, whose
+              fixed point does not depend on the solve's accuracy.
+
+The JAX package's ``inv32``/``inv32nr``/``inv32f`` modes are not ported yet
+(ROADMAP A3b) and raise ``NotImplementedError``.
+
+Two layers, as in the JAX package: :func:`factor_m` / :func:`apply_factor`
+hold the factorization as a plain dict of tensors (the BDF setup economy
+carries it across jac windows), and :func:`make_solve_m` composes them.
+"""
+
+import torch
+
+from .linalg_cuda import lu32p_factor, lu32p_solve, padded_n
+
+#: Newton linear-solver modes of the port
+MODES = ("lu", "lu32p")
+
+#: the JAX package's modes that wait for a later slice
+_DEFERRED_MODES = ("inv32", "inv32nr", "inv32f")
+
+#: ``resolve_linsolve`` gate: ``"lu32p"`` is selected for BDF on the GPU
+#: when the sweep's B * n reaches this many lane-equations (B=1024 GRI
+#: lanes, n=53, qualify) — the same gate the JAX package uses on the TPU
+LU32P_MIN_BN = 32768
+
+
+def lu_factor(A):
+    """Partially pivoted LU of a lane batch A (B, n, n): returns (LU, piv)
+    with L unit-lower in place and piv (B, n) int32 LAPACK-style ipiv.
+
+    Exactly-singular pivot guard: when the pivot column is identically zero
+    at and below the diagonal, the elimination divides by 1.0 instead of
+    0, so the FACTOR stays finite (no NaN smear into the nonsingular
+    columns) and the zero stays on the diagonal: :func:`lu_solve` then goes
+    non-finite in the singular directions, which Newton's divergence gate
+    turns into a step rejection."""
+    B, n = A.shape[0], A.shape[-1]
+    LU = A.clone()
+    piv = torch.zeros((B, n), dtype=torch.int32, device=A.device)
+    idx = torch.arange(n, device=A.device)
+    lanes = torch.arange(B, device=A.device)
+    neg_inf = torch.tensor(-float("inf"), dtype=A.dtype, device=A.device)
+    for k in range(n):
+        cand = torch.where(idx >= k, torch.abs(LU[:, :, k]), neg_inf)
+        p = torch.argmax(cand, dim=1)
+        piv[:, k] = p.to(torch.int32)
+        row_k = LU[:, k, :].clone()
+        row_p = LU[lanes, p, :].clone()
+        LU[:, k, :] = row_p
+        LU[lanes, p, :] = row_k          # p == k: row_k equals row_p
+        pivot = LU[:, k, k]
+        safe = torch.where(torch.abs(pivot) > 0, pivot, 1.0)
+        factor = torch.where(idx > k, LU[:, :, k] / safe[:, None], 0.0)
+        row_k_masked = torch.where(idx >= k, LU[:, k, :], 0.0)
+        LU = LU - factor[:, :, None] * row_k_masked[:, None, :]
+        LU[:, :, k] = torch.where(idx > k, factor, LU[:, :, k])
+    return LU, piv
+
+
+def lu_solve(lu_piv, b):
+    """Solve A x = b, b (B, n), given :func:`lu_factor` output."""
+    LU, piv = lu_piv
+    return torch.linalg.lu_solve(LU, piv + 1, b[..., None])[..., 0]
+
+
+def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
+                     n=None):
+    """The resolution rule for ``linsolve="auto"``:
+
+    * CPU: ``"lu"`` — exact float64.
+    * CUDA, BDF: ``"lu32p"`` when the caller's batch is known and
+      ``batch * n >= LU32P_MIN_BN`` (the TPU's gate), else ``"lu"``.
+
+    Explicit modes pass through validated; the JAX package's ``inv32*``
+    modes raise ``NotImplementedError`` (ROADMAP A3b)."""
+    if linsolve in _DEFERRED_MODES:
+        raise NotImplementedError(
+            f"linsolve={linsolve!r} is not ported yet (ROADMAP A3b)")
+    if linsolve != "auto":
+        if linsolve not in MODES:
+            raise ValueError(f"unknown linsolve {linsolve!r}; use one of "
+                             f"{MODES + ('auto',)}")
+        return linsolve
+    if method != "bdf":
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet (ROADMAP A8)")
+    if torch.device(device).type == "cpu":
+        return "lu"
+    if batch is not None and n is not None and batch * n >= LU32P_MIN_BN:
+        return "lu32p"
+    return "lu"
+
+
+def factor_zeros(linsolve, batch, n, dtype, device):
+    """All-zero factorization dict for ``linsolve`` at state size ``n`` —
+    the cold-start carry of the BDF setup economy; mirrors
+    :func:`factor_m`'s structure entry for entry."""
+    if linsolve == "lu":
+        return {"lu": torch.zeros((batch, n, n), dtype=dtype, device=device),
+                "piv": torch.zeros((batch, n), dtype=torch.int32,
+                                   device=device)}
+    if linsolve == "lu32p":
+        npad = padded_n(n)
+        return {"lu": torch.zeros((batch, npad, npad), dtype=torch.float32,
+                                  device=device),
+                "piv": torch.zeros((batch, npad), dtype=torch.int32,
+                                   device=device)}
+    raise ValueError(f"unknown linsolve {linsolve!r}")
+
+
+def factor_m(M, linsolve):
+    """Factor the Newton iteration matrices M (B, n, n) for ``linsolve``
+    into a dict of tensors (layout: :func:`factor_zeros`)."""
+    if linsolve == "lu":
+        LU, piv = lu_factor(M)
+    elif linsolve == "lu32p":
+        LU, piv = lu32p_factor(M)
+    else:
+        raise ValueError(f"unknown linsolve {linsolve!r}")
+    return {"lu": LU, "piv": piv}
+
+
+def apply_factor(fac, b, linsolve, dtype):
+    """Solve M x = b, b (B, n), given ``fac = factor_m(M, ...)``."""
+    if linsolve == "lu":
+        return lu_solve((fac["lu"], fac["piv"]), b)
+    if linsolve == "lu32p":
+        return lu32p_solve((fac["lu"], fac["piv"]), b).to(dtype)
+    raise ValueError(f"unknown linsolve {linsolve!r}")
+
+
+def make_solve_m(M, linsolve, dtype):
+    """Factor once, return ``solve(b)``: :func:`factor_m` composed with
+    :func:`apply_factor`."""
+    fac = factor_m(M, linsolve)
+    return lambda b: apply_factor(fac, b, linsolve, dtype)

@@ -1,0 +1,239 @@
+"""Batched float32 LU with partial pivoting (``linsolve="lu32p"``): the
+Hopper kernel and its plain PyTorch version.
+
+Port of ``batchreactor_tpu/solver/linalg_pallas.py``.  The JAX package's
+one Pallas kernel, ``_lu_kernel``, becomes ``csrc/lu32p.cu`` (CUDA C++ for
+sm_90a, one CTA per lane matrix; the source says what bounds it).  The
+contract is the JAX one, batched: ``lu32p_factor(A)`` with A (B, n, n)
+returns ``(LU, piv)`` at the PADDED size (:func:`padded_n`) — LU (B, npad,
+npad) float32 with unit-lower L in place, piv (B, npad) int32 LAPACK-style
+0-based ``ipiv``.
+
+* :func:`lu32p_factor` takes the plain version only for a tensor on the
+  CPU; for a CUDA tensor it launches the kernel or raises.
+* :func:`lu32p_factor_plain` follows the Pallas algorithm step by step
+  (8-wide panels, masked argmax, delayed swaps, unit-lower TRSM for the U12
+  strip, trailing float32 matmul).  The CPU tests hold it against the JAX
+  kernel in interpret mode; ``chip_smoke.py`` holds the CUDA kernel
+  against it on the card.
+* :func:`lu32p_solve` is plain substitution, as in the JAX package (where
+  XLA fuses it); it is not a kernel.
+
+The kernel builds at first use with ``nvcc`` into ``build/kernels/`` beside
+the package, under a name that hashes the source, so a library on disk was
+built from exactly this source.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+#: panel width of the plain version; also the padding granule (GRI n=53
+#: pads to 56)
+_BLOCK = 8
+
+#: shared memory one block may use on sm_90 (227 KB)
+_SMEM_LIMIT = 232_448
+
+#: launches of the CUDA kernel since the count was last set to 0
+LAUNCHES = 0
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "csrc", "lu32p.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+#: what the last build printed (``-Xptxas -v``: registers, shared memory)
+#: and how long it took, for ``chip_smoke.py``
+BUILD_INFO = {}
+
+
+def padded_n(n):
+    """Padded size: next multiple of ``_BLOCK``.  The pad block is
+    identity: pad columns pivot on their own diagonal 1 and never cross the
+    boundary, so the pad adds no fill-in."""
+    return max(_BLOCK, -(-n // _BLOCK) * _BLOCK)
+
+
+def smem_bytes(npad):
+    """Dynamic shared memory of one CTA: the npad x (npad + 1) tile."""
+    return npad * (npad + 1) * 4
+
+
+def _nvcc():
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the lu32p kernel cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path():
+    """Build target named by a content hash of the CUDA source."""
+    with open(_SRC, "rb") as fh:
+        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
+    return os.path.join(_BUILD_DIR, f"liblu32p-{tag}.so")
+
+
+def load_library():
+    """Build (once, at first use) and load the kernel library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not os.path.exists(so):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            # build to a temp name and rename: the hash-named target is
+            # trusted by existence alone
+            tmp = f"{so}.build{os.getpid()}"
+            t0 = time.perf_counter()
+            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
+            os.replace(tmp, so)
+            BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                              log=proc.stderr)
+        lib = ctypes.CDLL(so)
+        # (M, LU, piv, batch, n, npad, stream)
+        lib.lu32p_factor.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.lu32p_factor.restype = ctypes.c_int
+        lib.lu32p_error_string.argtypes = [ctypes.c_int]
+        lib.lu32p_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def _pad_identity(A, npad):
+    """(B, n, n) -> (B, npad, npad) float32 with an identity pad block."""
+    B, n = A.shape[0], A.shape[-1]
+    Ap = torch.eye(npad, dtype=torch.float32, device=A.device).repeat(B, 1, 1)
+    Ap[:, :n, :n] = A.to(torch.float32)
+    return Ap
+
+
+def lu32p_factor_plain(A):
+    """Plain PyTorch version of the kernel, step for step the Pallas
+    algorithm: per 8-column panel a masked-argmax pivot search with row
+    swaps inside the panel, the singular-pivot guard, the panel's swaps
+    applied to the off-panel columns (delayed ``laswp``), the unit-lower
+    TRSM for the U12 strip, and the trailing update A22 -= L21 @ U12 in
+    float32."""
+    B, n = A.shape[0], A.shape[-1]
+    npad = padded_n(n)
+    dev = A.device
+    LU = _pad_identity(A, npad)
+    piv = torch.zeros((B, npad), dtype=torch.int32, device=dev)
+    lanes = torch.arange(B, device=dev)
+    ridx = torch.arange(npad, device=dev)
+    cidx = torch.arange(npad, device=dev)
+    bcol = torch.arange(_BLOCK, device=dev)
+    r_small = torch.arange(_BLOCK, device=dev)
+    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+    for ps in range(0, npad, _BLOCK):
+        pe = ps + _BLOCK
+        P = LU[:, :, ps:pe].clone()                      # (B, npad, 8)
+        for j in range(_BLOCK):
+            k = ps + j
+            cand = torch.where(ridx >= k, torch.abs(P[:, :, j]), neg_inf)
+            p = torch.argmax(cand, dim=1)                # (B,)
+            row_k = P[:, k, :].clone()
+            row_p = P[lanes, p, :].clone()
+            P[:, k, :] = row_p
+            P[lanes, p, :] = row_k       # p == k: row_k equals row_p
+            col = P[:, :, j]
+            pivot = P[:, k, j]
+            safe = torch.where(torch.abs(pivot) > 0, pivot, 1.0)
+            factor = torch.where(ridx > k, col / safe[:, None], 0.0)
+            row_masked = torch.where(bcol > j, P[:, k, :], 0.0)
+            P = P - factor[:, :, None] * row_masked[:, None, :]
+            P[:, :, j] = torch.where(ridx > k, factor, P[:, :, j])
+            piv[:, k] = p.to(torch.int32)
+        LU[:, :, ps:pe] = P
+        off_panel = (cidx < ps) | (cidx >= pe)
+        for j in range(_BLOCK):
+            k = ps + j
+            p = piv[:, k].long()
+            rk = LU[:, k, :].clone()
+            rp = LU[lanes, p, :].clone()
+            LU[:, k, :] = torch.where(off_panel, rp, rk)
+            LU[lanes, p, :] = torch.where(off_panel, rk, rp)
+        if pe < npad:
+            L11 = P[:, ps:pe, :]                         # (B, 8, 8)
+            T = LU[:, ps:pe, pe:].clone()                # (B, 8, W)
+            for j in range(_BLOCK):
+                lcol = torch.where(r_small > j, L11[:, :, j], 0.0)
+                T = T - lcol[:, :, None] * T[:, j:j + 1, :]
+            LU[:, ps:pe, pe:] = T
+            L21 = P[:, pe:, :]                           # (B, npad-pe, 8)
+            LU[:, pe:, pe:] = LU[:, pe:, pe:] - torch.matmul(L21, T)
+    return LU, piv
+
+
+def lu32p_factor(A):
+    """Blocked, partially pivoted float32 LU of a lane batch A (B, n, n).
+
+    A CPU tensor goes through :func:`lu32p_factor_plain`; a CUDA tensor
+    (float64, the Newton matrix's dtype) launches the Hopper kernel or
+    raises."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"lu32p_factor needs (B, n, n), got {tuple(A.shape)}")
+    if A.device.type == "cpu":
+        return lu32p_factor_plain(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"lu32p_factor runs on cpu or cuda, not {A.device}")
+    if A.dtype != torch.float64:
+        raise TypeError(f"the lu32p kernel takes float64, not {A.dtype}")
+    B, n = A.shape[0], A.shape[-1]
+    npad = padded_n(n)
+    if smem_bytes(npad) + 64 > _SMEM_LIMIT:
+        raise ValueError(
+            f"n={n} pads to {npad}: the {smem_bytes(npad)}-byte tile exceeds "
+            f"the {_SMEM_LIMIT}-byte shared memory of one block (npad <= 240)")
+    LU = torch.empty((B, npad, npad), dtype=torch.float32, device=A.device)
+    piv = torch.empty((B, npad), dtype=torch.int32, device=A.device)
+    if B == 0:
+        return LU, piv
+    A = A.contiguous()
+    lib = load_library()
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        global LAUNCHES
+        LAUNCHES += 1
+        err = lib.lu32p_factor(A.data_ptr(), LU.data_ptr(), piv.data_ptr(),
+                               B, n, npad, stream)
+    if err != 0:
+        raise RuntimeError("lu32p kernel launch failed: "
+                           + lib.lu32p_error_string(err).decode())
+    return LU, piv
+
+
+def lu32p_solve(lu_piv, b):
+    """Solve with :func:`lu32p_factor` output: b (B, n) -> x (B, n)
+    float32.  b is padded with zeros (pad rows solve to exact 0 against
+    the identity block) and the substitution runs on the padded float32
+    factor with the pivots made 1-based."""
+    LU, piv = lu_piv
+    npad = LU.shape[-1]
+    n = b.shape[-1]
+    bp = torch.zeros(b.shape[:-1] + (npad,), dtype=torch.float32,
+                     device=b.device)
+    bp[..., :n] = b.to(torch.float32)
+    x = torch.linalg.lu_solve(LU, piv + 1, bp[..., None])
+    return x[..., :n, 0]

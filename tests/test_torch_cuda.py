@@ -1,0 +1,60 @@
+"""The port's CUDA kernel on the card (skips without a GPU).
+
+Run on a machine with an NVIDIA GPU and nvcc:
+``python -m pytest tests/test_torch_cuda.py -m cuda -q``.  The same checks,
+at the main path's shapes, are phase 2 of ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a CUDA kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [1, 9, 13, 53])
+def test_lu32p_kernel_matches_plain_on_separated_pivots(cuda, n):
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((64, n, n)) * 0.1 + np.eye(n) * rng.uniform(
+        10.0, 20.0, (64, 1, n))
+    A = np.take_along_axis(A, rng.permuted(
+        np.broadcast_to(np.arange(n), (64, n)), axis=1)[..., None], axis=1)
+    At = torch.tensor(A, device=cuda)
+    before = lc.LAUNCHES
+    LU_k, piv_k = lc.lu32p_factor(At)
+    assert lc.LAUNCHES == before + 1
+    LU_p, piv_p = lc.lu32p_factor_plain(At)
+    torch.cuda.synchronize()
+    assert torch.equal(piv_k, piv_p)
+    scale = LU_p.abs().amax(dim=(1, 2), keepdim=True)
+    eps = float(np.finfo(np.float32).eps)
+    assert float(((LU_k - LU_p).abs() / scale).max()) <= 64 * max(n, 1) * eps
+
+
+def test_lu32p_kernel_singular_guard(cuda):
+    S = torch.tensor([[[1.0, 2.0, 0.0], [3.0, 4.0, 0.0], [5.0, 6.0, 0.0]]],
+                     dtype=torch.float64, device=cuda)
+    LU, piv = lc.lu32p_factor(S)
+    x = lc.lu32p_solve((LU, piv), torch.ones((1, 3), dtype=torch.float64,
+                                             device=cuda))
+    assert bool(torch.all(torch.isfinite(LU)))
+    assert not bool(torch.all(torch.isfinite(x)))
+
+
+def test_lu32p_kernel_rejects_what_it_cannot_take(cuda):
+    before = lc.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        lc.lu32p_factor(torch.zeros((1, 241, 241), dtype=torch.float64,
+                                    device=cuda))
+    with pytest.raises(TypeError, match="float64"):
+        lc.lu32p_factor(torch.eye(3, device=cuda)[None])
+    assert lc.LAUNCHES == before

@@ -1,0 +1,87 @@
+"""Port ground rules: the port and ``chip_smoke.py`` import neither jax nor
+the JAX package, and the entry points run on the GPU unless the caller
+asks for the CPU (no silent CPU fallback).
+"""
+
+import ast
+import os
+import pathlib
+
+import pytest
+import torch
+
+import batchreactor_tpu_torch as bt
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "batchreactor_tpu_torch").rglob("*.py"))
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    roots = _imported_roots(path)
+    assert not roots & {"jax", "jaxlib", "batchreactor_tpu"}, roots
+
+
+def test_port_files_found():
+    names = {p.relative_to(ROOT / "batchreactor_tpu_torch").as_posix()
+             for p in PORT_FILES}
+    assert {"api.py", "models/gas.py", "ops/gas_kinetics.py",
+            "solver/bdf.py", "solver/linalg_cuda.py",
+            "parallel/sweep.py"} <= names
+    assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch,
+                                                     fixtures_dir):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mech = os.path.join(fixtures_dir, "h2o2.dat")
+    therm = os.path.join(fixtures_dir, "therm.dat")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bt.compile_gaschemistry(mech)
+    gm = bt.compile_gaschemistry(mech, device="cpu")
+    th = bt.create_thermo(list(gm.species), therm, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bt.create_thermo(list(gm.species), therm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.15, "N2": 0.55}, 1200.0,
+                               1e5, 1e-5, chem=bt.Chemistry(gaschem=True),
+                               thermo_obj=th, md=gm)
+
+
+def test_deferred_options_raise_not_implemented(fixtures_dir):
+    gm = bt.compile_gaschemistry(os.path.join(fixtures_dir, "h2o2.dat"),
+                                 device="cpu")
+    th = bt.create_thermo(list(gm.species),
+                          os.path.join(fixtures_dir, "therm.dat"),
+                          device="cpu")
+    kw = dict(chem=bt.Chemistry(gaschem=True), thermo_obj=th, md=gm,
+              device="cpu")
+    for opt, item in (({"telemetry": True}, "A14"),
+                      ({"admission": 4}, "A13"),
+                      ({"energy": "adiabatic_v"}, "A9"),
+                      ({"method": "sdirk"}, "A8"),
+                      ({"linsolve": "inv32f"}, "A3b"),
+                      ({"analytic_jac": False}, "A13")):
+        with pytest.raises(NotImplementedError, match=item):
+            bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
+                                   **opt)
+    with pytest.raises(NotImplementedError, match="A7"):
+        bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6,
+                               chem=bt.Chemistry(gaschem=True,
+                                                 surfchem=True),
+                               thermo_obj=th, md=gm, device="cpu")

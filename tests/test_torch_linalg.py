@@ -1,0 +1,180 @@
+"""Port parity: Newton linear algebra (batchreactor_tpu_torch solver/linalg.py
+and solver/linalg_cuda.py against the JAX package).
+
+The plain version of the ``lu32p`` kernel (the CUDA kernel's CPU twin,
+``lu32p_factor_plain``) is held against the JAX Pallas kernel in interpret
+mode: pivots equal, LU within 1e-5 of its largest entry (both are float32
+with the same blocked algorithm; XLA and PyTorch round their reductions
+differently).  Solve errors are bounded by cond(A) * eps_f32 scaled by n,
+not by a fixed tolerance: a fixed 2e-5 fails on the reference itself
+(ROADMAP C1).  The float64 ``lu`` mode agrees with JAX's to 1e-12.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from batchreactor_tpu.solver import linalg as linalg_j
+from batchreactor_tpu.solver import linalg_pallas as pallas_j
+from batchreactor_tpu_torch.solver import linalg, linalg_cuda
+from batchreactor_tpu_torch.solver.linalg_cuda import (lu32p_factor,
+                                                       lu32p_factor_plain,
+                                                       lu32p_solve, padded_n)
+
+torch.set_num_threads(1)
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _systems(n, B=4, seed=0):
+    rng = np.random.default_rng(seed + 100 * n)
+    A = rng.standard_normal((B, n, n))
+    b = rng.standard_normal((B, n))
+    return A, b
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 13, 24, 53])
+def test_lu32p_plain_matches_jax_kernel(n):
+    A, _ = _systems(n)
+    LU_j, piv_j = jax.vmap(lambda a: pallas_j.lu32p_factor(a, interpret=True))(
+        jnp.asarray(A))
+    LU_t, piv_t = lu32p_factor_plain(torch.tensor(A))
+    assert LU_t.dtype == torch.float32 and piv_t.dtype == torch.int32
+    assert LU_t.shape == (4, padded_n(n), padded_n(n))
+    np.testing.assert_array_equal(piv_t.numpy(), np.asarray(piv_j))
+    LU_j = np.asarray(LU_j)
+    scale = np.max(np.abs(LU_j), axis=(1, 2), keepdims=True)
+    assert np.all(np.abs(LU_t.numpy() - LU_j) <= 1e-5 * scale)
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 13, 24, 53])
+def test_lu32p_solve_error_scales_with_condition(n):
+    A, b = _systems(n, B=8, seed=1)
+    x_ref = np.linalg.solve(A, b[..., None])[..., 0]
+    x = lu32p_solve(lu32p_factor(torch.tensor(A)),
+                    torch.tensor(b)).double().numpy()
+    cond = np.linalg.cond(A)
+    rel = (np.max(np.abs(x - x_ref), axis=1)
+           / np.max(np.abs(x_ref), axis=1))
+    assert np.all(rel <= 4 * n * cond * EPS32), (rel, cond)
+
+
+def test_lu32p_solve_matches_jax():
+    A, b = _systems(13, B=4, seed=2)
+    fac_j = jax.vmap(lambda a: pallas_j.lu32p_factor(a, interpret=True))(
+        jnp.asarray(A))
+    x_j = np.asarray(jax.vmap(pallas_j.lu32p_solve)(
+        fac_j, jnp.asarray(b, dtype=jnp.float32)))
+    x_t = lu32p_solve(lu32p_factor(torch.tensor(A)),
+                      torch.tensor(b)).numpy()
+    cond = np.linalg.cond(A)[:, None]
+    assert np.all(np.abs(x_t - x_j)
+                  <= 4 * 13 * cond * EPS32 * np.abs(x_j).max(axis=1,
+                                                              keepdims=True))
+
+
+def test_padded_n_contract():
+    assert padded_n(1) == 8 and padded_n(8) == 8 and padded_n(9) == 16
+    assert padded_n(53) == 56
+    LU, piv = lu32p_factor(torch.eye(5, dtype=torch.float64)[None])
+    assert LU.shape == (1, 8, 8) and piv.shape == (1, 8)
+
+
+def test_lu32p_pivoting_required():
+    """Zero diagonal: unpivoted elimination would divide by zero."""
+    A = np.array([[0.0, 1.0, 0.0], [2.0, 0.0, 1.0], [0.0, 3.0, 1.0]])
+    b = np.array([1.0, 2.0, 3.0])
+    x = lu32p_solve(lu32p_factor(torch.tensor(A)[None]),
+                    torch.tensor(b)[None])[0].numpy()
+    np.testing.assert_allclose(x, np.linalg.solve(A, b), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _singular():
+    # third column identically zero: structurally singular, pivot 0 at k=2
+    return torch.tensor([[[1.0, 2.0, 0.0], [3.0, 4.0, 0.0],
+                          [5.0, 6.0, 0.0]]], dtype=torch.float64)
+
+
+@pytest.mark.parametrize("mode", ["lu", "lu32p"])
+def test_singular_guard_factor_finite_solve_nonfinite(mode):
+    fac = linalg.factor_m(_singular(), mode)
+    assert bool(torch.all(torch.isfinite(fac["lu"])))
+    x = linalg.apply_factor(fac, torch.ones((1, 3), dtype=torch.float64),
+                            mode, torch.float64)
+    assert not bool(torch.all(torch.isfinite(x)))
+
+
+def test_pad_never_wins_a_pivot():
+    """Live columns pivot on live rows, pad columns on their own
+    diagonal: the identity pad adds no row exchange across the boundary."""
+    for n in (3, 9, 13, 53):
+        A, _ = _systems(n, B=2, seed=3)
+        _, piv = lu32p_factor(torch.tensor(A))
+        npad = padded_n(n)
+        assert np.all(piv[:, :n].numpy() < n)
+        np.testing.assert_array_equal(piv[:, n:].numpy(),
+                                      np.broadcast_to(np.arange(n, npad),
+                                                      (2, npad - n)))
+
+
+def test_lu_mode_matches_jax():
+    A, b = _systems(13, B=4, seed=4)
+    LU_j, piv_j = jax.vmap(linalg_j.lu_factor)(jnp.asarray(A))
+    x_j = jax.vmap(linalg_j.lu_solve)((LU_j, piv_j), jnp.asarray(b))
+    LU_t, piv_t = linalg.lu_factor(torch.tensor(A))
+    np.testing.assert_array_equal(piv_t.numpy(), np.asarray(piv_j))
+    np.testing.assert_allclose(LU_t.numpy(), np.asarray(LU_j), rtol=1e-12,
+                               atol=1e-12 * np.abs(np.asarray(LU_j)).max())
+    x_t = linalg.lu_solve((LU_t, piv_t), torch.tensor(b))
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=1e-12,
+                               atol=1e-12 * np.abs(np.asarray(x_j)).max())
+
+
+@pytest.mark.parametrize("mode", ["lu", "lu32p"])
+def test_factor_zeros_mirrors_factor_m(mode):
+    n, B = 9, 3
+    M = torch.eye(n, dtype=torch.float64).repeat(B, 1, 1)
+    fac = linalg.factor_m(M, mode)
+    zero = linalg.factor_zeros(mode, B, n, torch.float64, "cpu")
+    assert fac.keys() == zero.keys()
+    for k in fac:
+        assert fac[k].shape == zero[k].shape and fac[k].dtype == zero[k].dtype
+    # closure and dict forms are one implementation
+    b = torch.arange(B * n, dtype=torch.float64).reshape(B, n)
+    assert torch.equal(linalg.make_solve_m(M, mode, torch.float64)(b),
+                       linalg.apply_factor(fac, b, mode, torch.float64))
+
+
+def test_resolve_linsolve():
+    gate = linalg.LU32P_MIN_BN
+    assert linalg.resolve_linsolve("auto", device="cpu", batch=4096,
+                                   n=53) == "lu"
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=1024,
+                                   n=53) == "lu32p"
+    assert 1024 * 53 >= gate > 64 * 53
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=64,
+                                   n=53) == "lu"
+    assert linalg.resolve_linsolve("auto", device="cuda") == "lu"
+    assert linalg.resolve_linsolve("lu32p", device="cpu") == "lu32p"
+    for mode in ("inv32", "inv32nr", "inv32f"):
+        with pytest.raises(NotImplementedError, match="A3b"):
+            linalg.resolve_linsolve(mode, device="cuda")
+    with pytest.raises(NotImplementedError, match="A8"):
+        linalg.resolve_linsolve("auto", method="sdirk", device="cuda")
+    with pytest.raises(ValueError):
+        linalg.resolve_linsolve("cholesky", device="cpu")
+
+
+def test_wrapper_takes_plain_version_only_on_cpu():
+    A, _ = _systems(9, B=2, seed=5)
+    At = torch.tensor(A)
+    before = linalg_cuda.LAUNCHES
+    LU, piv = lu32p_factor(At)
+    LU_p, piv_p = lu32p_factor_plain(At)
+    assert torch.equal(LU, LU_p) and torch.equal(piv, piv_p)
+    assert linalg_cuda.LAUNCHES == before     # the plain path launches nothing
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        lu32p_factor(At.to("meta"))
