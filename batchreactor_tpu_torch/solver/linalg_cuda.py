@@ -3,14 +3,16 @@ Hopper kernel and its plain PyTorch version.
 
 Port of ``batchreactor_tpu/solver/linalg_pallas.py``.  The JAX package's
 one Pallas kernel, ``_lu_kernel``, becomes ``csrc/lu32p.cu`` (CUDA C++ for
-sm_90a, one CTA per lane matrix; the source says what bounds it).  The
+sm_90a; the source says what bounds it): one warp per lane matrix with the
+factor in registers for npad <= 64, one CTA per lane matrix with the tile in
+shared memory for npad 72..240 (:func:`launch_config`).  The
 contract is the JAX one, batched: ``lu32p_factor(A)`` with A (B, n, n)
 returns ``(LU, piv)`` at the PADDED size (:func:`padded_n`) — LU (B, npad,
 npad) float32 with unit-lower L in place, piv (B, npad) int32 LAPACK-style
 0-based ``ipiv``.
 
 * :func:`lu32p_factor` takes the plain version only for a tensor on the
-  CPU; for a CUDA tensor it launches the kernel or raises.
+  CPU; for a CUDA tensor it launches one of the two kernels or raises.
 * :func:`lu32p_factor_plain` follows the Pallas algorithm step by step
   (8-wide panels, masked argmax, delayed swaps, unit-lower TRSM for the U12
   strip, trailing float32 matmul).  The CPU tests hold it against the JAX
@@ -19,12 +21,13 @@ npad) float32 with unit-lower L in place, piv (B, npad) int32 LAPACK-style
 * :func:`lu32p_solve` is plain substitution, as in the JAX package (where
   XLA fuses it); it is not a kernel.
 
-The kernel builds at first use with ``nvcc`` into ``build/kernels/`` beside
-the package, under a name that hashes the source, so a library on disk was
-built from exactly this source.
+The kernels build at first use with ``nvcc`` into ``build/kernels/`` beside
+the package, as one library named by a hash of every source under
+``csrc/``, so a library on disk was built from exactly these sources.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -41,14 +44,27 @@ _BLOCK = 8
 #: shared memory one block may use on sm_90 (227 KB)
 _SMEM_LIMIT = 232_448
 
-#: launches of the CUDA kernel since the count was last set to 0
+#: the largest npad the warp kernel takes (two rows per lane)
+WARP_NPAD_MAX = 64
+#: warps (lane matrices) per CTA of the warp kernel
+WARPS_PER_CTA = 4
+#: threads per CTA of the CTA kernel
+CTA_THREADS = 128
+
+#: launches of the CUDA kernels since the count was last set to 0
 LAUNCHES = 0
+#: the same launches by kernel: ``warp`` (npad <= 64) and ``cta``
+LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "lu32p.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_SRC = os.path.join(_CSRC, "lu32p.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+# -cudart shared: the library uses the process's libcudart (PyTorch's), so
+# torch.profiler sees its launches
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
+               "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -64,9 +80,24 @@ def padded_n(n):
     return max(_BLOCK, -(-n // _BLOCK) * _BLOCK)
 
 
-def smem_bytes(npad):
-    """Dynamic shared memory of one CTA: the npad x (npad + 1) tile."""
-    return npad * (npad + 1) * 4
+def launch_config(batch, npad):
+    """The kernel that npad selects and its launch: ``path`` (``"warp"`` or
+    ``"cta"``), ``grid``, ``block`` (threads) and ``smem`` (dynamic shared
+    bytes).  The warp kernel gives each warp (one lane matrix) an npad x
+    (npad + 4) float tile and two pivot-row buffers; the CTA kernel gives
+    each lane matrix an npad x (npad + 1) tile, which caps npad at 240.
+    The C entry point checks the configuration against the kernel that
+    npad selects there."""
+    if npad <= WARP_NPAD_MAX:
+        return {"path": "warp", "grid": -(-batch // WARPS_PER_CTA),
+                "block": 32 * WARPS_PER_CTA,
+                "smem": WARPS_PER_CTA * (npad * (npad + 4) + 2 * npad) * 4}
+    smem = npad * (npad + 1) * 4
+    if smem + 64 > _SMEM_LIMIT:
+        raise ValueError(
+            f"npad={npad}: the {smem}-byte tile exceeds the {_SMEM_LIMIT}-byte "
+            f"shared memory of one block (npad <= 240)")
+    return {"path": "cta", "grid": batch, "block": CTA_THREADS, "smem": smem}
 
 
 def _nvcc():
@@ -81,11 +112,21 @@ def _nvcc():
     return found
 
 
+def _sources():
+    """Every file under ``csrc/`` that the build reads."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def library_path():
-    """Build target named by a content hash of the CUDA source."""
-    with open(_SRC, "rb") as fh:
-        tag = hashlib.sha256(fh.read()).hexdigest()[:12]
-    return os.path.join(_BUILD_DIR, f"liblu32p-{tag}.so")
+    """Build target named by a content hash of the CUDA sources."""
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"liblu32p-{h.hexdigest()[:12]}.so")
 
 
 def load_library():
@@ -109,10 +150,11 @@ def load_library():
             BUILD_INFO.update(seconds=time.perf_counter() - t0,
                               log=proc.stderr)
         lib = ctypes.CDLL(so)
-        # (M, LU, piv, batch, n, npad, stream)
+        # (M, LU, piv, batch, n, npad, grid, block, smem, stream)
         lib.lu32p_factor.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         lib.lu32p_factor.restype = ctypes.c_int
         lib.lu32p_error_string.argtypes = [ctypes.c_int]
         lib.lu32p_error_string.restype = ctypes.c_char_p
@@ -202,10 +244,7 @@ def lu32p_factor(A):
         raise TypeError(f"the lu32p kernel takes float64, not {A.dtype}")
     B, n = A.shape[0], A.shape[-1]
     npad = padded_n(n)
-    if smem_bytes(npad) + 64 > _SMEM_LIMIT:
-        raise ValueError(
-            f"n={n} pads to {npad}: the {smem_bytes(npad)}-byte tile exceeds "
-            f"the {_SMEM_LIMIT}-byte shared memory of one block (npad <= 240)")
+    cfg = launch_config(B, npad)
     LU = torch.empty((B, npad, npad), dtype=torch.float32, device=A.device)
     piv = torch.empty((B, npad), dtype=torch.int32, device=A.device)
     if B == 0:
@@ -216,8 +255,10 @@ def lu32p_factor(A):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         global LAUNCHES
         LAUNCHES += 1
+        LAUNCHES_BY_PATH[cfg["path"]] += 1
         err = lib.lu32p_factor(A.data_ptr(), LU.data_ptr(), piv.data_ptr(),
-                               B, n, npad, stream)
+                               B, n, npad, cfg["grid"], cfg["block"],
+                               cfg["smem"], stream)
     if err != 0:
         raise RuntimeError("lu32p kernel launch failed: "
                            + lib.lu32p_error_string(err).decode())

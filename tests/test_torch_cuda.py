@@ -21,7 +21,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 9, 13, 53])
+@pytest.mark.parametrize("n", [1, 9, 13, 53, 64, 65, 120])
 def test_lu32p_kernel_matches_plain_on_separated_pivots(cuda, n):
     rng = np.random.default_rng(n)
     A = rng.standard_normal((64, n, n)) * 0.1 + np.eye(n) * rng.uniform(
@@ -30,14 +30,51 @@ def test_lu32p_kernel_matches_plain_on_separated_pivots(cuda, n):
         np.broadcast_to(np.arange(n), (64, n)), axis=1)[..., None], axis=1)
     At = torch.tensor(A, device=cuda)
     before = lc.LAUNCHES
+    path = lc.launch_config(64, lc.padded_n(n))["path"]
+    assert path == ("warp" if n <= 64 else "cta")
+    before_path = lc.LAUNCHES_BY_PATH[path]
     LU_k, piv_k = lc.lu32p_factor(At)
     assert lc.LAUNCHES == before + 1
+    assert lc.LAUNCHES_BY_PATH[path] == before_path + 1
     LU_p, piv_p = lc.lu32p_factor_plain(At)
     torch.cuda.synchronize()
     assert torch.equal(piv_k, piv_p)
     scale = LU_p.abs().amax(dim=(1, 2), keepdim=True)
     eps = float(np.finfo(np.float32).eps)
     assert float(((LU_k - LU_p).abs() / scale).max()) <= 64 * max(n, 1) * eps
+
+
+def _tie_matrix():
+    A = 0.5 * np.eye(9)
+    A[:, 0] = 0.0
+    A[:, 1] = 0.0
+    A[5, 0], A[0, 1], A[3, 1] = 10.0, 1.0, -1.0
+    A[0, 0] = A[1, 1] = A[5, 5] = 0.0
+    return A, [5, 3, 2, 5, 4, 5, 6, 7, 8]
+
+
+def _nan_matrix():
+    A = 2.0 * np.eye(9)
+    A[4, 0], A[7, 0] = np.nan, 5.0
+    return A, [4, 1, 2, 3, 7, 5, 6, 7, 8]
+
+
+@pytest.mark.parametrize("case", [_tie_matrix, _nan_matrix],
+                         ids=["exact_tie", "nan_pivot"])
+def test_lu32p_kernel_pivot_order(cuda, case):
+    """An exact tie goes to the first row in the current order (position,
+    not original row); a NaN wins its column and the guard divides by 1.0.
+    The same cases against the JAX kernel are in test_torch_linalg.py."""
+    A, want = case()
+    At = torch.tensor(A[None], device=cuda)
+    LU_k, piv_k = lc.lu32p_factor(At)
+    LU_p, piv_p = lc.lu32p_factor_plain(At)
+    torch.cuda.synchronize()
+    assert piv_k[0, :9].tolist() == want
+    assert torch.equal(piv_k, piv_p)
+    assert torch.equal(torch.isnan(LU_k), torch.isnan(LU_p))
+    fin = torch.isfinite(LU_p)
+    assert float((LU_k[fin] - LU_p[fin]).abs().max()) <= 1e-6
 
 
 def test_lu32p_kernel_singular_guard(cuda):
@@ -52,9 +89,10 @@ def test_lu32p_kernel_singular_guard(cuda):
 
 def test_lu32p_kernel_rejects_what_it_cannot_take(cuda):
     before = lc.LAUNCHES
+    by_path = dict(lc.LAUNCHES_BY_PATH)
     with pytest.raises(ValueError, match="shared memory"):
         lc.lu32p_factor(torch.zeros((1, 241, 241), dtype=torch.float64,
                                     device=cuda))
     with pytest.raises(TypeError, match="float64"):
         lc.lu32p_factor(torch.eye(3, device=cuda)[None])
-    assert lc.LAUNCHES == before
+    assert lc.LAUNCHES == before and lc.LAUNCHES_BY_PATH == by_path

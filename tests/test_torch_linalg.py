@@ -19,13 +19,38 @@ import torch
 from batchreactor_tpu.solver import linalg as linalg_j
 from batchreactor_tpu.solver import linalg_pallas as pallas_j
 from batchreactor_tpu_torch.solver import linalg, linalg_cuda
-from batchreactor_tpu_torch.solver.linalg_cuda import (lu32p_factor,
+from batchreactor_tpu_torch.solver.linalg_cuda import (launch_config,
+                                                       lu32p_factor,
                                                        lu32p_factor_plain,
                                                        lu32p_solve, padded_n)
 
 torch.set_num_threads(1)
 
 EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _tie_matrix():
+    """Step 0 exchanges rows 0 and 5 with zero multipliers; step 1 finds |1|
+    in row 3 and in original row 0, now at position 5.  The first maximum
+    in the current row order is position 3 (the original order would give
+    5)."""
+    A = 0.5 * np.eye(9)
+    A[:, 0] = 0.0
+    A[:, 1] = 0.0
+    A[5, 0], A[0, 1], A[3, 1] = 10.0, 1.0, -1.0
+    A[0, 0] = A[1, 1] = A[5, 5] = 0.0
+    return A, [5, 3, 2, 5, 4, 5, 6, 7, 8]
+
+
+def _nan_matrix():
+    """A NaN in column 0 wins the pivot; |NaN| > 0 is false, so the guard
+    divides by 1.0 and the later columns stay finite."""
+    A = 2.0 * np.eye(9)
+    A[4, 0], A[7, 0] = np.nan, 5.0
+    return A, [4, 1, 2, 3, 7, 5, 6, 7, 8]
+
+
+PIVOT_ORDER_CASES = {"exact_tie": _tie_matrix, "nan_pivot": _nan_matrix}
 
 
 def _systems(n, B=4, seed=0):
@@ -47,6 +72,47 @@ def test_lu32p_plain_matches_jax_kernel(n):
     LU_j = np.asarray(LU_j)
     scale = np.max(np.abs(LU_j), axis=(1, 2), keepdims=True)
     assert np.all(np.abs(LU_t.numpy() - LU_j) <= 1e-5 * scale)
+
+
+@pytest.mark.parametrize("case", sorted(PIVOT_ORDER_CASES))
+def test_lu32p_plain_matches_jax_kernel_on_pivot_order(case):
+    """Exact ties go to the first row in the current order, a NaN wins its
+    column: the plain version and the JAX kernel agree on both, pivots
+    exactly and LU to its NaN pattern and values."""
+    A, want = PIVOT_ORDER_CASES[case]()
+    LU_j, piv_j = pallas_j.lu32p_factor(jnp.asarray(A), interpret=True)
+    LU_t, piv_t = lu32p_factor_plain(torch.tensor(A[None]))
+    assert np.asarray(piv_j)[:9].tolist() == want
+    assert piv_t[0, :9].tolist() == want
+    np.testing.assert_array_equal(piv_t[0].numpy(), np.asarray(piv_j))
+    LU_j, LU_t = np.asarray(LU_j), LU_t[0].numpy()
+    np.testing.assert_array_equal(np.isnan(LU_t), np.isnan(LU_j))
+    fin = np.isfinite(LU_j)
+    assert np.all(np.abs(LU_t[fin] - LU_j[fin]) <= 1e-6)
+    if case == "nan_pivot":     # the guard kept every column after 0 finite
+        assert np.all(np.isfinite(LU_t[:, 1:]))
+
+
+# (n, path, grid, block, smem) at B = 1023; 241 pads to 248, whose tile does
+# not fit the 227 KB of one block
+@pytest.mark.parametrize("n,path,grid,block,smem", [
+    (1, "warp", 256, 128, 1_792),
+    (56, "warp", 256, 128, 55_552),
+    (64, "warp", 256, 128, 71_680),
+    (65, "cta", 1023, 128, 21_024),
+    (240, "cta", 1023, 128, 231_360),
+    (241, None, None, None, None),
+])
+def test_launch_config_boundaries(n, path, grid, block, smem):
+    if path is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            launch_config(1023, padded_n(n))
+        return
+    cfg = launch_config(1023, padded_n(n))
+    assert cfg == {"path": path, "grid": grid, "block": block, "smem": smem}
+    assert cfg["smem"] <= linalg_cuda._SMEM_LIMIT
+    if path == "warp":          # one warp per lane matrix covers the batch
+        assert cfg["grid"] * cfg["block"] // 32 >= 1023
 
 
 @pytest.mark.parametrize("n", [1, 8, 9, 13, 24, 53])
@@ -172,9 +238,11 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     A, _ = _systems(9, B=2, seed=5)
     At = torch.tensor(A)
     before = linalg_cuda.LAUNCHES
+    by_path = dict(linalg_cuda.LAUNCHES_BY_PATH)
     LU, piv = lu32p_factor(At)
     LU_p, piv_p = lu32p_factor_plain(At)
     assert torch.equal(LU, LU_p) and torch.equal(piv, piv_p)
     assert linalg_cuda.LAUNCHES == before     # the plain path launches nothing
+    assert linalg_cuda.LAUNCHES_BY_PATH == by_path
     with pytest.raises(ValueError, match="cpu or cuda"):
         lu32p_factor(At.to("meta"))
