@@ -5,6 +5,8 @@ mirrors its module names (``models/gas.py``, ``ops/gas_kinetics.py``,
 ``solver/bdf.py``, ...) with plain functions on lane-batched tensors, float64
 state, rates and Jacobians, and an explicit ``device=`` on every entry point
 (``None`` = ``cuda``; without a GPU that raises unless ``device="cpu"``).
+It runs the reference's four chemistry modes: gas, surface, coupled
+gas+surface and user-defined.
 The JAX package's one Pallas kernel, the batched float32 LU behind
 ``linsolve="lu32p"``, is a hand-written CUDA kernel here
 (``csrc/lu32p.cu``, built with ``nvcc`` at first use).
@@ -15,15 +17,18 @@ Importing the package sets no default dtype and touches no device.
 from .api import (Chemistry, batch_reactor, batch_reactor_sweep,
                   get_solution_vector, resolve_jac_window)
 from .models.gas import GasMechanism, compile_gaschemistry
+from .models.surface import SurfaceMechanism, compile_mech
 from .models.thermo import ThermoTable, create_thermo
 
 __all__ = [
     "Chemistry",
     "GasMechanism",
+    "SurfaceMechanism",
     "ThermoTable",
     "batch_reactor",
     "batch_reactor_sweep",
     "compile_gaschemistry",
+    "compile_mech",
     "create_thermo",
     "get_solution_vector",
     "resolve_jac_window",

@@ -1,15 +1,20 @@
-"""Public API of the port: the gas-phase forms of ``batch_reactor`` and the
+"""Public API of the port: ``batch_reactor`` in its three forms and the
 ensemble ``batch_reactor_sweep``.
 
-Port of ``batchreactor_tpu/api.py`` for gas-phase chemistry:
+Port of ``batchreactor_tpu/api.py``, for the four chemistry modes of the
+reference: gas, surface, coupled gas+surface and user-defined (UDF).
 
-1. ``batch_reactor(input_file, lib_dir, gaschem=True)`` — XML-driven run
-   that writes ``gas_profile.{dat,csv}`` next to the input file and returns
-   the solver's status string.
-2. ``batch_reactor(inlet_comp, T, p, time, chem=, thermo_obj=, md=)`` —
-   programmatic dict-in/dict-out form; returns ``(times, {species: x})``.
-3. ``batch_reactor_sweep(inlet_comp, T, p, time, chem=, thermo_obj=,
-   md=)`` — one lane per condition, solved together.
+1. ``batch_reactor(input_file, lib_dir, gaschem=, surfchem=)`` — XML-driven
+   run that writes ``gas_profile.{dat,csv}`` (and, with surface chemistry,
+   ``surface_covg.{dat,csv}``) next to the input file and returns the
+   solver's status string.
+2. ``batch_reactor(input_file, lib_dir, udf)`` — the same driver with a
+   user-defined source function instead of a mechanism.
+3. ``batch_reactor(inlet_comp, T, p, time, Asv=, chem=, thermo_obj=, md=)``
+   — programmatic dict-in/dict-out form (gas or surface); returns
+   ``(times, {species: x})``.
+4. ``batch_reactor_sweep(inlet_comp, T, p, time, chem=, thermo_obj=, md=
+   | gmd= | smd=, Asv=)`` — one lane per condition, solved together.
 
 Every entry point takes ``device=``: ``None`` runs on ``cuda`` and raises
 without a GPU; pass ``device="cpu"`` for the CPU.  Options of the JAX API
@@ -27,7 +32,8 @@ import torch
 from .device import resolve_device
 from .io.config import input_data, parse_composition_text
 from .io.writers import trim_trajectory, write_profiles
-from .ops.rhs import make_gas_jac, make_gas_rhs
+from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
+                      make_surface_rhs, make_udf_rhs)
 from .parallel.sweep import (ensemble_solve_segmented, ignition_observer,
                              sweep_report)
 from .solver.common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING,
@@ -38,8 +44,9 @@ from .utils.composition import density, mole_to_mass
 
 @dataclasses.dataclass(frozen=True)
 class Chemistry:
-    """Chemistry-mode flags (the reference's ``ReactionCommons.Chemistry``);
-    the port runs ``gaschem`` only."""
+    """Chemistry-mode flags (the reference's ``ReactionCommons.Chemistry``).
+    ``udf(t, state) -> source (S,)`` is the user-defined source function
+    of ``userchem`` (see ``ops.rhs.make_udf_rhs``)."""
 
     surfchem: bool = False
     gaschem: bool = False
@@ -56,27 +63,57 @@ def _status_str(code):
     return _STATUS.get(int(code)) or f"Failure({int(code)})"
 
 
-def _gas_only(chem):
-    if chem.surfchem or chem.userchem or chem.udf is not None:
-        raise NotImplementedError(
-            "only gas-phase chemistry is ported; surface, coupled and "
-            "user-defined chemistry wait for ROADMAP A7")
-    if not chem.gaschem:
-        raise ValueError("the port needs chem.gaschem=True")
+def _mode(chem):
+    if chem.userchem:
+        return "udf"
+    if chem.surfchem and chem.gaschem:
+        return "gas+surf"
+    if chem.surfchem:
+        return "surf"
+    if chem.gaschem:
+        return "gas"
+    raise ValueError("at least one of surfchem/gaschem/userchem required")
+
+
+def _make_rhs(mode, udf, gm, sm, thermo, kc_compat, asv_quirk, exp32):
+    """RHS for a chemistry mode (the reference's four-way branch)."""
+    if mode == "udf":
+        return make_udf_rhs(udf, thermo.molwt, species=thermo.species)
+    if mode in ("surf", "gas+surf"):
+        return make_surface_rhs(sm, thermo,
+                                gm=gm if mode == "gas+surf" else None,
+                                asv_quirk=asv_quirk, kc_compat=kc_compat,
+                                exp32=exp32)
+    return make_gas_rhs(gm, thermo, kc_compat=kc_compat, exp32=exp32)
+
+
+def _make_jac(mode, gm, sm, thermo, kc_compat, asv_quirk, exp32):
+    """Closed-form Jacobian of every mechanism-driven mode; ``None`` for
+    UDF mode, where the solver falls back to ``torch.func.jacfwd``."""
+    if mode == "udf":
+        return None
+    if mode in ("surf", "gas+surf"):
+        return make_surface_jac(sm, thermo,
+                                gm=gm if mode == "gas+surf" else None,
+                                asv_quirk=asv_quirk, kc_compat=kc_compat,
+                                exp32=exp32)
+    return make_gas_jac(gm, thermo, kc_compat=kc_compat, exp32=exp32)
 
 
 def get_solution_vector(mole_fracs, molwt, T, p, ini_covg=None):
-    """y0 = rho * Y_k on ``molwt``'s device.  ``mole_fracs`` (S,) or
-    (B, S); ``T``/``p`` scalars or (B,)."""
-    if ini_covg is not None:
-        raise NotImplementedError(
-            "initial coverages belong to surface chemistry (ROADMAP A7)")
+    """y0 = rho * Y_k (then the initial coverages) on ``molwt``'s device.
+    ``mole_fracs`` (S,) or (B, S); ``T``/``p`` scalars or (B,);
+    ``ini_covg`` (Ss,) is appended to every lane."""
     dev = molwt.device
     x = torch.tensor(np.asarray(mole_fracs, dtype=np.float64), device=dev)
     T = torch.as_tensor(T, dtype=torch.float64, device=dev)
     p = torch.as_tensor(p, dtype=torch.float64, device=dev)
     rho = density(x, molwt, T, p)
-    return rho[..., None] * mole_to_mass(x, molwt)
+    y = rho[..., None] * mole_to_mass(x, molwt)
+    if ini_covg is None:
+        return y
+    covg = torch.as_tensor(ini_covg, dtype=torch.float64, device=dev)
+    return torch.cat([y, covg.expand(y.shape[:-1] + covg.shape)], dim=-1)
 
 
 def resolve_jac_window(jac_window, method, device):
@@ -88,8 +125,15 @@ def resolve_jac_window(jac_window, method, device):
     return 8 if (method == "bdf" and torch.device(device).type != "cpu") else 1
 
 
+def _host(x):
+    """A scalar, array or tensor as a float64 numpy array."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=np.float64)
+
+
 _SWEEP_DEFERRED = (
-    ("smd", None, "A7"), ("asv_quirk", True, "A7"), ("mesh", None, "A5b"),
+    ("mesh", None, "A5b"),
     ("energy", None, "A9"), ("atol_T", None, "A9"),
     ("telemetry", False, "A14"), ("pipeline", None, "A13"),
     ("poll_every", None, "A13"), ("buckets", None, "A13"),
@@ -101,44 +145,102 @@ _SWEEP_DEFERRED = (
 )
 
 
+def _sweep_mode(chem, md, gmd, smd, thermo_obj):
+    """(mode, gm, sm) of a sweep, with the JAX package's guards against a
+    mechanism or UDF that the chosen flags would silently ignore."""
+    if chem.userchem and (chem.gaschem or chem.surfchem):
+        raise ValueError("userchem is exclusive: combine it with neither "
+                         "gaschem nor surfchem")
+    if chem.udf is not None and not chem.userchem:
+        raise ValueError("chem.udf is set but chem.userchem is False; "
+                         "set userchem=True for user-defined chemistry")
+    if chem.surfchem and chem.gaschem:
+        if gmd is None or smd is None:
+            raise TypeError("coupled gas+surf sweep needs gmd= (gas "
+                            "mechanism) and smd= (surface mechanism)")
+        if tuple(gmd.species) != tuple(thermo_obj.species):
+            raise ValueError(
+                "gmd.species and thermo_obj.species must match in order: "
+                f"{list(gmd.species)[:4]}... vs "
+                f"{list(thermo_obj.species)[:4]}...")
+        return "gas+surf", gmd, smd
+    if chem.surfchem:
+        if gmd is not None:
+            raise TypeError("gmd= passed without chem.gaschem — a silently "
+                            "ignored gas mechanism would make this a "
+                            "surface-only run; set gaschem=True for coupled")
+        sm = smd if smd is not None else md
+        if sm is None:
+            raise TypeError("surface sweep needs md= or smd=")
+        return "surf", None, sm
+    if chem.gaschem:
+        if smd is not None:
+            raise TypeError("smd= passed without chem.surfchem — a silently "
+                            "ignored surface mechanism would make this a "
+                            "gas-only run; set surfchem=True for coupled")
+        gm = gmd if gmd is not None else md
+        if gm is None:
+            raise TypeError("gas sweep needs md= or gmd=")
+        return "gas", gm, None
+    if chem.userchem:
+        if chem.udf is None:
+            raise TypeError("userchem sweep needs chem.udf")
+        if md is not None or gmd is not None or smd is not None:
+            raise TypeError("md=/gmd=/smd= passed with userchem — a "
+                            "silently ignored mechanism would make this a "
+                            "udf-only run; user mode takes no mechanism")
+        return "udf", None, None
+    raise ValueError("batch_reactor_sweep needs surfchem, gaschem, "
+                     "and/or userchem")
+
+
 def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
-                        md=None, gmd=None, Asv=1.0, rtol=1e-6, atol=1e-10,
-                        max_steps=200_000, segment_steps=0, kc_compat=False,
+                        md=None, gmd=None, smd=None, Asv=1.0, rtol=1e-6,
+                        atol=1e-10, max_steps=200_000, segment_steps=0,
+                        kc_compat=False, asv_quirk=True,
                         ignition_marker=None, ignition_mode="half",
                         method="bdf", jac_window=None, linsolve="auto",
                         setup_economy=False, stale_tol=0.3, exp32=False,
                         device=None, **deferred):
     """Ensemble form: one lane per condition, all lanes solved together.
 
-    ``T`` may be a scalar or a (B,) array; ``inlet_comp`` is one composition
-    dict shared by all lanes or a dict of per-lane arrays.  Returns a dict
-    with per-lane final mole fractions ``x`` {species: (B,)}, final times
-    ``t``, ``status``, the ``report`` (:func:`sweep_report`) and, with
-    ``ignition_marker`` (a species name), per-lane ignition delays ``tau``
-    from the in-loop observer; ``linsolve`` and ``jac_window`` report the
-    resolved solver configuration.  ``segment_steps > 0`` bounds each segment
-    of the sweep driver; ``0`` runs one segment of ``max_steps``.
+    Chemistry modes: gas (``md=`` or ``gmd=``), surface (``md=`` or
+    ``smd=``), coupled gas+surface (``gmd=`` and ``smd=`` with both chem
+    flags) and user-defined (``chem.userchem`` with ``chem.udf``).
+
+    ``T`` and ``Asv`` may be scalars or (B,) arrays; ``inlet_comp`` is one
+    composition dict shared by all lanes or a dict of per-lane arrays.
+    Returns a dict with per-lane final gas mole fractions ``x`` {species:
+    (B,)}, final coverages ``covg`` (B, Ss) with surface chemistry, final
+    times ``t``, ``status``, the ``report`` (:func:`sweep_report`) and,
+    with ``ignition_marker`` (a gas species name), per-lane ignition
+    delays ``tau`` from the in-loop observer; ``linsolve`` and
+    ``jac_window`` report the resolved solver configuration.
+    ``segment_steps > 0`` bounds each segment of the sweep driver; ``0``
+    runs one segment of ``max_steps``.
 
     ``jac_window=None`` resolves by device (:func:`resolve_jac_window`);
-    ``linsolve="auto"`` resolves with the sweep's B and n (``"lu32p"`` on
-    the GPU at B * n >= LU32P_MIN_BN, else ``"lu"``).  ``setup_economy``
-    carries the Newton factorization across jac windows.  ``exp32``
-    selects the float32 rate exponentials (off by default on every
-    device).
+    ``linsolve="auto"`` resolves with the sweep's B, state width n and
+    surface species (``solver.linalg.resolve_linsolve``): on the GPU,
+    ``"lu32p"`` for gas and user-defined states at B * n >= LU32P_MIN_BN,
+    ``"lu"`` otherwise and for every state with surface coverages.  ``setup_economy`` carries the Newton
+    factorization across jac windows.  ``asv_quirk`` scales the coverage
+    source by Asv too, as the reference does.  ``exp32`` selects the
+    float32 rate exponentials of the gas kinetics (off by default).
     """
     check_deferred(deferred, _SWEEP_DEFERRED)
     if chem is None or thermo_obj is None:
         raise TypeError("batch_reactor_sweep needs chem= and thermo_obj=")
-    _gas_only(chem)
-    gm = gmd if gmd is not None else md
-    if gm is None:
-        raise TypeError("gas sweep needs md= or gmd=")
+    mode, gm, sm = _sweep_mode(chem, md, gmd, smd, thermo_obj)
     device = resolve_device(device)
-    gm, thermo_obj = gm.to(device), thermo_obj.to(device)
+    thermo_obj = thermo_obj.to(device)
+    gm = gm.to(device) if gm is not None else None
+    sm = sm.to(device) if sm is not None else None
     species = thermo_obj.species
 
-    T_np = np.atleast_1d(np.asarray(T, dtype=np.float64))
-    B = max(T_np.shape[0],
+    T_np = np.atleast_1d(_host(T))
+    Asv_np = _host(Asv)
+    B = max(T_np.shape[0], Asv_np.shape[0] if Asv_np.ndim else 1,
             max((np.asarray(v).shape[0] for v in inlet_comp.values()
                  if np.ndim(v)), default=1))
     idx = {s.upper(): k for k, s in enumerate(species)}
@@ -148,11 +250,12 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         if key not in idx:
             raise KeyError(f"composition species {name!r} not in species list")
         X[:, idx[key]] = np.asarray(val)
-    T_t = torch.as_tensor(np.broadcast_to(T_np, (B,)).copy(), device=device)
-    y0s = get_solution_vector(X, thermo_obj.molwt, T_t, p)
+    T_t = torch.tensor(np.broadcast_to(T_np, (B,)).copy(), device=device)
+    y0s = get_solution_vector(X, thermo_obj.molwt, T_t, p,
+                              ini_covg=sm.ini_covg if sm is not None else None)
     cfgs = {"T": T_t,
-            "Asv": torch.full((B,), float(Asv), dtype=torch.float64,
-                              device=device)}
+            "Asv": torch.tensor(np.broadcast_to(Asv_np, (B,)).copy(),
+                                device=device)}
 
     observer = obs0 = None
     if ignition_marker is not None:
@@ -161,11 +264,13 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
             raise KeyError(f"ignition_marker {ignition_marker!r} not in "
                            f"species list")
         observer, obs0 = ignition_observer(idx[key], mode=ignition_mode)
-    rhs = make_gas_rhs(gm, thermo_obj, kc_compat=kc_compat, exp32=exp32)
-    jac = make_gas_jac(gm, thermo_obj, kc_compat=kc_compat, exp32=exp32)
+    rhs = _make_rhs(mode, chem.udf, gm, sm, thermo_obj, kc_compat, asv_quirk,
+                    exp32)
+    jac = _make_jac(mode, gm, sm, thermo_obj, kc_compat, asv_quirk, exp32)
     jac_window = resolve_jac_window(jac_window, method, device)
-    linsolve = resolve_linsolve(linsolve, method=method, device=device,
-                                batch=B, n=len(species))
+    linsolve = resolve_linsolve(
+        linsolve, method=method, device=device, batch=B, n=y0s.shape[1],
+        n_surface=sm.n_surface_species if sm is not None else 0)
     if segment_steps > 0:
         seg = dict(segment_steps=segment_steps)
     else:
@@ -177,8 +282,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         setup_economy=setup_economy, stale_tol=stale_tol, **seg)
 
     ng = len(species)
-    molwt = thermo_obj.molwt.cpu().numpy()
-    moles = res.y.cpu().numpy()[:, :ng] / molwt
+    y_end = res.y.cpu().numpy()
+    moles = y_end[:, :ng] / thermo_obj.molwt.cpu().numpy()
     x_end = moles / moles.sum(axis=1, keepdims=True)
     out = {
         "x": {s: x_end[:, k] for k, s in enumerate(species)},
@@ -189,6 +294,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         "linsolve": linsolve,
         "jac_window": jac_window,
     }
+    if chem.surfchem:
+        out["covg"] = y_end[:, ng:]
     if ignition_marker is not None:
         out["tau"] = res.observed["tau"].cpu().numpy()
     return out
@@ -197,13 +304,12 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
 _RUN_DEFERRED = (
     ("sens", False, "A11"), ("sens_params", None, "A11"),
     ("sens_qoi", None, "A11"), ("sens_grid", 512, "A11"),
-    ("surfchem", False, "A7"), ("asv_quirk", True, "A7"),
     ("backend", None, "A16"), ("telemetry", False, "A14"),
 )
 
 
-def _run_solve(gm, thermo, y0, T, t1, *, rtol, atol, n_save, max_steps,
-               kc_compat, method, jac_window, segmented, exp32):
+def _run_solve(rhs, jac, y0, T, Asv, t1, *, rtol, atol, n_save, max_steps,
+               method, jac_window, segmented):
     """One condition through the sweep driver (B = 1); returns (status,
     t_end, y_end, ts, ys, truncated, n_acc, n_rej) with ts/ys including the
     initial row."""
@@ -211,15 +317,15 @@ def _run_solve(gm, thermo, y0, T, t1, *, rtol, atol, n_save, max_steps,
     jac_window = resolve_jac_window(jac_window, method, dev)
     seg_steps = (min(512, int(max_steps)) if segmented in (None, True)
                  else int(max_steps))
+    cfg = {"T": torch.full((1,), float(T), dtype=torch.float64, device=dev),
+           "Asv": torch.full((1,), float(Asv), dtype=torch.float64,
+                             device=dev)}
     res = ensemble_solve_segmented(
-        make_gas_rhs(gm, thermo, kc_compat=kc_compat, exp32=exp32),
-        y0[None, :], 0.0, float(t1),
-        {"T": torch.full((1,), float(T), dtype=torch.float64, device=dev)},
+        rhs, y0[None, :], 0.0, float(t1), cfg,
         rtol=rtol, atol=atol, n_save=n_save, segment_steps=seg_steps,
         max_segments=max(1, -(-int(max_steps) // seg_steps)),
-        max_attempts=int(max_steps),
-        jac=make_gas_jac(gm, thermo, kc_compat=kc_compat, exp32=exp32),
-        method=method, jac_window=jac_window)
+        max_attempts=int(max_steps), jac=jac, method=method,
+        jac_window=jac_window)
     y_end = res.y[0].cpu().numpy()
     ts, ys, truncated = trim_trajectory(
         0.0, y0.cpu().numpy(), res.ts[0].numpy(), res.ys[0].numpy(),
@@ -228,66 +334,62 @@ def _run_solve(gm, thermo, y0, T, t1, *, rtol, atol, n_save, max_steps,
             truncated, int(res.n_accepted[0]), int(res.n_rejected[0]))
 
 
-def batch_reactor(*args, gaschem=False, Asv=1.0, chem=None, thermo_obj=None,
-                  md=None, rtol=1e-6, atol=1e-10, n_save=16384,
-                  max_steps=200_000, kc_compat=False, verbose=True,
-                  segmented=None, method="bdf", jac_window=None, exp32=False,
-                  device=None, **deferred):
-    """Simulate an isothermal constant-volume batch reactor (gas phase).
+def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
+                      kc_compat, asv_quirk, exp32, device, solve_kw):
+    """Dict-in/dict-out form: ``(accepted_times, {species: final x})``.
+    Gas (``md`` a GasMechanism) or surface (``md`` a SurfaceMechanism),
+    never both, as in the reference."""
+    if chem.surfchem and chem.gaschem:
+        # the reference's programmatic method overwrites the surface
+        # parameters with the gas ones when both flags are set
+        raise ValueError("programmatic API supports exactly one of "
+                         "surfchem/gaschem per call (as the reference does)")
+    if chem.surfchem:
+        mode, gm, sm = "surf", None, md
+    elif chem.gaschem:
+        mode, gm, sm = "gas", md, None
+    else:
+        raise ValueError("programmatic API needs surfchem or gaschem")
+    device = resolve_device(device)
+    thermo_obj = thermo_obj.to(device)
+    gm = gm.to(device) if gm is not None else None
+    sm = sm.to(device) if sm is not None else None
+    species = thermo_obj.species
+    comp_text = ",".join(f"{k}={v}" for k, v in inlet_comp.items())
+    x0 = parse_composition_text(comp_text, species)
+    y0 = get_solution_vector(x0, thermo_obj.molwt, float(T), float(p),
+                             ini_covg=sm.ini_covg if sm is not None else None)
+    status, t_end, y_end, ts, _, _, _, _ = _run_solve(
+        _make_rhs(mode, None, gm, sm, thermo_obj, kc_compat, asv_quirk,
+                  exp32),
+        _make_jac(mode, gm, sm, thermo_obj, kc_compat, asv_quirk, exp32),
+        y0, T, Asv, time, **solve_kw)
+    if status != "Success":
+        raise RuntimeError(
+            f"batch_reactor integration failed with {status} at "
+            f"t={t_end:.4e} of {float(time):.4e} s")
+    ng = len(species)
+    moles = y_end[:ng] / thermo_obj.molwt.cpu().numpy()
+    x_end = moles / moles.sum()
+    return ts, dict(zip(species, x_end.tolist()))
 
-    File-driven:   ``batch_reactor(input_file, lib_dir, gaschem=True)``
-        -> ``"Success" | ...``; writes ``gas_profile.{dat,csv}`` next to
-        the input file and, with ``verbose``, prints every accepted step
-        time and a summary line, as the reference does.
-    Programmatic:  ``batch_reactor(inlet_comp, T, p, time, chem=,
-        thermo_obj=, md=)`` -> ``(times, {species: final x})``.
 
-    ``segmented=None``/``True`` runs the solve in segments of at most 512
-    attempts; ``False`` in one segment of ``max_steps``.  ``jac_window``
-    follows :func:`resolve_jac_window`."""
-    check_deferred(deferred, _RUN_DEFERRED)
-    if method != "bdf":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP A8)")
-    solve_kw = dict(rtol=rtol, atol=atol, n_save=n_save, max_steps=max_steps,
-                    kc_compat=kc_compat, method=method,
-                    jac_window=jac_window, segmented=segmented, exp32=exp32)
-    if args and isinstance(args[0], dict):
-        if len(args) != 4:
-            raise TypeError(
-                "programmatic form: batch_reactor(inlet_comp, T, p, time, "
-                "chem=..., thermo_obj=..., md=...)")
-        if chem is None or thermo_obj is None or md is None:
-            raise TypeError("programmatic form needs chem=, thermo_obj=, md=")
-        _gas_only(chem)
-        inlet_comp, T, p, time = args
-        device = resolve_device(device)
-        gm, thermo_obj = md.to(device), thermo_obj.to(device)
-        species = thermo_obj.species
-        comp_text = ",".join(f"{k}={v}" for k, v in inlet_comp.items())
-        x0 = parse_composition_text(comp_text, species)
-        y0 = get_solution_vector(x0, thermo_obj.molwt, float(T), float(p))
-        status, t_end, y_end, ts, _, _, _, _ = _run_solve(
-            gm, thermo_obj, y0, T, time, **solve_kw)
-        if status != "Success":
-            raise RuntimeError(
-                f"batch_reactor integration failed with {status} at "
-                f"t={t_end:.4e} of {float(time):.4e} s")
-        moles = y_end / thermo_obj.molwt.cpu().numpy()
-        x_end = moles / moles.sum()
-        return ts, dict(zip(species, x_end.tolist()))
-
-    if len(args) != 2:
-        raise TypeError(
-            f"unrecognized batch_reactor argument pattern: {args!r}")
-    if chem is None:
-        chem = Chemistry(gaschem=gaschem)
-    _gas_only(chem)
-    input_file, lib_dir = args
+def _file_driven_run(input_file, lib_dir, chem, *, n_save, kc_compat,
+                     asv_quirk, exp32, verbose, device, solve_kw):
+    """Parse the XML, solve, write the profile files next to it and
+    return the status string."""
+    mode = _mode(chem)
     id_ = input_data(input_file, lib_dir, chem, device=device)
-    y0 = get_solution_vector(id_.mole_fracs, id_.thermo.molwt, id_.T, id_.p)
+    surf_species = id_.smd.species if id_.smd is not None else None
+    y0 = get_solution_vector(
+        id_.mole_fracs, id_.thermo.molwt, id_.T, id_.p,
+        ini_covg=id_.smd.ini_covg if id_.smd is not None else None)
     status, t_end, _, ts, ys, truncated, n_acc, n_rej = _run_solve(
-        id_.gmd, id_.thermo, y0, id_.T, id_.tf, **solve_kw)
+        _make_rhs(mode, chem.udf, id_.gmd, id_.smd, id_.thermo, kc_compat,
+                  asv_quirk, exp32),
+        _make_jac(mode, id_.gmd, id_.smd, id_.thermo, kc_compat, asv_quirk,
+                  exp32),
+        y0, id_.T, id_.Asv, id_.tf, **solve_kw)
     if verbose:
         # the reference prints every accepted time (@printf("%4e\n",t));
         # ts[0] is the initial row and a truncated run's last row is a
@@ -301,8 +403,61 @@ def batch_reactor(*args, gaschem=False, Asv=1.0, chem=None, thermo_obj=None,
               f"state", file=sys.stderr)
     out_dir = os.path.dirname(os.path.abspath(input_file))
     write_profiles(out_dir, id_.species, ts, ys, id_.T,
-                   id_.thermo.molwt.cpu().numpy())
+                   id_.thermo.molwt.cpu().numpy(),
+                   surface_species=surf_species)
     if verbose:
         print(f"t = {t_end:.4e} s  "
               f"({n_acc} accepted / {n_rej} rejected steps)")
     return status
+
+
+def batch_reactor(*args, surfchem=False, gaschem=False, Asv=1.0, chem=None,
+                  thermo_obj=None, md=None, rtol=1e-6, atol=1e-10,
+                  n_save=16384, max_steps=200_000, kc_compat=False,
+                  asv_quirk=True, verbose=True, segmented=None, method="bdf",
+                  jac_window=None, exp32=False, device=None, **deferred):
+    """Simulate an isothermal constant-volume batch reactor.
+
+    File-driven:   ``batch_reactor(input_file, lib_dir, surfchem=,
+        gaschem=)`` -> ``"Success" | ...``; writes ``gas_profile.{dat,csv}``
+        (and ``surface_covg.{dat,csv}`` with surface chemistry) next to
+        the input file and, with ``verbose``, prints every accepted step
+        time and a summary line, as the reference does.
+    User-defined:  ``batch_reactor(input_file, lib_dir, udf)`` with
+        ``udf(t, state) -> source (S,)`` [mol/m^3/s] written in torch
+        (``ops.rhs.make_udf_rhs``); the XML lists ``<gasphase>``.
+    Programmatic:  ``batch_reactor(inlet_comp, T, p, time, Asv=, chem=,
+        thermo_obj=, md=)`` -> ``(times, {species: final x})``, gas or
+        surface chemistry.
+
+    ``segmented=None``/``True`` runs the solve in segments of at most 512
+    attempts; ``False`` in one segment of ``max_steps``.  ``jac_window``
+    follows :func:`resolve_jac_window`."""
+    check_deferred(deferred, _RUN_DEFERRED)
+    if method != "bdf":
+        raise NotImplementedError(
+            f"method={method!r} is not ported yet (ROADMAP A8)")
+    solve_kw = dict(rtol=rtol, atol=atol, n_save=n_save, max_steps=max_steps,
+                    method=method, jac_window=jac_window,
+                    segmented=segmented)
+    chem_kw = dict(kc_compat=kc_compat, asv_quirk=asv_quirk, exp32=exp32,
+                   device=device, solve_kw=solve_kw)
+    if args and isinstance(args[0], dict):
+        if len(args) != 4:
+            raise TypeError(
+                "programmatic form: batch_reactor(inlet_comp, T, p, time, "
+                "Asv=..., chem=..., thermo_obj=..., md=...)")
+        if chem is None or thermo_obj is None or md is None:
+            raise TypeError("programmatic form needs chem=, thermo_obj=, md=")
+        return _programmatic_run(*args, Asv=Asv, chem=chem,
+                                 thermo_obj=thermo_obj, md=md, **chem_kw)
+    if len(args) == 3 and callable(args[2]):
+        chem = Chemistry(False, False, True, args[2])
+    elif len(args) == 2:
+        if chem is None:
+            chem = Chemistry(surfchem=surfchem, gaschem=gaschem)
+    else:
+        raise TypeError(
+            f"unrecognized batch_reactor argument pattern: {args!r}")
+    return _file_driven_run(args[0], args[1], chem, n_save=n_save,
+                            verbose=verbose, **chem_kw)

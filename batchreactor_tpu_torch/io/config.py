@@ -1,9 +1,8 @@
 """Batch-reactor XML configuration parsing (host side, stdlib xml.etree).
 
-Port of ``batchreactor_tpu/io/config.py`` for gas-phase chemistry: the
-reference's ``<batch>`` format with tags ``molefractions|massfractions, T,
-p, Asv, time, gas_mech``.  Surface mechanisms and runs without gas
-chemistry wait for ROADMAP A7 and raise ``NotImplementedError``.
+Port of ``batchreactor_tpu/io/config.py``: the reference's ``<batch>``
+format with tags ``gasphase, molefractions|massfractions, T, p, Asv, time,
+gas_mech, surface_mech``.
 """
 
 import dataclasses
@@ -11,9 +10,13 @@ import os
 import xml.etree.ElementTree as ET
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..models.gas import GasMechanism, compile_gaschemistry
+from ..models.surface import SurfaceMechanism, compile_mech
 from ..models.thermo import ThermoTable, create_thermo
+from ..utils.composition import mass_to_mole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +30,8 @@ class InputData:
     species: tuple            # gas-phase species names (state layout order)
     mole_fracs: np.ndarray    # (S,) initial gas mole fractions
     thermo: ThermoTable
-    gmd: GasMechanism
+    gmd: GasMechanism | None
+    smd: SurfaceMechanism | None
 
 
 def parse_composition_text(text, species):
@@ -53,14 +57,14 @@ def parse_composition_text(text, species):
 
 def input_data(xml_file, lib_dir, chem, device=None):
     """Parse a ``batch.xml`` + mechanism library into an InputData with the
-    mechanism and thermo tensors on ``device`` (``None`` = the GPU).
-    Species order comes from the gas mechanism; thermo loads from
-    ``lib_dir/therm.dat``; ``<massfractions>`` is accepted in place of
-    ``<molefractions>``."""
-    if chem.surfchem or chem.userchem or not chem.gaschem:
-        raise NotImplementedError(
-            "only gas-phase chemistry is ported; surface and user-defined "
-            "chemistry wait for ROADMAP A7")
+    mechanisms and thermo tensors on ``device`` (``None`` = the GPU).
+
+    Species order comes from the gas mechanism when ``chem.gaschem``, else
+    from the ``<gasphase>`` tag; thermo loads from ``lib_dir/therm.dat``;
+    ``<massfractions>`` is accepted in place of ``<molefractions>``;
+    ``chem.surfchem`` compiles ``<surface_mech>`` against the gas species
+    list."""
+    device = resolve_device(device)
     root = ET.parse(xml_file).getroot()
     if root.tag != "batch":
         raise ValueError(f"expected <batch> root in {xml_file}, got <{root.tag}>")
@@ -77,18 +81,20 @@ def input_data(xml_file, lib_dir, chem, device=None):
             return default
         return float(t)
 
-    if text("surface_mech") is not None:
-        raise NotImplementedError(
-            f"{xml_file} names a surface mechanism; surface chemistry waits "
-            f"for ROADMAP A7")
-    mech = text("gas_mech")
-    if mech is None:
-        raise KeyError(f"gaschem run needs <gas_mech> in {xml_file}")
-    gmd = compile_gaschemistry(os.path.join(lib_dir, mech), device=device)
-    species = gmd.species
+    gmd = None
+    if chem.gaschem:
+        mech = text("gas_mech")
+        if mech is None:
+            raise KeyError(f"gaschem run needs <gas_mech> in {xml_file}")
+        gmd = compile_gaschemistry(os.path.join(lib_dir, mech), device=device)
+        species = gmd.species
+    else:
+        gp = text("gasphase")
+        if gp is None:
+            raise KeyError(f"non-gaschem run needs <gasphase> in {xml_file}")
+        species = tuple(s.upper() for s in gp.split())
     thermo = create_thermo(species, os.path.join(lib_dir, "therm.dat"),
-                           device=gmd.device)
-    molwt = thermo.molwt.cpu().numpy()
+                           device=device)
 
     comp_text = text("molefractions")
     if comp_text is not None:
@@ -100,8 +106,16 @@ def input_data(xml_file, lib_dir, chem, device=None):
                 f"need <molefractions> or <massfractions> in {xml_file}"
             )
         mass = parse_composition_text(comp_text, species)
-        n = mass / molwt
-        mole_fracs = n / n.sum()
+        mole_fracs = mass_to_mole(
+            torch.tensor(mass, device=device), thermo.molwt).cpu().numpy()
+
+    smd = None
+    if chem.surfchem:
+        mech = text("surface_mech")
+        if mech is None:
+            raise KeyError(f"surfchem run needs <surface_mech> in {xml_file}")
+        smd = compile_mech(os.path.join(lib_dir, mech), thermo, species,
+                           device=device)
 
     return InputData(
         T=value("T"),
@@ -113,4 +127,5 @@ def input_data(xml_file, lib_dir, chem, device=None):
         mole_fracs=mole_fracs,
         thermo=thermo,
         gmd=gmd,
+        smd=smd,
     )

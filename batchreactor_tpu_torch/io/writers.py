@@ -1,10 +1,11 @@
 """Post-hoc trajectory writers reproducing the reference's output files.
 
 Port of ``batchreactor_tpu/io/writers.py`` (host numpy code, the same file
-formats): ``gas_profile.dat/.csv`` with rows (t, T, p, rho, x_k), placed
-next to the input XML.  ``.dat`` has a 10-wide right-aligned tab-separated
-header and ``%.4e`` rows; ``.csv`` is comma-separated full-precision floats.
-Surface coverage files wait for surface chemistry (ROADMAP A7).
+formats): ``gas_profile.dat/.csv`` with rows (t, T, p, rho, x_k) and, with
+surface chemistry, ``surface_covg.dat/.csv`` with rows (t, T, theta_k),
+placed next to the input XML.  ``.dat`` has a 10-wide right-aligned
+tab-separated header and ``%.4e`` rows; ``.csv`` is comma-separated
+full-precision floats.
 """
 
 import os
@@ -53,8 +54,16 @@ def gas_profile_rows(ts, ys, T, molwt, ng):
     return np.column_stack([ts, np.full_like(ts, T), p, rho, x])
 
 
-def write_profiles(out_dir, species, ts, ys, T, molwt):
-    """Write gas_profile.{dat,csv} into ``out_dir``; returns the paths."""
+def coverage_rows(ts, ys, T, ng):
+    """Rows (t, T, theta_1..theta_Ss) from saved states [rho_k, theta_k]."""
+    return np.column_stack([ts, np.full_like(ts, T), ys[:, ng:]])
+
+
+def write_profiles(out_dir, species, ts, ys, T, molwt, surface_species=None):
+    """Write gas_profile.{dat,csv} (and surface_covg.{dat,csv} when
+    ``surface_species`` is given) into ``out_dir``; returns the paths.
+    The coverage files carry the reference code's name,
+    ``surface_covg``."""
     ng = len(species)
     gas_names = ["t", "T", "p", "rho"] + list(species)
     gas = gas_profile_rows(ts, ys, T, np.asarray(molwt), ng)
@@ -64,4 +73,12 @@ def write_profiles(out_dir, species, ts, ys, T, molwt):
     ]
     _write_dat(paths[0], gas_names, gas)
     _write_csv(paths[1], gas_names, gas)
+    if surface_species:
+        cov_names = ["t", "T"] + list(surface_species)
+        cov = coverage_rows(ts, ys, T, ng)
+        cov_paths = [os.path.join(out_dir, "surface_covg.dat"),
+                     os.path.join(out_dir, "surface_covg.csv")]
+        _write_dat(cov_paths[0], cov_names, cov)
+        _write_csv(cov_paths[1], cov_names, cov)
+        paths += cov_paths
     return paths

@@ -74,12 +74,19 @@ def lu_solve(lu_piv, b):
 
 
 def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
-                     n=None):
+                     n=None, n_surface=0):
     """The resolution rule for ``linsolve="auto"``:
 
     * CPU: ``"lu"`` — exact float64.
+    * CUDA, BDF, a state with surface coverages (``n_surface > 0``):
+      ``"lu"``.  The coverage block makes M = I - cJ too ill-conditioned
+      for a float32 factor once the step grows: with ``"lu32p"`` the
+      coupled GRI-3.0 + CH4/Ni sweep stalls at small steps and the site
+      fractions drift (``chip_smoke.py --lu32p-on-coverages`` measures
+      it; PERF.md).
     * CUDA, BDF: ``"lu32p"`` when the caller's batch is known and
-      ``batch * n >= LU32P_MIN_BN`` (the TPU's gate), else ``"lu"``.
+      ``batch * n >= LU32P_MIN_BN`` (the TPU's gate), else ``"lu"``.  ``n``
+      is the state width.
 
     Explicit modes pass through validated; the JAX package's ``inv32*``
     modes raise ``NotImplementedError`` (ROADMAP A3b)."""
@@ -94,7 +101,7 @@ def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
     if method != "bdf":
         raise NotImplementedError(
             f"method={method!r} is not ported yet (ROADMAP A8)")
-    if torch.device(device).type == "cpu":
+    if torch.device(device).type == "cpu" or n_surface:
         return "lu"
     if batch is not None and n is not None and batch * n >= LU32P_MIN_BN:
         return "lu32p"

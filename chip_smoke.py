@@ -4,18 +4,34 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # add --profile for the time breakdown
 
-It builds every kernel of the port's main path from the checkout's sources
+It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
-against its plain PyTorch version on the card, drives the main path — the
-GRI-3.0 isothermal ignition sweep, B = 1024 lanes — through the port's own
-entry point, cross-checks it against the float64 ``lu`` mode, and runs the
-file-driven entry point.  ``--profile`` adds a phase that runs the main
-path once more under ``torch.profiler`` and prints where its time goes
-(per layer and per kernel).  Each phase prints one JSON line; any failure
+against its plain PyTorch version on the card, and drives the port's paths
+through its own entry points:
+
+- the gas main path, the GRI-3.0 isothermal ignition sweep at B = 1024
+  lanes (the kernel's warp path), its float64 ``lu`` cross-check, and the
+  file-driven h2o2 run (phases 3-5);
+- the coupled GRI-3.0 + CH4/Ni sweep at B = 1024 lanes, T x Asv, over the
+  reference's 10 s horizon (float64 ``lu``), then the same sweep with
+  ``linsolve="lu32p"`` over its first millisecond (the kernel's CTA path:
+  n = 66, npad 72) against ``lu`` (phases 6-7);
+- the surface-only CH4/Ni sweep at B = 2048, the user-defined-chemistry
+  sweep at B = 4096 (the warp path) and the file-driven surface run
+  (phases 8-10).
+
+Every path is driven with the launch counts set to 0 just before it and
+read just after.  ``--profile`` adds a phase that runs the gas main path
+once more under ``torch.profiler`` and prints where its time goes (per
+layer and per kernel); ``--lu32p-on-coverages`` adds one that runs the
+coupled and surface sweeps with ``linsolve="lu32p"`` over their whole
+horizons, which is why ``linsolve="auto"`` takes the float64 ``lu`` for
+states with surface coverages.  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
-kernel (both paths of ``lu32p``) with its launches on the main path, its
-error against the plain version and its times; the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+kernel (both paths of ``lu32p``) with its launches by path, its error
+against the plain version and its times on its own path's matrices; the
+last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": 1}}``.
 
 Kernel times are CUDA-event times of launches queued behind a sleep kernel
 (so the host's enqueue never starves the card), rotating over enough input
@@ -45,6 +61,21 @@ T_LO, T_HI, T1 = 1500.0, 2000.0, 8e-4
 RTOL, ATOL = 1e-6, 1e-10
 COMP = {"CH4": 0.25, "O2": 0.5, "N2": 0.25}
 B_CROSS = 64
+
+# the coupled path: the reference's batch_gas_and_surf (GRI-3.0 with
+# CH4/Ni, 10 s) widened to 256 temperatures x 4 catalyst loadings
+N_T_COUPLED = 256
+ASV_DECADES = (1.0, 10.0, 100.0, 1000.0)
+T_LO_C, T_HI_C, T1_C = 1073.0, 1273.0, 10.0
+# the horizon of the coupled sweep with linsolve="lu32p" (the CTA kernel)
+T1_C_LU32P = 1e-3
+# the surface path: the reference's batch_surf (CH4/Ni over 7 gas species,
+# no gas mechanism, Asv = 10, 10 s) widened to 2048 temperatures
+GAS7 = ["CH4", "H2O", "H2", "CO", "CO2", "O2", "N2"]
+COMP7 = {"CH4": 0.25, "H2O": 0.25, "N2": 0.5}
+B_SURF, T_LO_S, T_HI_S, T1_S = 2048, 1023.0, 1223.0, 10.0
+# the user-defined path: first-order H2 decay on h2o2, 4096 temperatures
+B_UDF, T_LO_U, T_HI_U, T1_U = 4096, 1000.0, 2000.0, 5.0
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -367,6 +398,185 @@ def sweep(bt, gm, th, T, device, **kw):
         device=device, **kw)
 
 
+def counted(fn):
+    """Run ``fn`` with the kernel's launch counts set to 0 just before it;
+    return its result, the launches and the launches by path."""
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    lc.LAUNCHES = 0
+    lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    out = fn()
+    return out, lc.LAUNCHES, dict(lc.LAUNCHES_BY_PATH)
+
+
+def coupled_conditions():
+    """(T, Asv) of the coupled path: N_T_COUPLED temperatures x the Asv
+    decades, temperature-major."""
+    T = np.repeat(np.linspace(T_LO_C, T_HI_C, N_T_COUPLED),
+                  len(ASV_DECADES))
+    Asv = np.tile(ASV_DECADES, N_T_COUPLED)
+    return T, Asv
+
+
+def coupled_jacobians(gm, th, sm, device):
+    """The coupled Jacobians J (B = 1024, n = 53 + 13) at the coupled
+    path's initial states across the T x Asv grid."""
+    import torch
+
+    from batchreactor_tpu_torch.api import get_solution_vector
+    from batchreactor_tpu_torch.ops.rhs import make_surface_jac
+
+    sp = list(gm.species)
+    x0 = np.zeros(len(sp))
+    for k, v in COMP.items():
+        x0[sp.index(k)] = v
+    T, Asv = coupled_conditions()
+    T = torch.tensor(T, device=device)
+    Asv = torch.tensor(Asv, device=device)
+    y0 = get_solution_vector(np.broadcast_to(x0, (T.shape[0], len(sp))),
+                             th.molwt, T, 1e5, ini_covg=sm.ini_covg)
+    return make_surface_jac(sm, th, gm=gm)(0.0, y0, {"T": T, "Asv": Asv})
+
+
+def coupled_matrices(gm, th, sm, device, c=1e-7):
+    """Newton iteration matrices M = I - c J of the coupled path
+    (:func:`coupled_jacobians`), c = 1e-7 s: the CTA kernel's inputs
+    there."""
+    import torch
+
+    J = coupled_jacobians(gm, th, sm, device)
+    return torch.eye(J.shape[-1], dtype=torch.float64, device=device) - c * J
+
+
+def coupled_conditioning(gm, th, sm, device, ng):
+    """How the coupled Newton matrices condition as the step grows: the
+    largest |J| entry of each block (gas/coverage rows x columns) and
+    cond(M) over the lanes for c = h/gamma from 1e-9 to 1e-3 s."""
+    import torch
+
+    J = coupled_jacobians(gm, th, sm, device)
+    blocks = {"gg": J[:, :ng, :ng], "gt": J[:, :ng, ng:],
+              "tg": J[:, ng:, :ng], "tt": J[:, ng:, ng:]}
+    eye = torch.eye(J.shape[-1], dtype=torch.float64, device=device)
+    cond = {}
+    for c in (1e-9, 1e-7, 1e-5, 1e-3):
+        k = torch.linalg.cond(eye - c * J)
+        cond[f"{c:g}"] = {"max": float(k.max()), "median": float(
+            k.median())}
+    return {"J_abs_max": {b: float(v.abs().max()) for b, v in
+                          blocks.items()}, "cond_M": cond}
+
+
+def coupled_sweep(bt, gm, th, sm, T, Asv, t1, device, segment_steps=256,
+                  **kw):
+    return bt.batch_reactor_sweep(
+        COMP, T, 1e5, t1, chem=bt.Chemistry(gaschem=True, surfchem=True),
+        thermo_obj=th, gmd=gm, smd=sm, Asv=Asv, rtol=RTOL, atol=ATOL,
+        asv_quirk=True, segment_steps=segment_steps, device=device, **kw)
+
+
+def h2_decay_udf(species, device):
+    """First-order H2 decay at k(T) = T/1e5 1/s, per lane (the source is
+    mapped over the lanes with torch.func.vmap): mol/m^3/s."""
+    import torch
+
+    onehot = torch.zeros(len(species), dtype=torch.float64, device=device)
+    onehot[list(species).index("H2")] = 1.0
+
+    def udf(t, state):
+        c = state["mole_frac"] * state["p"] / (8.314472 * state["T"])
+        return -(state["T"] / 1e5) * c * onehot
+
+    return udf
+
+
+def check_sweep(name, out, B, by_path, want_path):
+    """The assertions every sweep phase shares: all lanes successful,
+    finite states and, with surface chemistry, coverages that sum to 1
+    within 1e-6; the kernel launched on ``want_path`` only (``None``: the
+    float64 ``lu`` mode, no launch).  Returns the coverage sums' largest
+    distance from 1."""
+    rep = out["report"]
+    want_ls = "lu" if want_path is None else "lu32p"
+    if out["linsolve"] != want_ls:
+        raise AssertionError(f"{name}: linsolve resolved to "
+                             f"{out['linsolve']!r}, not {want_ls!r}")
+    launched = {k for k, v in by_path.items() if v}
+    if launched != ({want_path} if want_path else set()):
+        raise AssertionError(f"{name}: lu32p launches by path {by_path}")
+    if rep["counts"] != {"success": B}:
+        raise AssertionError(f"{name}: lanes not all successful: "
+                             f"{rep['counts']}")
+    x = np.stack(list(out["x"].values()), axis=1)
+    if not np.all(np.isfinite(x)):
+        raise AssertionError(f"{name}: non-finite mole fractions")
+    if "covg" in out:
+        dev = np.abs(out["covg"].sum(axis=1) - 1.0)
+        if not (np.all(np.isfinite(out["covg"])) and dev.max() <= 1e-6):
+            raise AssertionError(f"{name}: coverage sums off 1 by "
+                                 f"{dev.max()}")
+        return float(dev.max())
+    return None
+
+
+def coupled_states(out, species):
+    """Final gas mole fractions then coverages, (B, 66)."""
+    return np.concatenate([np.stack([out["x"][k] for k in species], axis=1),
+                           out["covg"]], axis=1)
+
+
+def coupled_lu32p_full(bt, gm, th, sm, T, Asv, device, out_lu):
+    """``--lu32p-on-coverages``: the coupled sweep over its whole horizon
+    with linsolve="lu32p" in one segment, each lane held to as many
+    attempts as twice the accepted steps of the slowest lane with the
+    float64 lu (``out_lu``, phase 6): the lanes it finishes, their
+    accepted steps and their coverage sums, against the lu run's."""
+    budget = 2 * int(out_lu["report"]["n_accepted"]["max"])
+    t0 = time.perf_counter()
+    out, _, by_path = counted(lambda: coupled_sweep(
+        bt, gm, th, sm, T, Asv, T1_C, device, linsolve="lu32p",
+        segment_steps=0, max_steps=budget))
+    wall = time.perf_counter() - t0
+    done = out["report"]["counts"].get("success", 0) > 0
+    dev = np.abs(out["covg"].sum(axis=1) - 1.0)[out["status"] == 1]
+    return {"B": int(T.shape[0]), "max_attempts": budget, "wall_s": wall,
+            "counts": out["report"]["counts"],
+            "mean_accepted": out["report"]["n_accepted"]["mean"],
+            "lu_mean_accepted": out_lu["report"]["n_accepted"]["mean"],
+            "lu_max_accepted": out_lu["report"]["n_accepted"]["max"],
+            "covg_sum_max_dev_done": float(dev.max()) if done else None,
+            "lu_covg_sum_max_dev": float(np.abs(
+                out_lu["covg"].sum(axis=1) - 1.0).max()),
+            "lu32p_launches_by_path": by_path}
+
+
+def surface_sweep(bt, th7, sm7, T, device, **kw):
+    return bt.batch_reactor_sweep(
+        COMP7, T, 1e5, T1_S, chem=bt.Chemistry(surfchem=True),
+        thermo_obj=th7, smd=sm7, Asv=10.0, rtol=RTOL, atol=ATOL,
+        segment_steps=256, device=device, **kw)
+
+
+def surface_lu32p(bt, th7, sm7, T, device, out_lu):
+    """``--lu32p-on-coverages``: the surface sweep with linsolve="lu32p"
+    against the float64 lu run ``out_lu`` (phase 8): lanes finished,
+    accepted steps and the coverage sums' distance from 1."""
+    t0 = time.perf_counter()
+    out, _, by_path = counted(lambda: surface_sweep(bt, th7, sm7, T, device,
+                                                    linsolve="lu32p"))
+    wall = time.perf_counter() - t0
+    return {"B": int(T.shape[0]), "wall_s": wall,
+            "counts": out["report"]["counts"],
+            "mean_accepted": out["report"]["n_accepted"]["mean"],
+            "max_accepted": out["report"]["n_accepted"]["max"],
+            "lu_mean_accepted": out_lu["report"]["n_accepted"]["mean"],
+            "covg_sum_max_dev": float(np.abs(
+                out["covg"].sum(axis=1) - 1.0).max()),
+            "lu_covg_sum_max_dev": float(np.abs(
+                out_lu["covg"].sum(axis=1) - 1.0).max()),
+            "lu32p_launches_by_path": by_path}
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
     """Where the main path's time goes: the sweep under torch.profiler,
     with the port's layers labelled by ``record_function`` ranges (RHS,
@@ -490,13 +700,16 @@ def main():
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
                           os.path.join(FIXTURES, "therm.dat"))
+    sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
+                         list(gm.species))
     gen = torch.Generator().manual_seed(1)
     timing = {}
-    for name, M in (("main", main_path_matrices(gm, th, device)),
-                    ("main_b4096", main_path_matrices(gm, th, device, 4096)),
-                    ("cta_n120", separated(B_MAIN, 120, gen, device))):
-        timing[name] = time_kernel(M)
-        del M
+    for name, build in (
+            ("main", lambda: main_path_matrices(gm, th, device)),
+            ("main_b4096", lambda: main_path_matrices(gm, th, device, 4096)),
+            ("cta_n120", lambda: separated(B_MAIN, 120, gen, device)),
+            ("coupled_n66", lambda: coupled_matrices(gm, th, sm, device))):
+        timing[name] = time_kernel(build())
         emit({"phase": "kernel_timing", "case": name, "gpu": smi,
               **timing[name]})
     emit({"phase": "kernel_checked", "seconds": time.perf_counter() - t0})
@@ -572,15 +785,167 @@ def main():
           "x_H2O": row["H2O"], "x_O2": row["O2"], "rows": len(lines) - 1,
           "seconds": time.perf_counter() - t0})
 
+    # ---- phase 6: the coupled path -------------------------------------
+    # linsolve="auto" resolves to the float64 lu for a state with coverages
+    # (solver.linalg.resolve_linsolve; --lu32p-on-coverages measures why)
+    by_phase = {"gas_main": by_path}
+    Tc, Asv = coupled_conditions()
+    B_C = Tc.shape[0]
+    t0 = time.perf_counter()
+    coupled_sweep(bt, gm, th, sm, Tc, Asv, T1_C, device)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_c, _, by_phase["coupled"] = counted(
+        lambda: coupled_sweep(bt, gm, th, sm, Tc, Asv, T1_C, device))
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    dev_c = check_sweep("coupled", out_c, B_C, by_phase["coupled"], None)
+    rep = out_c["report"]
+    emit({"phase": "coupled", "gpu": smi, "B": B_C,
+          "mechanism": "GRI-3.0 (53 species) + CH4/Ni (13 surface species, "
+                       "42 reactions), n = 66",
+          "T": [T_LO_C, T_HI_C], "Asv": list(ASV_DECADES), "t1": T1_C,
+          "linsolve": out_c["linsolve"], "jac_window": out_c["jac_window"],
+          "cold_s": cold_s, "wall_s": wall_c, "cond_per_s": B_C / wall_c,
+          "mean_accepted": rep["n_accepted"]["mean"],
+          "max_accepted": rep["n_accepted"]["max"],
+          "min_accepted": rep["n_accepted"]["min"],
+          "covg_sum_max_dev": dev_c,
+          "lu32p_launches_by_path": by_phase["coupled"]})
+
+    # ---- phase 7: the CTA kernel on the coupled path ---------------------
+    # the same sweep with linsolve="lu32p" over its first T1_C_LU32P s,
+    # against the float64 lu over the same horizon
+    t0 = time.perf_counter()
+    out_k, _, by_phase["coupled_lu32p"] = counted(
+        lambda: coupled_sweep(bt, gm, th, sm, Tc, Asv, T1_C_LU32P, device,
+                              linsolve="lu32p"))
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    dev_k = check_sweep("coupled_lu32p", out_k, B_C,
+                        by_phase["coupled_lu32p"], "cta")
+    ref = coupled_sweep(bt, gm, th, sm, Tc, Asv, T1_C_LU32P, device)
+    check_sweep("coupled_lu32p reference", ref, B_C, {}, None)
+    got, want = coupled_states(out_k, th.species), coupled_states(
+        ref, th.species)
+    diff = np.abs(got - want)
+    if not np.all(diff <= 1e-5 + 1e-3 * np.abs(want)):
+        raise AssertionError(f"coupled lu32p vs lu: max abs {diff.max()}")
+    big = np.abs(want) > 1e-6
+    launches_k = by_phase["coupled_lu32p"]["cta"]
+    emit({"phase": "coupled_lu32p", "gpu": smi, "B": B_C,
+          "t1": T1_C_LU32P, "linsolve": out_k["linsolve"],
+          "wall_s": wall_k,
+          "mean_accepted": out_k["report"]["n_accepted"]["mean"],
+          "max_accepted": out_k["report"]["n_accepted"]["max"],
+          "lu_max_accepted": ref["report"]["n_accepted"]["max"],
+          "covg_sum_max_dev": dev_k,
+          "max_abs_diff_vs_lu": float(diff.max()),
+          "max_rel_diff_vs_lu": float((diff[big] / np.abs(want[big])).max()),
+          "bound": "1e-5 + 1e-3 |lu|",
+          "lu32p_launches": launches_k,
+          "lu32p_launches_by_path": by_phase["coupled_lu32p"],
+          "kernel_share": launches_k * timing["coupled_n66"]["hot_ms"]
+          / 1e3 / wall_k, "seconds": time.perf_counter() - t0})
+
+    # ---- phase 8: the surface path ---------------------------------------
+    th7 = bt.create_thermo(GAS7, os.path.join(FIXTURES, "therm.dat"))
+    sm7 = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th7, GAS7)
+    Ts = np.linspace(T_LO_S, T_HI_S, B_SURF)
+    t0 = time.perf_counter()
+    out_s, _, by_phase["surface"] = counted(
+        lambda: surface_sweep(bt, th7, sm7, Ts, device))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    dev_s = check_sweep("surface", out_s, B_SURF, by_phase["surface"], None)
+    lane = int(np.argmin(np.abs(Ts - 1073.15)))
+    x_h2, x_co = out_s["x"]["H2"][lane], out_s["x"]["CO"][lane]
+    if not (x_h2 > 0.01 and x_co > 0.001):
+        raise AssertionError(f"surface: no syngas at {Ts[lane]} K: "
+                             f"x_H2 {x_h2}, x_CO {x_co}")
+    emit({"phase": "surface", "gpu": smi, "B": B_SURF,
+          "mechanism": "CH4/Ni over 7 gas species, n = 20", "Asv": 10.0,
+          "t1": T1_S, "linsolve": out_s["linsolve"], "wall_s": wall_s,
+          "cond_per_s": B_SURF / wall_s,
+          "mean_accepted": out_s["report"]["n_accepted"]["mean"],
+          "max_accepted": out_s["report"]["n_accepted"]["max"],
+          "covg_sum_max_dev": dev_s, "T_syngas": float(Ts[lane]),
+          "x_H2": float(x_h2), "x_CO": float(x_co),
+          "lu32p_launches_by_path": by_phase["surface"]})
+
+    if "--lu32p-on-coverages" in sys.argv[1:]:
+        emit({"phase": "lu32p_on_coverages", "gpu": smi,
+              "conditioning": coupled_conditioning(gm, th, sm, device,
+                                                   gm.n_species),
+              "coupled": coupled_lu32p_full(bt, gm, th, sm, Tc, Asv, device,
+                                            out_c),
+              "surface": surface_lu32p(bt, th7, sm7, Ts, device, out_s)})
+
+    # ---- phase 9: the user-defined-chemistry path ------------------------
+    gm_h = bt.compile_gaschemistry(os.path.join(FIXTURES, "h2o2.dat"))
+    th_h = bt.create_thermo(list(gm_h.species),
+                            os.path.join(FIXTURES, "therm.dat"))
+    Tu = np.linspace(T_LO_U, T_HI_U, B_UDF)
+    t0 = time.perf_counter()
+    out_u, launches_u, by_phase["udf"] = counted(
+        lambda: bt.batch_reactor_sweep(
+            {"H2": 0.25, "O2": 0.25, "N2": 0.5}, Tu, 1e5, T1_U,
+            chem=bt.Chemistry(userchem=True,
+                              udf=h2_decay_udf(th_h.species, device)),
+            thermo_obj=th_h, rtol=RTOL, atol=ATOL, segment_steps=256,
+            device=device))
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    check_sweep("udf", out_u, B_UDF, by_phase["udf"], "warp")
+    f = 0.25 * np.exp(-Tu / 1e5 * T1_U)
+    rel_u = np.abs(out_u["x"]["H2"] / (f / (0.75 + f)) - 1.0)
+    if not np.all(rel_u <= 1e-3):
+        raise AssertionError(f"udf: x_H2 off the closed form by {rel_u.max()}")
+    emit({"phase": "udf", "gpu": smi, "B": B_UDF,
+          "source": "first-order H2 decay, k = T/1e5 1/s, on h2o2 (n = 9)",
+          "t1": T1_U, "linsolve": out_u["linsolve"], "wall_s": wall_u,
+          "mean_accepted": out_u["report"]["n_accepted"]["mean"],
+          "x_H2_max_rel_err": float(rel_u.max()),
+          "lu32p_launches": launches_u,
+          "lu32p_launches_by_path": by_phase["udf"]})
+
+    # ---- phase 10: the file-driven surface entry point -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = os.path.join(tmp, "batch.xml")
+        with open(xml, "w") as f:
+            f.write("<batch><surface_mech>ch4ni.xml</surface_mech>"
+                    f"<gasphase>{' '.join(GAS7)}</gasphase>"
+                    "<molefractions>CH4=0.25,H2O=0.25,N2=0.5</molefractions>"
+                    "<T>1073.15</T><p>1e5</p><Asv>10</Asv>"
+                    f"<time>{T1_S}</time></batch>")
+        t0 = time.perf_counter()
+        status = bt.batch_reactor(xml, FIXTURES, surfchem=True,
+                                  verbose=False)
+        covg_csv = os.path.join(tmp, "surface_covg.csv")
+        with open(covg_csv) as f:
+            lines = f.read().splitlines()
+    theta = np.array([float(v) for v in lines[-1].split(",")[2:]])
+    if status != "Success" or abs(theta.sum() - 1.0) > 1e-6:
+        raise AssertionError(f"file-driven surface: {status}, coverage sum "
+                             f"{theta.sum()}")
+    emit({"phase": "file_driven_surface", "status": status,
+          "t_end": float(lines[-1].split(",")[0]), "rows": len(lines) - 1,
+          "covg_sum": float(theta.sum()),
+          "seconds": time.perf_counter() - t0})
+
     print(smi, flush=True)
     kernels = []
-    for path, case in (("warp", "main"), ("cta", "cta_n120")):
+    for path, case, paths in (("warp", "main", ("gas_main", "udf")),
+                              ("cta", "coupled_n66", ("coupled_lu32p",))):
         kt = timing[case]
         kernels.append({
             "name": f"lu32p_{path}", "route": "cuda",
             "source": "batchreactor_tpu_torch/csrc/lu32p.cu",
             "replaces": "batchreactor_tpu/solver/linalg_pallas.py:69",
-            "launches": by_path[path], "on_main_path": path == "warp",
+            "launches": sum(by_phase[p][path] for p in paths),
+            "launches_by_phase": {p: c[path] for p, c in by_phase.items()},
+            "on_paths": list(paths), "timing_case": case,
             "pass": True, "shape": kt["shape"],
             "max_abs_err": kt["max_abs_err"], "ms": kt["ms"],
             "hot_ms": kt["hot_ms"], "plain_ms": kt["plain_ms"],

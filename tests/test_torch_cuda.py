@@ -96,3 +96,59 @@ def test_lu32p_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(TypeError, match="float64"):
         lc.lu32p_factor(torch.eye(3, device=cuda)[None])
     assert lc.LAUNCHES == before and lc.LAUNCHES_BY_PATH == by_path
+
+
+def test_lu32p_cta_path_on_coupled_newton_matrices(cuda):
+    """The CTA path (npad 72) on the coupled GRI-3.0 + CH4/Ni path's own
+    Newton matrices M = I - c J (n = 66: 53 gas species, 13 coverages) at
+    the coupled initial states, T over 1073-1273 K x Asv 1..1000: the
+    plain version's pivots and a backward error <= 64 n eps32."""
+    import os
+
+    import batchreactor_tpu_torch as bt
+    from batchreactor_tpu_torch.ops.rhs import make_surface_jac
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    gm = bt.compile_gaschemistry(os.path.join(fixtures, "grimech.dat"),
+                                 device=cuda)
+    th = bt.create_thermo(list(gm.species),
+                          os.path.join(fixtures, "therm.dat"), device=cuda)
+    sm = bt.compile_mech(os.path.join(fixtures, "ch4ni.xml"), th,
+                         list(gm.species), device=cuda)
+    sp = list(gm.species)
+    x0 = np.zeros(len(sp))
+    for k, v in {"CH4": 0.25, "O2": 0.5, "N2": 0.25}.items():
+        x0[sp.index(k)] = v
+    B = 256
+    T = torch.tensor(np.repeat(np.linspace(1073.0, 1273.0, B // 4), 4),
+                     device=cuda)
+    Asv = torch.tensor(np.tile([1.0, 10.0, 100.0, 1000.0], B // 4),
+                       device=cuda)
+    y0 = bt.get_solution_vector(np.broadcast_to(x0, (B, len(sp))), th.molwt,
+                                T, 1e5, ini_covg=sm.ini_covg)
+    J = make_surface_jac(sm, th, gm=gm)(0.0, y0, {"T": T, "Asv": Asv})
+    n = J.shape[-1]
+    assert n == 66 and lc.launch_config(B, lc.padded_n(n))["path"] == "cta"
+    M = torch.eye(n, dtype=torch.float64, device=cuda) - 1e-7 * J
+    before = lc.LAUNCHES_BY_PATH["cta"]
+    LU_k, piv_k = lc.lu32p_factor(M)
+    assert lc.LAUNCHES_BY_PATH["cta"] == before + 1
+    LU_p, piv_p = lc.lu32p_factor_plain(M)
+    torch.cuda.synchronize()
+    assert torch.equal(piv_k, piv_p)
+    eps = float(np.finfo(np.float32).eps)
+    npad = LU_k.shape[-1]
+    Ap = torch.eye(npad, dtype=torch.float64, device=cuda).repeat(B, 1, 1)
+    Ap[:, :n, :n] = M.to(torch.float32).double()
+    L = torch.tril(LU_k.double(), -1) + torch.eye(npad, dtype=torch.float64,
+                                                   device=cuda)
+    PA = Ap.clone()
+    lanes = torch.arange(B, device=cuda)
+    for k in range(npad):
+        p = piv_k[:, k].long()
+        rk = PA[:, k, :].clone()
+        PA[:, k, :] = PA[lanes, p, :]
+        PA[lanes, p, :] = rk
+    err = (PA - L @ torch.triu(LU_k.double())).abs().amax(dim=(1, 2))
+    assert float((err / Ap.abs().amax(dim=(1, 2))).max()) <= 64 * n * eps

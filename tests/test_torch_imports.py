@@ -40,7 +40,8 @@ def test_no_jax_imports(path):
 def test_port_files_found():
     names = {p.relative_to(ROOT / "batchreactor_tpu_torch").as_posix()
              for p in PORT_FILES}
-    assert {"api.py", "models/gas.py", "ops/gas_kinetics.py",
+    assert {"api.py", "models/gas.py", "models/surface.py",
+            "ops/gas_kinetics.py", "ops/surface_kinetics.py",
             "solver/bdf.py", "solver/linalg_cuda.py",
             "parallel/sweep.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
@@ -80,7 +81,9 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
         with pytest.raises(NotImplementedError, match=item):
             bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
                                    **opt)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # surface chemistry is ported: a coupled sweep given md= alone raises
+    # the JAX package's TypeError (it needs gmd= and smd=)
+    with pytest.raises(TypeError, match="needs gmd=.*and smd="):
         bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6,
                                chem=bt.Chemistry(gaschem=True,
                                                  surfchem=True),
