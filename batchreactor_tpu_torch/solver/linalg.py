@@ -79,11 +79,17 @@ def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
 
     * CPU: ``"lu"`` — exact float64.
     * CUDA, BDF, a state with surface coverages (``n_surface > 0``):
-      ``"lu"``.  The coverage block makes M = I - cJ too ill-conditioned
-      for a float32 factor once the step grows: with ``"lu32p"`` the
-      coupled GRI-3.0 + CH4/Ni sweep stalls at small steps and the site
-      fractions drift (``chip_smoke.py --lu32p-on-coverages`` measures
-      it; PERF.md).
+      ``"lu"``.  A float32 factor does not carry these states: eliminating
+      the gas rows of adsorbing species against coverage pivot rows up to
+      ten decades larger leaves those rows with errors of the order of
+      their own entries, in any float32 LU with partial pivoting (the
+      plain version as much as the kernel:
+      ``python -m batchreactor_tpu_torch.tools.lu32p_coverages``).  With
+      ``"lu32p"`` the coupled GRI-3.0 + CH4/Ni sweep stalls at small steps
+      (3 of 4 lanes short of 10 s in twice ``"lu"``'s steps, on the CPU),
+      and on an H100 the CH4/Ni surface sweep took 19.24 s against 8.73 s
+      with ``"lu"`` (B = 2048) with its coverage sums 1.7e-6 off 1
+      (PERF.md).
     * CUDA, BDF: ``"lu32p"`` when the caller's batch is known and
       ``batch * n >= LU32P_MIN_BN`` (the TPU's gate), else ``"lu"``.  ``n``
       is the state width.

@@ -278,3 +278,40 @@ def lu32p_solve(lu_piv, b):
     bp[..., :n] = b.to(torch.float32)
     x = torch.linalg.lu_solve(LU, piv + 1, bp[..., None])
     return x[..., :n, 0]
+
+
+def permute_rows(A, piv):
+    """P A for LAPACK-style 0-based ``piv`` (the row exchanges in order)."""
+    A = A.clone()
+    lanes = torch.arange(A.shape[0], device=A.device)
+    for k in range(piv.shape[1]):
+        p = piv[:, k].long()
+        rk = A[:, k, :].clone()
+        A[:, k, :] = A[lanes, p, :]
+        A[lanes, p, :] = rk
+    return A
+
+
+def lu32p_backward_error(A, LU, piv):
+    """Componentwise backward error of an :func:`lu32p_factor` output for A
+    (B, n, n): per lane, the largest (|PA - LU|_ij - n FLT_MIN)+ /
+    (|L||U|)_ij over the padded float32 matrix the factor was taken of
+    (in float64), and the largest |L|.
+
+    Any float32 LU with partial pivoting meets |PA - LU| <= gamma_n |L||U|
+    entry by entry (gamma_n ~ n eps32, and n FLT_MIN covers entries that
+    underflow) with |L| <= 1.  Entry by entry, the bound holds the small
+    rows of a matrix to their own scale (the gas rows of a coupled Newton
+    matrix, beside coverage rows ten decades larger), where a bound scaled
+    by the largest entry of the lane or of the row would not."""
+    npad = LU.shape[-1]
+    Ap = _pad_identity(A, npad).double()
+    LUd = LU.double()
+    L = torch.tril(LUd, -1) + torch.eye(npad, dtype=torch.float64,
+                                        device=A.device)
+    U = torch.triu(LUd)
+    E = (permute_rows(Ap, piv) - L @ U).abs()
+    E = (E - npad * torch.finfo(torch.float32).tiny).clamp_min(0.0)
+    LLU = L.abs() @ U.abs()
+    ratio = torch.where(E > 0, E / LLU, torch.zeros_like(E))
+    return ratio.amax(dim=(1, 2)), torch.tril(LUd, -1).abs().amax(dim=(1, 2))

@@ -6,8 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
-against its plain PyTorch version on the card, and drives the port's paths
-through its own entry points:
+against its plain PyTorch version on the card (phase 2: random matrices,
+and each path's own Newton matrices, the coupled path's at three step
+sizes, with their condition numbers), and drives the port's paths through
+its own entry points:
 
 - the gas main path, the GRI-3.0 isothermal ignition sweep at B = 1024
   lanes (the kernel's warp path), its float64 ``lu`` cross-check, and the
@@ -23,10 +25,7 @@ through its own entry points:
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  ``--profile`` adds a phase that runs the gas main path
 once more under ``torch.profiler`` and prints where its time goes (per
-layer and per kernel); ``--lu32p-on-coverages`` adds one that runs the
-coupled and surface sweeps with ``linsolve="lu32p"`` over their whole
-horizons, which is why ``linsolve="auto"`` takes the float64 ``lu`` for
-states with surface coverages.  Each phase prints one JSON line; any failure
+layer and per kernel).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
@@ -167,37 +166,6 @@ def cold_hot_ms(fn, inputs, out_bytes, rounds=10, must_queue=True):
     return cold, hot, sets, q1 and q2
 
 
-def permute_rows(A, piv):
-    """P A for LAPACK-style 0-based ipiv (sequential row exchanges)."""
-    import torch
-
-    A = A.clone()
-    lanes = torch.arange(A.shape[0], device=A.device)
-    for k in range(piv.shape[1]):
-        p = piv[:, k].long()
-        rk = A[:, k, :].clone()
-        A[:, k, :] = A[lanes, p, :]
-        A[lanes, p, :] = rk
-    return A
-
-
-def backward_error(A, LU, piv):
-    """Per-lane max|PA - LU| / max|A| of the padded float64 system."""
-    import torch
-
-    from batchreactor_tpu_torch.solver.linalg_cuda import _pad_identity
-
-    npad = LU.shape[-1]
-    Ap = _pad_identity(A, npad).double()
-    Ap[:, :A.shape[1], :A.shape[1]] = A.double()
-    LUd = LU.double()
-    eye = torch.eye(npad, dtype=torch.float64, device=A.device)
-    L = torch.tril(LUd, -1) + eye
-    U = torch.triu(LUd)
-    err = (permute_rows(Ap, piv) - L @ U).abs().amax(dim=(1, 2))
-    return err / Ap.abs().amax(dim=(1, 2))
-
-
 def separated(B, n, gen, device):
     """Row-permuted strongly diagonally dominant matrices: every pivot is
     unique by a wide margin, so kernel and plain version must agree on it."""
@@ -253,15 +221,16 @@ def check_kernel(device, batches=(1, 1024, 4096),
             scale = LU_p.abs().amax(dim=(1, 2), keepdim=True)
             lu_err = float(((LU_k - LU_p).abs() / scale).max())
             del A, LU_k, LU_p
-            # general random matrices: backward error on every lane, solve
-            # error against cond(A) eps on the first 1024 (cond takes an SVD
-            # per lane)
+            # general random matrices: componentwise backward error and
+            # |L| <= 1 on every lane, solve error against cond(A) eps on the
+            # first 1024 (cond takes an SVD per lane)
             G = torch.randn((B, n, n), generator=gen,
                             dtype=torch.float64).to(device)
             b = torch.randn((B, n), generator=gen,
                             dtype=torch.float64).to(device)
             fac = lc.lu32p_factor(G)
-            bwd = float(backward_error(G, *fac).max())
+            bwd, l_max = (float(v.max()) for v in
+                          lc.lu32p_backward_error(G, *fac))
             m = min(B, 1024)
             x = lc.lu32p_solve((fac[0][:m], fac[1][:m]), b[:m]).double()
             x_ref = torch.linalg.solve(G[:m], b[:m])
@@ -270,10 +239,12 @@ def check_kernel(device, batches=(1, 1024, 4096),
             cond = torch.linalg.cond(G[:m])
             solve_ok = bool(torch.all(rel <= 4 * n * cond * EPS32))
             del G, fac
-            ok = piv_ok and lu_err <= tol and bwd <= tol and solve_ok
+            ok = (piv_ok and lu_err <= tol and bwd <= tol and l_max <= 1.0
+                  and solve_ok)
             cases.append({"B": B, "n": n, "path": path, "piv_equal": piv_ok,
                           "lu_rel_err": lu_err, "backward_err": bwd,
-                          "tol": tol, "solve_ok": solve_ok,
+                          "max_abs_L": l_max, "tol": tol,
+                          "solve_ok": solve_ok,
                           "solve_lanes": m})
             if not ok:
                 emit({"phase": "kernel", "failed": cases[-1]})
@@ -343,29 +314,51 @@ def main_path_matrices(gm, th, device, B=B_MAIN):
     return eye - 1e-7 * J
 
 
-def time_kernel(M):
-    """One shape: the kernel's error against its plain version on M, its
-    cold and hot times, the plain version's, the library call's
+def time_kernel(M, same_pivots=True):
+    """One shape: the kernel against its plain version on M, its cold and
+    hot times, the plain version's, the library call's
     (``torch.linalg.lu_factor_ex`` on the padded float32 matrices) and the
-    bound for these inputs."""
+    bound for these inputs.
+
+    Every lane must meet the componentwise backward bound |PA - LU| <= 64 n
+    eps32 |L||U| with |L| <= 1 (``lu32p_backward_error``), which holds
+    rows of any scale to their own.  With ``same_pivots`` every lane must
+    also take the plain version's pivots, and the factors may differ by at
+    most 64 n eps32 times the row's largest (|L||U|): the bound two float32
+    factorizations in different orders of operations meet at the paths'
+    own step sizes.  At the coupled path's larger steps (cond(M) to 1e18)
+    they need not (``python -m batchreactor_tpu_torch.tools.lu32p_coverages``
+    measures two correct ones apart), so there the pivots and the
+    difference are reported."""
     import torch
 
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
     B, n = M.shape[0], M.shape[-1]
     npad = lc.padded_n(n)
+    tol = 64 * n * EPS32
     LU_k, piv_k = lc.lu32p_factor(M)
     LU_p, piv_p = lc.lu32p_factor_plain(M)
     torch.cuda.synchronize()
     same = (piv_k == piv_p).all(dim=1)
-    max_abs_err = float((LU_k - LU_p)[same].abs().max())
-    scale = float(LU_p[same].abs().max())
-    bwd = float(backward_error(M, LU_k, piv_k).max())
-    if not (bool(same.all()) and max_abs_err <= 64 * n * EPS32 * scale
-            and bwd <= 64 * n * EPS32):
+    diff = (LU_k - LU_p)[same].abs().double()
+    max_abs_err = float(diff.max()) if bool(same.any()) else None
+    L = torch.tril(LU_p[same].double(), -1) + torch.eye(
+        npad, dtype=torch.float64, device=M.device)
+    llu_row = (L.abs() @ torch.triu(LU_p[same].double()).abs()).amax(
+        dim=2, keepdim=True)
+    fwd = float((diff / llu_row).max()) if bool(same.any()) else None
+    del L, llu_row, diff
+    bwd, l_max = (float(v.max()) for v in
+                  lc.lu32p_backward_error(M, LU_k, piv_k))
+    ok = bwd <= tol and l_max <= 1.0
+    if same_pivots:
+        ok = ok and bool(same.all()) and fwd <= tol
+    if not ok:
         raise AssertionError(
             f"lu32p at {B}x{n}: {int((~same).sum())} lanes with other "
-            f"pivots, max_abs_err {max_abs_err}, backward {bwd}")
+            f"pivots, difference {fwd} of the row's |L||U|, componentwise "
+            f"backward {bwd}, max|L| {l_max} (tolerance {tol})")
     del LU_k, LU_p
     out_bytes = B * npad * npad * 4 + B * npad * 4
     ms, hot_ms, sets, _ = cold_hot_ms(lc.lu32p_factor, (M,), out_bytes)
@@ -380,8 +373,10 @@ def time_kernel(M):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / PEAK_F32
     bound_ms = max(t_bytes, t_ops) * 1e3
     return {"shape": [B, n], "npad": npad,
-            "path": lc.launch_config(B, npad)["path"],
-            "max_abs_err": max_abs_err, "backward_err": bwd, "ms": ms,
+            "path": lc.launch_config(B, npad)["path"], "tol": tol,
+            "lanes_same_pivots": int(same.sum()), "max_abs_err": max_abs_err,
+            "diff_over_row_LLU": fwd, "backward_err": bwd,
+            "max_abs_L": l_max, "ms": ms,
             "hot_ms": hot_ms, "l2_rotation_sets": sets, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_queued": library_queued,
             "bound_ms": bound_ms,
@@ -438,26 +433,15 @@ def coupled_jacobians(gm, th, sm, device):
     return make_surface_jac(sm, th, gm=gm)(0.0, y0, {"T": T, "Asv": Asv})
 
 
-def coupled_matrices(gm, th, sm, device, c=1e-7):
-    """Newton iteration matrices M = I - c J of the coupled path
-    (:func:`coupled_jacobians`), c = 1e-7 s: the CTA kernel's inputs
-    there."""
-    import torch
-
-    J = coupled_jacobians(gm, th, sm, device)
-    return torch.eye(J.shape[-1], dtype=torch.float64, device=device) - c * J
-
-
-def coupled_conditioning(gm, th, sm, device, ng):
+def coupled_conditioning(J, ng):
     """How the coupled Newton matrices condition as the step grows: the
     largest |J| entry of each block (gas/coverage rows x columns) and
-    cond(M) over the lanes for c = h/gamma from 1e-9 to 1e-3 s."""
+    cond(M = I - c J) over the lanes for c = h/gamma from 1e-9 to 1e-3 s."""
     import torch
 
-    J = coupled_jacobians(gm, th, sm, device)
     blocks = {"gg": J[:, :ng, :ng], "gt": J[:, :ng, ng:],
               "tg": J[:, ng:, :ng], "tt": J[:, ng:, ng:]}
-    eye = torch.eye(J.shape[-1], dtype=torch.float64, device=device)
+    eye = torch.eye(J.shape[-1], dtype=torch.float64, device=J.device)
     cond = {}
     for c in (1e-9, 1e-7, 1e-5, 1e-3):
         k = torch.linalg.cond(eye - c * J)
@@ -525,56 +509,11 @@ def coupled_states(out, species):
                            out["covg"]], axis=1)
 
 
-def coupled_lu32p_full(bt, gm, th, sm, T, Asv, device, out_lu):
-    """``--lu32p-on-coverages``: the coupled sweep over its whole horizon
-    with linsolve="lu32p" in one segment, each lane held to as many
-    attempts as twice the accepted steps of the slowest lane with the
-    float64 lu (``out_lu``, phase 6): the lanes it finishes, their
-    accepted steps and their coverage sums, against the lu run's."""
-    budget = 2 * int(out_lu["report"]["n_accepted"]["max"])
-    t0 = time.perf_counter()
-    out, _, by_path = counted(lambda: coupled_sweep(
-        bt, gm, th, sm, T, Asv, T1_C, device, linsolve="lu32p",
-        segment_steps=0, max_steps=budget))
-    wall = time.perf_counter() - t0
-    done = out["report"]["counts"].get("success", 0) > 0
-    dev = np.abs(out["covg"].sum(axis=1) - 1.0)[out["status"] == 1]
-    return {"B": int(T.shape[0]), "max_attempts": budget, "wall_s": wall,
-            "counts": out["report"]["counts"],
-            "mean_accepted": out["report"]["n_accepted"]["mean"],
-            "lu_mean_accepted": out_lu["report"]["n_accepted"]["mean"],
-            "lu_max_accepted": out_lu["report"]["n_accepted"]["max"],
-            "covg_sum_max_dev_done": float(dev.max()) if done else None,
-            "lu_covg_sum_max_dev": float(np.abs(
-                out_lu["covg"].sum(axis=1) - 1.0).max()),
-            "lu32p_launches_by_path": by_path}
-
-
 def surface_sweep(bt, th7, sm7, T, device, **kw):
     return bt.batch_reactor_sweep(
         COMP7, T, 1e5, T1_S, chem=bt.Chemistry(surfchem=True),
         thermo_obj=th7, smd=sm7, Asv=10.0, rtol=RTOL, atol=ATOL,
         segment_steps=256, device=device, **kw)
-
-
-def surface_lu32p(bt, th7, sm7, T, device, out_lu):
-    """``--lu32p-on-coverages``: the surface sweep with linsolve="lu32p"
-    against the float64 lu run ``out_lu`` (phase 8): lanes finished,
-    accepted steps and the coverage sums' distance from 1."""
-    t0 = time.perf_counter()
-    out, _, by_path = counted(lambda: surface_sweep(bt, th7, sm7, T, device,
-                                                    linsolve="lu32p"))
-    wall = time.perf_counter() - t0
-    return {"B": int(T.shape[0]), "wall_s": wall,
-            "counts": out["report"]["counts"],
-            "mean_accepted": out["report"]["n_accepted"]["mean"],
-            "max_accepted": out["report"]["n_accepted"]["max"],
-            "lu_mean_accepted": out_lu["report"]["n_accepted"]["mean"],
-            "covg_sum_max_dev": float(np.abs(
-                out["covg"].sum(axis=1) - 1.0).max()),
-            "lu_covg_sum_max_dev": float(np.abs(
-                out_lu["covg"].sum(axis=1) - 1.0).max()),
-            "lu32p_launches_by_path": by_path}
 
 
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
@@ -703,15 +642,26 @@ def main():
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
     gen = torch.Generator().manual_seed(1)
+    J_c = coupled_jacobians(gm, th, sm, device)
+    eye_c = torch.eye(J_c.shape[-1], dtype=torch.float64, device=device)
     timing = {}
-    for name, build in (
-            ("main", lambda: main_path_matrices(gm, th, device)),
-            ("main_b4096", lambda: main_path_matrices(gm, th, device, 4096)),
-            ("cta_n120", lambda: separated(B_MAIN, 120, gen, device)),
-            ("coupled_n66", lambda: coupled_matrices(gm, th, sm, device))):
-        timing[name] = time_kernel(build())
+    # coupled_n66: the coupled path's Newton matrices M = I - c J at its
+    # initial states, c = 1e-7 s as on the other paths, then at the larger
+    # steps where cond(M) reaches 1e14 and 1e18
+    for name, build, same_pivots in (
+            ("main", lambda: main_path_matrices(gm, th, device), True),
+            ("main_b4096", lambda: main_path_matrices(gm, th, device, 4096),
+             True),
+            ("cta_n120", lambda: separated(B_MAIN, 120, gen, device), True),
+            ("coupled_n66", lambda: eye_c - 1e-7 * J_c, True),
+            ("coupled_n66_c1e-5", lambda: eye_c - 1e-5 * J_c, False),
+            ("coupled_n66_c1e-3", lambda: eye_c - 1e-3 * J_c, False)):
+        timing[name] = time_kernel(build(), same_pivots)
         emit({"phase": "kernel_timing", "case": name, "gpu": smi,
               **timing[name]})
+    emit({"phase": "coupled_conditioning", "gpu": smi,
+          **coupled_conditioning(J_c, gm.n_species)})
+    del J_c, eye_c
     emit({"phase": "kernel_checked", "seconds": time.perf_counter() - t0})
 
     # ---- phase 3: the main path -----------------------------------------
@@ -787,7 +737,7 @@ def main():
 
     # ---- phase 6: the coupled path -------------------------------------
     # linsolve="auto" resolves to the float64 lu for a state with coverages
-    # (solver.linalg.resolve_linsolve; --lu32p-on-coverages measures why)
+    # (solver.linalg.resolve_linsolve says why)
     by_phase = {"gas_main": by_path}
     Tc, Asv = coupled_conditions()
     B_C = Tc.shape[0]
@@ -873,14 +823,6 @@ def main():
           "covg_sum_max_dev": dev_s, "T_syngas": float(Ts[lane]),
           "x_H2": float(x_h2), "x_CO": float(x_co),
           "lu32p_launches_by_path": by_phase["surface"]})
-
-    if "--lu32p-on-coverages" in sys.argv[1:]:
-        emit({"phase": "lu32p_on_coverages", "gpu": smi,
-              "conditioning": coupled_conditioning(gm, th, sm, device,
-                                                   gm.n_species),
-              "coupled": coupled_lu32p_full(bt, gm, th, sm, Tc, Asv, device,
-                                            out_c),
-              "surface": surface_lu32p(bt, th7, sm7, Ts, device, out_s)})
 
     # ---- phase 9: the user-defined-chemistry path ------------------------
     gm_h = bt.compile_gaschemistry(os.path.join(FIXTURES, "h2o2.dat"))

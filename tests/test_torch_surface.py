@@ -3,8 +3,10 @@ ops/surface_kinetics.py, the surface and coupled builders of ops/rhs.py)
 against the JAX package, on the CPU.
 
 Parsed mechanism tensors must be equal; rates, Jacobian blocks and the
-RHS-level Jacobians agree to 1e-12 relative (per lane, against the lane's
-largest entry).  Inputs come from numpy seeds and the vendored fixtures.
+RHS-level Jacobians agree to 1e-12 relative, row by row (against the
+row's largest entry; the coupled RHS and Jacobian split into their gas and
+coverage blocks, whose scales lie ten decades apart).  Inputs come from
+numpy seeds and the vendored fixtures.
 """
 
 import os
@@ -19,17 +21,24 @@ import batchreactor_tpu as br
 from batchreactor_tpu.models.surface import compile_mech as compile_mech_j
 from batchreactor_tpu.ops import rhs as rhs_j
 from batchreactor_tpu.ops import surface_kinetics as sk_j
-from batchreactor_tpu_torch import compile_gaschemistry, create_thermo
+from batchreactor_tpu_torch import (compile_gaschemistry, create_thermo,
+                                    get_solution_vector)
 from batchreactor_tpu_torch.models.surface import (SURFACE_STATIC_FIELDS,
                                                    SURFACE_TENSOR_FIELDS,
                                                    SurfaceMechanism,
                                                    compile_mech)
 from batchreactor_tpu_torch.ops import surface_kinetics as sk_t
 from batchreactor_tpu_torch.ops.rhs import make_surface_jac, make_surface_rhs
+from batchreactor_tpu_torch.solver.linalg_cuda import (lu32p_backward_error,
+                                                       lu32p_factor_plain,
+                                                       permute_rows)
 
 torch.set_num_threads(1)
 
 REL = 1e-12
+# entries below this come only from the 1e-300 concentration clamp raised
+# to a fractional order (the rows where JAX rounds them to exact 0)
+ATOL = 1e-250
 B = 8
 GAS7 = ["CH4", "H2O", "H2", "CO", "CO2", "O2", "N2"]
 ASV = np.array([1.0, 10.0, 100.0, 1000.0])
@@ -41,11 +50,23 @@ CASES = {"ch4ni_gri": ("ch4ni.xml", "grimech.dat"),
          "h2oni_h2o2": ("h2oni.xml", "h2o2.dat")}
 
 
-def _close(got, ref, rel=REL):
+def _close(got, ref, rel=REL, ng=None):
+    """|got - ref| <= rel * (the row's largest |ref|) + ATOL, row by row
+    along the last axis.  With ``ng`` the gas and coverage parts (of the
+    columns, and of the rows of a (B, n, n) Jacobian) are compared as
+    blocks of their own."""
     got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
     ref = np.asarray(ref)
-    scale = np.max(np.abs(ref.reshape(ref.shape[0], -1)), axis=1)
-    tol = rel * scale.reshape((-1,) + (1,) * (ref.ndim - 1))
+    if ng is not None:
+        parts = (slice(None, ng), slice(ng, None))
+        for cols in parts:
+            if ref.ndim == 2:
+                _close(got[:, cols], ref[:, cols], rel)
+            else:
+                for rows in parts:
+                    _close(got[:, rows, cols], ref[:, rows, cols], rel)
+        return
+    tol = rel * np.max(np.abs(ref), axis=-1, keepdims=True) + ATOL
     assert np.all(np.abs(got - ref) <= tol), np.max(np.abs(got - ref) / tol)
 
 
@@ -185,12 +206,12 @@ def test_surface_rhs_and_jac_match_jax(case, asv_quirk):
     yt = torch.tensor(y)
     rhs = make_surface_rhs(sm_t, th_t, gm=gm_t, asv_quirk=asv_quirk)
     jac = make_surface_jac(sm_t, th_t, gm=gm_t, asv_quirk=asv_quirk)
-    _close(rhs(0.0, yt, cfg), ref_f)
+    ng = len(th_t.species)
+    _close(rhs(0.0, yt, cfg), ref_f, ng=ng)
     J = jac(0.0, yt, cfg)
-    _close(J, ref_J)
+    _close(J, ref_J, ng=ng)
     blocks = make_surface_jac(sm_t, th_t, gm=gm_t, asv_quirk=asv_quirk,
                               return_blocks=True)(0.0, yt, cfg)
-    ng = len(th_t.species)
     assert torch.equal(torch.cat([torch.cat(blocks[:2], 2),
                                   torch.cat(blocks[2:], 2)], 1), J)
     assert blocks[3].shape == (B, y.shape[1] - ng, y.shape[1] - ng)
@@ -206,7 +227,7 @@ def test_analytic_jacobian_matches_jacfwd_of_port_rhs(case):
     for b in (0, 3, 5):
         c1 = {k: v[b:b + 1] for k, v in cfg.items()}
         Jf = torch.func.jacfwd(lambda yy: rhs(0.0, yy[None], c1)[0])(yt[b])
-        _close(J[b:b + 1], Jf[None], rel=1e-10)
+        _close(J[b:b + 1], Jf[None], rel=1e-10, ng=len(th_t.species))
 
 
 def test_asv_quirk_scales_coverage_rows_by_asv(case):
@@ -277,3 +298,56 @@ def test_gasphase_order_must_match_thermo(fixtures_dir):
     with pytest.raises(ValueError, match="must match in order"):
         compile_mech(os.path.join(fixtures_dir, "ch4ni.xml"), th,
                      GAS7[::-1], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def coupled_jacobians(fixtures_dir):
+    """Coupled GRI-3.0 + CH4/Ni Jacobians (n = 66) at the coupled path's
+    initial states: 4 temperatures over 1073-1273 K x Asv 1..1000."""
+    gm = compile_gaschemistry(os.path.join(fixtures_dir, "grimech.dat"),
+                              device="cpu")
+    th = create_thermo(list(gm.species),
+                       os.path.join(fixtures_dir, "therm.dat"), device="cpu")
+    sm = compile_mech(os.path.join(fixtures_dir, "ch4ni.xml"), th,
+                      list(gm.species), device="cpu")
+    sp = list(gm.species)
+    x0 = np.zeros(len(sp))
+    for k, v in {"CH4": 0.25, "O2": 0.5, "N2": 0.25}.items():
+        x0[sp.index(k)] = v
+    T = torch.tensor(np.repeat(np.linspace(1073.0, 1273.0, 4), 4))
+    Asv = torch.tensor(np.tile(ASV, 4))
+    y0 = get_solution_vector(np.broadcast_to(x0, (16, len(sp))), th.molwt,
+                             T, 1e5, ini_covg=sm.ini_covg)
+    return make_surface_jac(sm, th, gm=gm)(0.0, y0, {"T": T, "Asv": Asv})
+
+
+@pytest.mark.parametrize("c", [1e-7, 1e-5, 1e-3])
+def test_lu32p_plain_backward_stable_on_coupled_newton_matrices(
+        coupled_jacobians, c):
+    """The plain version meets the componentwise bound that chip_smoke.py
+    holds the CTA kernel to on the same matrices, M = I - c J, at the
+    step sizes where cond(M) grows from ~1e10 to ~1e18; and the bound sees
+    an error in a gas row that a bound scaled by the lane's largest entry
+    (a coverage entry ~1e10) cannot."""
+    J = coupled_jacobians
+    n = J.shape[-1]
+    tol = 64 * n * float(np.finfo(np.float32).eps)
+    M = torch.eye(n, dtype=torch.float64) - c * J
+    LU, piv = lu32p_factor_plain(M)
+    bwd, l_max = lu32p_backward_error(M, LU, piv)
+    assert float(bwd.max()) <= tol and float(l_max.max()) <= 1.0
+    # perturb lane 0's U entry in a gas row that is smallest against the
+    # lane's largest |M| by 0.01 of its |L||U|, 20x the tolerance
+    Ud = torch.triu(LU[0].double())
+    L = torch.tril(LU[0].double(), -1) + torch.eye(LU.shape[-1],
+                                                   dtype=torch.float64)
+    LLU = L.abs() @ Ud.abs()
+    rows = permute_rows(torch.arange(LU.shape[-1], dtype=torch.float64)
+                        .expand(1, -1)[..., None], piv[:1])[0, :, 0]
+    gas_u = (rows[:, None] < 53) & (Ud.abs() > 1e-20)
+    i, j = divmod(int(torch.where(gas_u, LLU, torch.inf).argmin()),
+                  LU.shape[-1])
+    bad = LU.clone()
+    bad[0, i, j] += 0.01 * LLU[i, j]
+    assert float(lu32p_backward_error(M, bad, piv)[0][0]) > tol
+    assert 0.01 * float(LLU[i, j]) < tol * float(M[0].abs().max())
