@@ -19,7 +19,7 @@
 // element update is one fmaf(-l_ik, u_kj, a_ij) with l_ik = a_ik / pivot
 // (IEEE division, no TF32).
 //
-// Two kernels, chosen by npad alone (the wrapper's launch_config):
+// Three kernels, chosen by npad alone (the wrapper's launch_config):
 //
 // npad <= 64: lu32p_warp_kernel<NPAD>, one warp per lane matrix, the factor
 // in registers, no block barrier: the warps of a CTA only share its shared
@@ -54,22 +54,66 @@
 //     alone), and each lane copies its rows into registers, writing the
 //     identity pad on the way.
 //
-// npad 72..240: lu32p_cta_kernel, one CTA of 128 threads per lane matrix
-// with the npad x (npad + 1) tile in dynamic shared memory; per column a
-// block argmax, a row swap, the multipliers and the rank-1 update, each
-// behind a block barrier.  No main-path mechanism has n > 64; this is the
-// general path, kept as the first port wrote it.
+// npad 72..240: one CTA per lane matrix with the npad x npad tile in
+// dynamic shared memory, factored as the Pallas kernel factors it: a
+// right-looking blocked getrf with 8-wide panels, two kernels by npad.
+//   - npad 72..128, lu32p_cta_kernel<R> (128 threads): warp 0 factors each
+//     panel with the panel's rows in its registers (lane l holds rows
+//     ps + l + 32 s, R = 3 or 4, each with its position) and no block
+//     barrier; the pivot search is the warp kernel's (pivot_key,
+//     __reduce_max_sync, __reduce_min_sync), so ties and NaN order as there.
+//     Look-ahead: warp 0 first updates its next panel's 8 columns itself,
+//     while the other three warps update the columns right of it, so a
+//     panel costs two block barriers (18 at npad 72, where the first port of
+//     this path ran five per column).  At npad 72..96 the kernel is held to
+//     64 registers, so 8 CTAs fit an SM and B = 1024 runs in one wave.
+//   - npad 136..240, lu32p_cta_wide_kernel (256 threads): one CTA fills an
+//     SM's shared memory (two at npad 136..152), so nothing hides one warp's
+//     serial panel; each thread holds one panel row instead, and a column
+//     step is one block barrier: each warp's first largest key and its row
+//     go to a per-warp slot, every thread picks the winner after the
+//     barrier, then takes its multiplier and rank-1 update.  Ten block
+//     barriers per panel; the update runs on every warp after the panel.
+//   - Both: the panel's 8 exchanges on the other columns (the delayed
+//     laswp) are applied as net row moves, which 16 lanes derive from the 8
+//     pivots: one thread per column loads every moved entry, then stores
+//     them, and right of the panel solves the unit-lower 8 x 8 system for
+//     the U12 strip in registers between the two.  The rank-8 trailing
+//     update A22 -= L21 U12 gives each thread 4 x 4 tiles, the tile row's
+//     multipliers in registers (16 shared-memory accesses per 128 FMAs).
+//   - Rows ps .. ps + 7 are final once their panel's U12 is solved (later
+//     exchanges involve only rows below): they are stored to LU with 16-byte
+//     stores while the next panel runs.  The float64 slab is read with
+//     coalesced 16-byte loads, cast on the way, beside the identity pad.
+//   - R and the thread count are template parameters, npad is not: no loop
+//     index needs a runtime division.
+//   - Every update is an IEEE float32 fmaf on the CUDA cores.  No TF32: its
+//     ten mantissa bits would break |PA - LU| <= 64 n eps32 |L||U|.  Whether
+//     a 3xTF32 mma.sync trailing update keeps that bound, and pays, is a
+//     later question.
+//   The order of operations is tools/lu32p_coverages.py::blocked_lu32's,
+//   which reproduces both kernels' factors bit for bit.
 //
-// What bounds it on an H100: at the main path's shape (B = 1024, n = 53,
-// npad = 56) the function must read 1024*53*53*8 B = 23.0 MB of float64 and
-// write 1024*56*56*4 B = 12.8 MB of LU plus 0.2 MB of pivots, against about
-// 2/3 npad^3 B = 0.12 GFLOP: at 3.35 TB/s and 67 TFLOP/s (fp32) a bandwidth
-// bound of about 11 us.  The warp kernel moves each of those bytes once, but
-// it is latency-bound: each warp runs npad dependent column steps (two warp
-// reductions, a shared-memory round trip for the pivot row, IEEE divisions,
-// then the FMAs), and B = 1024 gives 7.75 warps per SM, two per scheduler,
-// to hide that.  The load phase (all warps read at once) does not overlap
-// the factorization.
+// What bounds them on an H100: per lane the function must read n*n*8 bytes
+// of float64 and write npad*npad*4 of LU (plus the pivots), against
+// 2/3 npad^3 flops.  At (B, n) = (1024, 53) that is 36 MB, 11 us at
+// 3.35 TB/s, against 0.12 GFLOP, 1.8 us at 67 TFLOP/s (fp32): bytes.  The
+// CTA path is bytes-bound too: 0.0171, 0.0530 and 0.2116 ms of bytes against
+// 0.0038, 0.0177 and 0.1409 ms of flops at (1024, 66), (1024, 120) and
+// (1024, 240).
+//   - The warp kernel moves each of those bytes once, but it is
+//     latency-bound: each warp runs npad dependent column steps (two warp
+//     reductions, a shared-memory round trip for the pivot row, IEEE
+//     divisions, then the FMAs), and B = 1024 gives 7.75 warps per SM, two
+//     per scheduler, to hide that.  The load phase (all warps read at once)
+//     does not overlap the factorization.
+//   - The CTA kernels also move each byte once and overlap their stores
+//     with the factorization, but the panels' column steps are a serial
+//     chain.  tools/lu32p_trace.py (clock64() marks in CTA 0) shows, at
+//     npad 72, ~24% of the cycles loading (a wave of CTAs reads before any
+//     factors) and ~57% in warp 0's panel passes, whose column steps
+//     compete for issue with the SM's other 31 warps; at npad 240, ~52% in
+//     the wide kernel's column steps and exchanges (PERF.md).
 //
 // Built by batchreactor_tpu_torch/solver/linalg_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -451,135 +495,550 @@ int launch_warp(const double* M, float* LU, int32_t* piv, int batch, int n,
 }
 
 // ---------------------------------------------------------------------------
-// npad 72..240: one CTA per lane matrix
+// npad 72..240: one CTA per lane matrix, blocked right-looking LU
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kPanel = 8;           // panel width: the Pallas kernel's _BLOCK
+constexpr int kCtaNpadMax = 240;    // the tile of npad 248 exceeds 227 KB
+constexpr int kMoves = 4 * kPanel;  // a panel's net row moves (ints)
+constexpr int kSlot = 12;  // a warp's candidate: key, row, 2 pad, 8 values
 
-// argmax order: NaN beats every number, then the larger value, then the
-// lower row index (the first maximum, as jnp.argmax and torch.argmax).
-__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
-  const bool n1 = isnan(v1);
-  const bool n2 = isnan(v2);
-  if (n1 != n2) return n1;
-  if (!n1 && v1 != v2) return v1 > v2;
-  return i1 < i2;
+constexpr int kPanelWarpNpadMax = 128;  // the panel in one warp up to here
+
+// threads per CTA and dynamic shared bytes for an npad: up to npad 128,
+// 128 threads with the tile, the moves and two pivot-row buffers; above,
+// 256 threads (one panel row each) with the tile, the moves, two sets of
+// per-warp candidate slots and two copies of the row a step exchanges
+constexpr int cta_threads(int npad) {
+  return npad <= kPanelWarpNpadMax ? 128 : 256;
+}
+constexpr int cta_smem_bytes(int npad) {
+  return (npad * npad + kMoves +
+          (npad <= kPanelWarpNpadMax
+               ? 2 * kPanel
+               : 2 * kSlot * (cta_threads(npad) / 32) + 2 * kPanel)) *
+         static_cast<int>(sizeof(float));
 }
 
-__global__ void __launch_bounds__(kThreads)
-lu32p_cta_kernel(const double* __restrict__ M, float* __restrict__ LU,
-                 int32_t* __restrict__ piv, int n, int npad) {
-  extern __shared__ float A[];  // npad rows of stride ld
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int s_p;
+// The 8 panel columns of a row, and their store.
+__device__ __forceinline__ void load8(const float* p, float (&v)[kPanel]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
 
-  const int ld = npad + 1;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const double* Mb = M + b * static_cast<size_t>(n) * n;
+__device__ __forceinline__ void store8(float* p, const float (&v)[kPanel]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
 
-  // load: float32 cast and identity pad in one pass
-  for (int e = tid; e < npad * npad; e += kThreads) {
-    const int i = e / npad;
-    const int j = e - i * npad;
-    float v;
-    if (i < n && j < n) {
-      v = static_cast<float>(Mb[static_cast<size_t>(i) * n + j]);
-    } else {
-      v = (i == j) ? 1.0f : 0.0f;
-    }
-    A[i * ld + j] = v;
+// The panel's net row moves, for the exchanges on the other columns, from
+// its 8 pivots on threads 0..15: moves[j] is the row whose entries row
+// ps + j takes (j < 8), and row moves[16 + i] (-1: none) takes those of
+// row moves[8 + i], for each pivot row below the panel once.
+__device__ __forceinline__ void publish_moves(const int (&piv8)[kPanel],
+                                              int ps, int* moves, int tid) {
+  if (tid >= 2 * kPanel) return;
+  int d = ps + tid;  // threads 0..7: the panel's rows
+  if (tid >= kPanel) {
+    const int i = tid - kPanel;
+    d = piv8[0];
+#pragma unroll
+    for (int j = 1; j < kPanel; ++j) d = j == i ? piv8[j] : d;
+#pragma unroll
+    for (int j = 0; j < kPanel - 1; ++j) d = j < i && piv8[j] == d ? -1 : d;
+    d = d >= ps + kPanel ? d : -1;
   }
-  __syncthreads();
+  int src = d;
+#pragma unroll
+  for (int j = kPanel - 1; j >= 0; --j) {
+    const int k = ps + j;
+    src = src == k ? piv8[j] : (src == piv8[j] ? k : src);
+  }
+  moves[tid] = src;
+  if (tid >= kPanel) moves[tid + kPanel] = d;
+}
 
-  for (int k = 0; k < npad; ++k) {
-    // 1. block argmax of |a_ik| over i >= k
-    float bv = -1.0f;  // below every |a|: a thread with no rows never wins
-    int bi = npad;
-    for (int i = k + tid; i < npad; i += kThreads) {
-      const float v = fabsf(A[i * ld + k]);
-      if (better(v, i, bv, bi)) {
-        bv = v;
-        bi = i;
+// A22 -= L21 U12 on rows pe.. and the columns right of the next panel
+// (pe + 8 ..), by NU threads (t counts them).  A thread owns 4 x 4 tiles:
+// a quarter-warp shares a row tile, whose 4 x 8 multipliers it keeps in registers while
+// it walks column groups, each read as one 16-byte word by one lane (a
+// quarter-warp reads 128 contiguous bytes of a row), so a tile costs 16
+// shared-memory accesses for 128 FMAs.
+template <int NU>
+__device__ __forceinline__ void trailing_update(float* A, int npad, int ps,
+                                                int t) {
+  constexpr int kTX = 8;
+  constexpr int kTY = NU / kTX;
+  const int pe = ps + kPanel;
+  const int c0 = pe + kPanel;
+  const int nrow = (npad - pe) >> 2;
+  const int ncol = (npad - c0) >> 2;
+  const int tx = t & (kTX - 1);
+  for (int rt = t / kTX; rt < nrow; rt += kTY) {
+    const int r0 = pe + 4 * rt;
+    float l[4][kPanel];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load8(A + (r0 + i) * npad + ps, l[i]);
+    for (int cg = tx; cg < ncol; cg += kTX) {
+      const int cc = c0 + 4 * cg;
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            A + (r0 + i) * npad + cc);
+        acc[i][0] = v.x; acc[i][1] = v.y; acc[i][2] = v.z; acc[i][3] = v.w;
       }
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float v = red_v[0];
-      int i0 = red_i[0];
-      for (int w = 1; w < kWarps; ++w) {
-        if (better(red_v[w], red_i[w], v, i0)) {
-          v = red_v[w];
-          i0 = red_i[w];
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            A + (ps + j) * npad + cc);
+        const float u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[i][c] = fmaf(-l[i][j], u[c], acc[i][c]);
+          }
         }
       }
-      s_p = i0;
-      piv[b * npad + k] = i0;
-    }
-    __syncthreads();
-
-    // 2. full-row swap (p is block-uniform, so the barrier is too)
-    const int p = s_p;
-    if (p != k) {
-      for (int j = tid; j < npad; j += kThreads) {
-        const float t = A[k * ld + j];
-        A[k * ld + j] = A[p * ld + j];
-        A[p * ld + j] = t;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(A + (r0 + i) * npad + cc) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       }
-      __syncthreads();
     }
-
-    // 3. pivot guard and multipliers
-    const float pivot = A[k * ld + k];
-    const float safe = (fabsf(pivot) > 0.0f) ? pivot : 1.0f;
-    for (int i = k + 1 + tid; i < npad; i += kThreads) {
-      A[i * ld + k] = A[i * ld + k] / safe;
-    }
-    __syncthreads();
-
-    // 4. rank-1 update of the trailing submatrix
-    const int w = npad - k - 1;
-    for (int e = tid; e < w * w; e += kThreads) {
-      const int r = e / w;
-      const int i = k + 1 + r;
-      const int j = k + 1 + (e - r * w);
-      A[i * ld + j] = fmaf(-A[i * ld + k], A[k * ld + j], A[i * ld + j]);
-    }
-    __syncthreads();
-  }
-
-  float* LUb = LU + b * static_cast<size_t>(npad) * npad;
-  for (int e = tid; e < npad * npad; e += kThreads) {
-    const int i = e / npad;
-    const int j = e - i * npad;
-    LUb[e] = A[i * ld + j];
   }
 }
 
+// The n*n float64 slab into the tile as float32, with coalesced 16-byte
+// loads (a misaligned first and a lone last element of an odd n load
+// alone), and the identity pad: rows >= n in full, columns >= n of the
+// rows < n.
+template <int NT>
+__device__ __forceinline__ void load_tile(const double* Mb, float* A, int n,
+                                          int npad, int tid) {
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nn = n * n;
+  const float inv_n = 1.0f / static_cast<float>(n);
+  auto put = [&](int e, double v) {
+    // e / n without an integer division: the product's error, under
+    // n 2^-23, stays below the 0.5 / n between (e + 0.5) / n and the
+    // nearest integer for n < 2048
+    const int i = static_cast<int>((static_cast<float>(e) + 0.5f) * inv_n);
+    A[i * npad + (e - i * n)] = static_cast<float>(v);
+  };
+  const int head =
+      static_cast<int>((reinterpret_cast<uintptr_t>(Mb) >> 3) & 1);
+  const int body = (nn - head) / 2;  // 16-byte pairs
+  const double2* Mp = reinterpret_cast<const double2*>(Mb + head);
+  if (tid == 0 && head) put(0, __ldg(Mb));
+  if (tid == 1 && head + 2 * body < nn) put(nn - 1, __ldg(Mb + nn - 1));
+  for (int c0 = 0; c0 < body; c0 += NT * kLoadDepth) {
+    double2 v[kLoadDepth];
+#pragma unroll
+    for (int u = 0; u < kLoadDepth; ++u) {
+      const int c = c0 + NT * u + tid;
+      v[u] = c < body ? __ldg(Mp + c) : make_double2(0.0, 0.0);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadDepth; ++u) {
+      const int c = c0 + NT * u + tid;
+      if (c < body) {
+        put(head + 2 * c, v[u].x);
+        put(head + 2 * c + 1, v[u].y);
+      }
+    }
+  }
+  for (int i = warp; i < npad; i += NT / 32) {
+    for (int j = (i < n ? n : 0) + lane; j < npad; j += 32) {
+      A[i * npad + j] = i == j ? 1.0f : 0.0f;
+    }
+  }
+}
+
+// The panel's exchanges on every other column (the delayed laswp), one
+// column per thread: the moved entries are all loaded, then stored; on the
+// columns right of the panel the unit-lower solve for the U12 strip runs
+// between, in registers: t_i = fmaf(-l_ij, t_j, t_i), j then i.
+template <int NT>
+__device__ __forceinline__ void exchange_columns(float* A, int npad, int ps,
+                                                 const int* moves, int tid) {
+  const int pe = ps + kPanel;
+  float l11[kPanel][kPanel];
+#pragma unroll
+  for (int i = 1; i < kPanel; ++i) {
+#pragma unroll
+    for (int j = 0; j < i; ++j) l11[i][j] = A[(ps + i) * npad + ps + j];
+  }
+  for (int c = tid; c < npad; c += NT) {
+    if (c >= ps && c < pe) continue;
+    float t[kPanel];
+    float w[kPanel];
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) t[j] = A[moves[j] * npad + c];
+#pragma unroll
+    for (int i = 0; i < kPanel; ++i) {
+      const int src = moves[kPanel + i];
+      if (moves[2 * kPanel + i] >= 0) w[i] = A[src * npad + c];
+    }
+#pragma unroll
+    for (int i = 0; i < kPanel; ++i) {
+      const int dst = moves[2 * kPanel + i];
+      if (dst >= 0) A[dst * npad + c] = w[i];
+    }
+    if (c >= pe) {
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) {
+#pragma unroll
+        for (int i = j + 1; i < kPanel; ++i) {
+          t[i] = fmaf(-l11[i][j], t[j], t[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) A[(ps + j) * npad + c] = t[j];
+  }
+}
+
+// Rows ps .. ps + 7 are final once their panel's exchanges and U12 are
+// done (later exchanges involve rows below): 16-byte stores to LU, left in
+// flight while the update runs.
+template <int NT>
+__device__ __forceinline__ void store_rows(const float* A, float* LUb,
+                                           int npad, int ps, int tid) {
+  const int lane = tid & 31;
+  for (int r = tid >> 5; r < kPanel; r += NT / 32) {
+    const float4* src = reinterpret_cast<const float4*>(A + (ps + r) * npad);
+    float4* dst = reinterpret_cast<float4*>(LUb + (ps + r) * npad);
+    for (int q = lane; q < (npad >> 2); q += 32) dst[q] = src[q];
+  }
+}
+
+// npad 72..128: the panel in one warp's registers, the update on the others.
+
+// The panel as the panel warp holds it: lane l keeps rows ps + l + 32 s of
+// the panel's 8 columns, each with its current position (-1: no row).
+template <int R>
+struct Panel {
+  float a[R][kPanel];
+  int pos[R];
+};
+
+// Rows ps.. of the panel's columns into the panel warp's registers.
+template <int R>
+__device__ __forceinline__ void load_panel(Panel<R>& x, const float* A,
+                                           int npad, int ps, int lane) {
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int r = ps + lane + 32 * s;
+    x.pos[s] = r < npad ? r : -1;
+    if (r < npad) {
+      load8(A + r * npad + ps, x.a[s]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) x.a[s][c] = 0.0f;
+    }
+  }
+}
+
+// The panel's eight column steps inside one warp, no block barrier: the
+// pivot search as in the warp kernel (a 32-bit key per candidate row, the
+// largest key, then the smallest position holding it), the exchange of two
+// positions, the pivot row published through shared memory (double-
+// buffered by step), the multipliers and the rank-1 update of the panel's
+// columns right of the step.  piv8[j] receives the pivot of column ps + j
+// in every lane, and lane 0 stores it to piv.
+template <int R>
+__device__ __forceinline__ void factor_panel_warp(Panel<R>& x,
+                                                  int (&piv8)[kPanel],
+                                                  int ps, float* pbuf,
+                                                  int32_t* pivb, int lane) {
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    const int k = ps + j;
+    unsigned key[R];
+    unsigned best = 0u;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      key[s] = x.pos[s] >= k ? pivot_key(x.a[s][j]) : 0u;
+      best = key[s] > best ? key[s] : best;
+    }
+    best = __reduce_max_sync(kFull, best);
+    unsigned first = 0xffffffffu;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const unsigned pos = static_cast<unsigned>(x.pos[s]);
+      if (key[s] == best && pos < first) first = pos;
+    }
+    const int p = static_cast<int>(__reduce_min_sync(kFull, first));
+    piv8[j] = p;
+    if (lane == 0) pivb[k] = p;
+    float* prow = pbuf + (j & 1) * kPanel;
+    __syncwarp();  // every lane has read the buffer two steps back
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (x.pos[s] == p) store8(prow, x.a[s]);
+      x.pos[s] = x.pos[s] == p ? k : (x.pos[s] == k ? p : x.pos[s]);
+    }
+    __syncwarp();  // the pivot row is visible to every lane
+    float u[kPanel];
+    load8(prow, u);
+    const float safe = fabsf(u[j]) > 0.0f ? u[j] : 1.0f;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (x.pos[s] > k) {
+        const float l = div_rn(x.a[s][j], safe);
+        x.a[s][j] = l;
+#pragma unroll
+        for (int c = j + 1; c < kPanel; ++c) {
+          x.a[s][c] = fmaf(-l, u[c], x.a[s][c]);
+        }
+      }
+    }
+  }
+}
+
+// The factored panel back to the tile, each row at its final position.
+template <int R>
+__device__ __forceinline__ void store_panel(const Panel<R>& x, float* A,
+                                            int npad, int ps) {
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    if (x.pos[s] >= 0) store8(A + x.pos[s] * npad + ps, x.a[s]);
+  }
+}
+
+// The panel warp's look-ahead: rows pe.. of the next panel's columns
+// pe .. pe + 7 take the rank-8 update of the panel at ps = pe - 8 in the
+// tile, in the trailing update's order (a = fmaf(-l_j, u_jc, a), j = 0..7),
+// a rolled loop over the rows.
+__device__ __forceinline__ void update_next_panel(float* A, int npad, int pe,
+                                                  int lane) {
+  const int ps = pe - kPanel;
+  for (int r = pe + lane; r < npad; r += 32) {
+    float l[kPanel];
+    float a[kPanel];
+    load8(A + r * npad + ps, l);
+    load8(A + r * npad + pe, a);
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) {
+      float u[kPanel];
+      load8(A + (ps + j) * npad + pe, u);
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) a[c] = fmaf(-l[j], u[c], a[c]);
+    }
+    store8(A + r * npad + pe, a);
+  }
+}
+
+// npad 72..128: warp 0 factors each panel in registers while the other
+// warps run the trailing update; it updates its next panel's columns itself
+// first (the look-ahead), so a panel costs two block barriers.  At npad
+// 72..96 the kernel is held to 64 registers: 8 CTAs fit an SM and
+// B = 1024 runs in one wave.
+template <int R>
+__global__ void __launch_bounds__(128, R == 3 ? 8 : 4)
+lu32p_cta_kernel(const double* __restrict__ M, float* __restrict__ LU,
+                 int32_t* __restrict__ piv, int n, int npad) {
+  constexpr int NT = 128;
+  extern __shared__ __align__(16) float smem[];
+  float* A = smem;  // npad x npad, row stride npad (16-byte aligned rows)
+  float* pbuf = A + npad * npad;
+  int* moves = reinterpret_cast<int*>(pbuf + 2 * kPanel);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const size_t b = blockIdx.x;
+  float* LUb = LU + b * static_cast<size_t>(npad) * npad;
+  int32_t* pivb = piv + b * npad;
+
+  load_tile<NT>(M + b * static_cast<size_t>(n) * n, A, n, npad, tid);
+  __syncthreads();
+  Panel<R> x;
+  int piv8[kPanel];
+  if (tid < 32) {
+    load_panel<R>(x, A, npad, 0, lane);
+    factor_panel_warp<R>(x, piv8, 0, pbuf, pivb, lane);
+    store_panel<R>(x, A, npad, 0);
+    publish_moves(piv8, 0, moves, lane);
+  }
+  __syncthreads();
+  for (int ps = 0; ps < npad; ps += kPanel) {
+    const int pe = ps + kPanel;
+    exchange_columns<NT>(A, npad, ps, moves, tid);
+    __syncthreads();
+    store_rows<NT>(A, LUb, npad, ps, tid);
+    if (pe < npad) {
+      if (tid < 32) {
+        update_next_panel(A, npad, pe, lane);
+        __syncwarp();
+        load_panel<R>(x, A, npad, pe, lane);
+        factor_panel_warp<R>(x, piv8, pe, pbuf, pivb, lane);
+        store_panel<R>(x, A, npad, pe);
+        publish_moves(piv8, pe, moves, lane);
+      } else {
+        trailing_update<NT - 32>(A, npad, ps, tid - 32);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The panel's eight column steps, thread r holding row r's 8 panel columns
+// in registers, one block barrier per step.  Each warp finds its first
+// largest key (__reduce_max_sync, then __reduce_min_sync over the rows
+// holding it) and that row publishes key, row and values in the warp's
+// slot, while the row at k publishes its values; after the barrier every
+// thread picks the largest key over the warps, first row on a tie, so ties
+// and NaN order as in the warp kernel.  Row k takes the pivot row's values
+// and the pivot row row k's (the full-row exchange, on the panel's
+// columns), then the rows below take their multiplier and the rank-1
+// update of the columns right of the step.  Slots and exchanged row are
+// double-buffered by step, so one barrier per step suffices.  piv8[j]
+// receives the pivot of column ps + j in every thread.
+template <int NT>
+__device__ __forceinline__ void factor_panel_cta(float (&a)[kPanel],
+                                             int (&piv8)[kPanel], int npad,
+                                             int ps, float* slots,
+                                             float* xrow, int tid) {
+  constexpr int kWarps = NT / 32;
+  const int r = tid;
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    const int k = ps + j;
+    const bool live = r >= k && r < npad;
+    const unsigned key = live ? pivot_key(a[j]) : 0u;
+    const unsigned best = __reduce_max_sync(kFull, key);
+    const unsigned first = __reduce_min_sync(
+        kFull, key == best ? static_cast<unsigned>(r) : 0xffffffffu);
+    float* set = slots + (j & 1) * kWarps * kSlot;
+    float* xr = xrow + (j & 1) * kPanel;
+    if (static_cast<unsigned>(r) == first) {
+      float* slot = set + (r >> 5) * kSlot;
+      reinterpret_cast<unsigned*>(slot)[0] = best;
+      reinterpret_cast<int*>(slot)[1] = r;
+      store8(slot + 4, a);
+    }
+    if (r == k) store8(xr, a);
+    __syncthreads();
+    unsigned bk = 0u;
+    int p = 0x7fffffff;
+    int bw = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const unsigned kw = reinterpret_cast<const unsigned*>(set + w * kSlot)[0];
+      const int rw = reinterpret_cast<const int*>(set + w * kSlot)[1];
+      if (kw > bk || (kw == bk && rw < p)) {
+        bk = kw;
+        p = rw;
+        bw = w;
+      }
+    }
+    piv8[j] = p;
+    float u[kPanel];
+    load8(set + bw * kSlot + 4, u);
+    if (r == k) {
+#pragma unroll
+      for (int c = 0; c < kPanel; ++c) a[c] = u[c];
+    } else if (r == p) {
+      load8(xr, a);
+    }
+    const float safe = fabsf(u[j]) > 0.0f ? u[j] : 1.0f;
+    if (r > k && r < npad) {
+      const float l = div_rn(a[j], safe);
+      a[j] = l;
+#pragma unroll
+      for (int c = j + 1; c < kPanel; ++c) a[c] = fmaf(-l, u[c], a[c]);
+    }
+  }
+}
+
+// npad 136..240: one panel row per thread; each panel's column steps run
+// on the whole CTA, one block barrier each, then the update on every warp.
+// Here one CTA (two at npad 136..152) fills an SM's shared memory, so the
+// panel's latency cannot hide behind other CTAs and is spread instead.
+template <int NT>
+__global__ void __launch_bounds__(NT)
+lu32p_cta_wide_kernel(const double* __restrict__ M,
+                      float* __restrict__ LU, int32_t* __restrict__ piv,
+                      int n, int npad) {
+  constexpr int kWarps = NT / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* A = smem;  // npad x npad, row stride npad (16-byte aligned rows)
+  float* slots = A + npad * npad;
+  float* xrow = slots + 2 * kWarps * kSlot;
+  int* moves = reinterpret_cast<int*>(xrow + 2 * kPanel);
+
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.x;
+
+  load_tile<NT>(M + b * static_cast<size_t>(n) * n, A, n, npad, tid);
+  __syncthreads();
+
+  // per panel: the 8 column steps (8 barriers), the exchanges on the
+  // other columns with the U12 strip, the rank-8 update
+  float* LUb = LU + b * static_cast<size_t>(npad) * npad;
+  int32_t* pivb = piv + b * npad;
+  float a[kPanel] = {};  // thread r holds row r's panel columns
+  if (tid < npad) load8(A + tid * npad, a);
+  for (int ps = 0; ps < npad; ps += kPanel) {
+    const int pe = ps + kPanel;
+    int piv8[kPanel];
+    factor_panel_cta<NT>(a, piv8, npad, ps, slots, xrow, tid);
+    if (tid >= ps && tid < npad) store8(A + tid * npad + ps, a);
+    publish_moves(piv8, ps, moves, tid);
+    if (tid == 0) {
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) pivb[ps + j] = piv8[j];
+    }
+    __syncthreads();
+
+    exchange_columns<NT>(A, npad, ps, moves, tid);
+    __syncthreads();
+
+    store_rows<NT>(A, LUb, npad, ps, tid);
+    if (pe < npad) {
+      trailing_update<NT>(A, npad, ps, tid);
+      // the next panel's row of this thread, updated in registers
+      if (tid >= pe && tid < npad) {
+        float l[kPanel];
+        load8(A + tid * npad + ps, l);
+        load8(A + tid * npad + pe, a);
+#pragma unroll
+        for (int j = 0; j < kPanel; ++j) {
+          float u[kPanel];
+          load8(A + (ps + j) * npad + pe, u);
+#pragma unroll
+          for (int c = 0; c < kPanel; ++c) a[c] = fmaf(-l[j], u[c], a[c]);
+        }
+      }
+    }
+  }
+}
+
+template <int R>
 int launch_cta(const double* M, float* LU, int32_t* piv, int batch, int n,
                int npad, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lu32p_cta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        lu32p_cta_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  lu32p_cta_kernel<<<batch, kThreads, smem, stream>>>(M, LU, piv, n, npad);
+  lu32p_cta_kernel<R><<<batch, 128, smem, stream>>>(M, LU, piv, n, npad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_cta_wide(const double* M, float* LU, int32_t* piv, int batch,
+                    int n, int npad, int smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      lu32p_cta_wide_kernel<256>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  lu32p_cta_wide_kernel<256><<<batch, 256, smem, stream>>>(M, LU, piv, n,
+                                                           npad);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -614,11 +1073,15 @@ extern "C" int lu32p_factor(const double* M, float* LU, int32_t* piv,
       default: return bad;
     }
   }
-  if (grid != batch || block != kThreads ||
-      smem != npad * (npad + 1) * static_cast<int>(sizeof(float))) {
+  if (npad > kCtaNpadMax || grid != batch || block != cta_threads(npad) ||
+      smem != cta_smem_bytes(npad)) {
     return bad;
   }
-  return launch_cta(M, LU, piv, batch, n, npad, smem, st);
+  if (npad > kPanelWarpNpadMax) {
+    return launch_cta_wide(M, LU, piv, batch, n, npad, smem, st);
+  }
+  return npad <= 96 ? launch_cta<3>(M, LU, piv, batch, n, npad, smem, st)
+                    : launch_cta<4>(M, LU, piv, batch, n, npad, smem, st);
 }
 
 extern "C" const char* lu32p_error_string(int code) {

@@ -20,7 +20,7 @@ carries it across jac windows), and :func:`make_solve_m` composes them.
 
 import torch
 
-from .linalg_cuda import lu32p_factor, lu32p_solve, padded_n
+from .linalg_cuda import CTA_NPAD_MAX, lu32p_factor, lu32p_solve, padded_n
 
 #: Newton linear-solver modes of the port
 MODES = ("lu", "lu32p")
@@ -90,6 +90,9 @@ def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
       and on an H100 the CH4/Ni surface sweep took 19.24 s against 8.73 s
       with ``"lu"`` (B = 2048) with its coverage sums 1.7e-6 off 1
       (PERF.md).
+    * CUDA, BDF, a state wider than the kernel takes (``padded_n(n) >
+      CTA_NPAD_MAX``, n > 240): ``"lu"``.  An explicit ``"lu32p"`` there
+      raises at the launch, naming the cap.
     * CUDA, BDF: ``"lu32p"`` when the caller's batch is known and
       ``batch * n >= LU32P_MIN_BN`` (the TPU's gate), else ``"lu"``.  ``n``
       is the state width.
@@ -109,7 +112,8 @@ def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
             f"method={method!r} is not ported yet (ROADMAP A8)")
     if torch.device(device).type == "cpu" or n_surface:
         return "lu"
-    if batch is not None and n is not None and batch * n >= LU32P_MIN_BN:
+    if (batch is not None and n is not None and batch * n >= LU32P_MIN_BN
+            and padded_n(n) <= CTA_NPAD_MAX):
         return "lu32p"
     return "lu"
 

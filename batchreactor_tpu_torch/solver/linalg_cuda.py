@@ -3,9 +3,15 @@ Hopper kernel and its plain PyTorch version.
 
 Port of ``batchreactor_tpu/solver/linalg_pallas.py``.  The JAX package's
 one Pallas kernel, ``_lu_kernel``, becomes ``csrc/lu32p.cu`` (CUDA C++ for
-sm_90a; the source says what bounds it): one warp per lane matrix with the
-factor in registers for npad <= 64, one CTA per lane matrix with the tile in
-shared memory for npad 72..240 (:func:`launch_config`).  The
+sm_90a; the source says what bounds it), two kernels chosen by npad
+(:func:`launch_config`): for npad <= 64 one warp per lane matrix with the
+factor in registers; for npad 72..240 one CTA per lane matrix with the tile
+in shared memory, factored as the Pallas kernel factors it, a blocked
+right-looking LU with 8-wide panels (each panel inside one warp, the
+delayed row exchanges and the U12 strip one column per thread, a
+register-tiled rank-8 trailing update with look-ahead, two block barriers
+per panel).  Past npad 240 (:data:`CTA_NPAD_MAX`) there is no kernel, and
+``resolve_linsolve("auto")`` keeps such states on the float64 ``lu``.  The
 contract is the JAX one, batched: ``lu32p_factor(A)`` with A (B, n, n)
 returns ``(LU, piv)`` at the PADDED size (:func:`padded_n`) — LU (B, npad,
 npad) float32 with unit-lower L in place, piv (B, npad) int32 LAPACK-style
@@ -37,8 +43,8 @@ import time
 
 import torch
 
-#: panel width of the plain version; also the padding granule (GRI n=53
-#: pads to 56)
+#: panel width of the plain version and of the CTA kernel; also the
+#: padding granule (GRI n=53 pads to 56)
 _BLOCK = 8
 
 #: shared memory one block may use on sm_90 (227 KB)
@@ -48,8 +54,13 @@ _SMEM_LIMIT = 232_448
 WARP_NPAD_MAX = 64
 #: warps (lane matrices) per CTA of the warp kernel
 WARPS_PER_CTA = 4
-#: threads per CTA of the CTA kernel
-CTA_THREADS = 128
+#: the largest npad the CTA kernel takes: its npad x npad tile at npad 248
+#: exceeds the shared memory of one block.  ``resolve_linsolve("auto")``
+#: keeps larger states on the float64 ``lu``.
+CTA_NPAD_MAX = 240
+#: up to this npad one warp of the CTA kernel factors each panel in its
+#: registers; above, every thread holds one panel row
+PANEL_WARP_NPAD_MAX = 128
 
 #: launches of the CUDA kernels since the count was last set to 0
 LAUNCHES = 0
@@ -80,24 +91,39 @@ def padded_n(n):
     return max(_BLOCK, -(-n // _BLOCK) * _BLOCK)
 
 
+def cta_threads(npad):
+    """Threads per CTA of the CTA kernel: 128 up to npad
+    :data:`PANEL_WARP_NPAD_MAX` (one warp factors each panel, three update),
+    256 above (one panel row per thread)."""
+    return 128 if npad <= PANEL_WARP_NPAD_MAX else 256
+
+
 def launch_config(batch, npad):
     """The kernel that npad selects and its launch: ``path`` (``"warp"`` or
     ``"cta"``), ``grid``, ``block`` (threads) and ``smem`` (dynamic shared
     bytes).  The warp kernel gives each warp (one lane matrix) an npad x
     (npad + 4) float tile and two pivot-row buffers; the CTA kernel gives
-    each lane matrix an npad x (npad + 1) tile, which caps npad at 240.
-    The C entry point checks the configuration against the kernel that
-    npad selects there."""
+    each lane matrix an npad x npad tile, a panel's 32-int list of row
+    moves and a few buffers of the panel's steps, which caps npad at
+    :data:`CTA_NPAD_MAX`.  The C
+    entry point checks the configuration against the kernel that npad
+    selects there."""
     if npad <= WARP_NPAD_MAX:
         return {"path": "warp", "grid": -(-batch // WARPS_PER_CTA),
                 "block": 32 * WARPS_PER_CTA,
                 "smem": WARPS_PER_CTA * (npad * (npad + 4) + 2 * npad) * 4}
-    smem = npad * (npad + 1) * 4
-    if smem + 64 > _SMEM_LIMIT:
+    # the tile, the moves, and two pivot-row buffers (npad <= 128) or two
+    # sets of 12-float candidate slots per warp and two exchanged rows
+    extra = 2 * _BLOCK if npad <= PANEL_WARP_NPAD_MAX else (
+        2 * 12 * cta_threads(npad) // 32 + 2 * _BLOCK)
+    smem = (npad * npad + 4 * _BLOCK + extra) * 4
+    if npad > CTA_NPAD_MAX:
         raise ValueError(
-            f"npad={npad}: the {smem}-byte tile exceeds the {_SMEM_LIMIT}-byte "
-            f"shared memory of one block (npad <= 240)")
-    return {"path": "cta", "grid": batch, "block": CTA_THREADS, "smem": smem}
+            f"npad={npad}: the lu32p kernel takes npad <= {CTA_NPAD_MAX}; its "
+            f"{smem}-byte tile would exceed the {_SMEM_LIMIT}-byte shared "
+            f"memory of one block (linsolve='lu' takes any n)")
+    return {"path": "cta", "grid": batch, "block": cta_threads(npad),
+            "smem": smem}
 
 
 def _nvcc():

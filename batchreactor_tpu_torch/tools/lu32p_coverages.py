@@ -10,8 +10,8 @@ Prints one JSON object with two parts:
   (``--temperatures`` over 1073-1273 K x Asv 1..1000 m^-1) for c = 1e-7,
   1e-5 and 1e-3 s: cond(M), and two float32 LU factorizations with
   partial pivoting, the plain version (8-wide panels, trailing matmul) and
-  an unblocked one with fused updates (the CTA kernel's order of
-  operations).  For each, the componentwise backward error
+  :func:`blocked_lu32`, the CTA kernel's order of operations (8-wide
+  panels, fused multiply-adds).  For each, the componentwise backward error
   (``lu32p_backward_error``) and the row with the largest backward error
   scaled by its own largest |PA| (its species, largest |PA| and largest
   (|L||U|)); between them, the lanes pivoted alike and the largest
@@ -35,8 +35,8 @@ import torch
 import batchreactor_tpu_torch as bt
 from batchreactor_tpu_torch.ops.rhs import make_surface_jac
 from batchreactor_tpu_torch.solver.linalg_cuda import (
-    _pad_identity, lu32p_backward_error, lu32p_factor_plain, padded_n,
-    permute_rows)
+    _BLOCK, _pad_identity, lu32p_backward_error, lu32p_factor_plain,
+    padded_n, permute_rows)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "fixtures")
@@ -46,29 +46,80 @@ T1 = 10.0
 EPS32 = float(np.finfo(np.float32).eps)
 
 
-def unblocked_lu32(A):
-    """Unblocked right-looking float32 LU with partial pivoting, each
-    update one rounding of a - l u (a fused multiply-add), on the padded
-    matrix: the CTA kernel's order of operations."""
+def _fma(a, b, c):
+    """fmaf(a, b, c) on float32 tensors, exactly: the product is exact in
+    float64, the sum is rounded to odd there (its TwoSum error decides the
+    last bit), and rounding that to float32 is the fused operation's one
+    rounding (Boldo and Melquiond: rounding to odd with two or more extra
+    bits, then to nearest, is correct rounding)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    s = torch.where(fix, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def blocked_lu32(A):
+    """The CTA kernel's float32 LU with partial pivoting (npad 72..240,
+    ``csrc/lu32p.cu``) in its order of operations, on the padded matrix:
+    per 8-column panel the column steps (first largest |a| in the current
+    row order, the exchange, l = a / pivot, then fmaf(-l, u, a) on the
+    panel's columns right of the step), the panel's exchanges on the other
+    columns, the U12 strip by t_i = fmaf(-l_ij, t_j, t_i) for j then i,
+    and the trailing update by acc = fmaf(-l_j, u_j, acc) for j = 0..7.
+    It runs on any device, and reproduces the kernels' factors bit for
+    bit."""
     npad = padded_n(A.shape[-1])
+    dev = A.device
     LU = _pad_identity(A, npad)
     B = LU.shape[0]
-    lanes = torch.arange(B)
-    piv = torch.zeros((B, npad), dtype=torch.int32)
-    for k in range(npad):
-        p = k + torch.argmax(LU[:, k:, k].abs(), dim=1)
-        piv[:, k] = p.to(torch.int32)
-        rk = LU[:, k, :].clone()
-        LU[:, k, :] = LU[lanes, p, :]
-        LU[lanes, p, :] = rk
-        pivot = LU[:, k, k]
-        safe = torch.where(pivot.abs() > 0, pivot, 1.0)
-        l = LU[:, k + 1:, k] / safe[:, None]
-        LU[:, k + 1:, k] = l
-        LU[:, k + 1:, k + 1:] = (
-            LU[:, k + 1:, k + 1:].double()
-            - l.double()[:, :, None] * LU[:, k, None, k + 1:].double()
-        ).float()
+    lanes = torch.arange(B, device=dev)
+    ridx = torch.arange(npad, device=dev)
+    piv = torch.zeros((B, npad), dtype=torch.int32, device=dev)
+    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+    for ps in range(0, npad, _BLOCK):
+        pe = ps + _BLOCK
+        P = LU[:, :, ps:pe].clone()
+        for j in range(_BLOCK):
+            k = ps + j
+            p = torch.argmax(torch.where(ridx >= k, P[:, :, j].abs(),
+                                         neg_inf), dim=1)
+            rk = P[:, k, :].clone()
+            P[:, k, :] = P[lanes, p, :]
+            P[lanes, p, :] = rk
+            u = P[:, k, :]
+            safe = torch.where(u[:, j].abs() > 0, u[:, j], 1.0)
+            below = P[:, k + 1:, :]
+            l = below[:, :, j] / safe[:, None]
+            below[:, :, j + 1:] = _fma(-l[:, :, None], u[:, None, j + 1:],
+                                       below[:, :, j + 1:])
+            below[:, :, j] = l
+            piv[:, k] = p.to(torch.int32)
+        LU[:, :, ps:pe] = P
+        off = torch.ones(npad, dtype=torch.bool, device=dev)
+        off[ps:pe] = False
+        for j in range(_BLOCK):
+            k = ps + j
+            p = piv[:, k].long()
+            rk = LU[:, k, :].clone()
+            rp = LU[lanes, p, :].clone()
+            LU[:, k, :] = torch.where(off, rp, rk)
+            LU[lanes, p, :] = torch.where(off, rk, rp)
+        if pe < npad:
+            T = LU[:, ps:pe, pe:]
+            for j in range(_BLOCK):
+                for i in range(j + 1, _BLOCK):
+                    T[:, i] = _fma(-LU[:, ps + i, ps + j, None], T[:, j],
+                                   T[:, i])
+            acc = LU[:, pe:, pe:]
+            for j in range(_BLOCK):
+                acc[:] = _fma(-LU[:, pe:, ps + j, None], T[:, None, j],
+                              acc)
     return LU, piv
 
 
@@ -109,7 +160,7 @@ def factor_part(gm, th, sm, n_T):
     for c in (1e-7, 1e-5, 1e-3):
         M = torch.eye(n, dtype=torch.float64) - c * J
         cond = torch.linalg.cond(M)
-        fac = {"plain": lu32p_factor_plain(M), "unblocked": unblocked_lu32(M)}
+        fac = {"plain": lu32p_factor_plain(M), "kernel_order": blocked_lu32(M)}
         row = {"cond_median": float(cond.median()),
                "cond_max": float(cond.max())}
         for name, (LU, piv) in fac.items():
@@ -119,7 +170,7 @@ def factor_part(gm, th, sm, n_T):
             row[name] = {"componentwise": float(bwd.max()) / tol,
                          "worst_row_of_PA": worst,
                          "max_abs_L": float(l_max.max())}
-        (LU_p, piv_p), (LU_u, piv_u) = fac["plain"], fac["unblocked"]
+        (LU_p, piv_p), (LU_u, piv_u) = fac["plain"], fac["kernel_order"]
         same = (piv_p == piv_u).all(dim=1)
         d = (LU_u - LU_p).abs().double()[same]
         npad = LU_p.shape[-1]

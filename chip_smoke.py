@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
 against its plain PyTorch version on the card (phase 2: random matrices,
-and each path's own Newton matrices, the coupled path's at three step
-sizes, with their condition numbers), and drives the port's paths through
+n = 1..240 across both paths, the contract cases on both, and each path's
+own Newton matrices, the coupled path's at three step sizes, with their
+condition numbers; the CTA path timed at n = 66, 120, 176 and 240), and
+drives the port's paths through
 its own entry points:
 
 - the gas main path, the GRI-3.0 isothermal ignition sweep at B = 1024
@@ -198,10 +200,19 @@ def nan_matrix():
     return A, [4, 1, 2, 3, 7, 5, 6, 7, 8]
 
 
+def embedded(A9, n):
+    """A contract case (n = 9) as the leading block of 0.5 I (n x n), for
+    the CTA path."""
+    A = 0.5 * np.eye(n)
+    A[:9, :9] = A9
+    return A
+
+
 def check_kernel(device, batches=(1, 1024, 4096),
-                 sizes=(1, 9, 13, 53, 64, 65, 120, 240)):
+                 sizes=(1, 9, 13, 53, 64, 65, 66, 120, 176, 240)):
     """Phase 2: both paths of the lu32p kernel against its plain version on
-    the card, and the contract cases."""
+    the card, and the contract cases on both paths (at n = 70 for the CTA
+    path)."""
     import torch
 
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
@@ -256,32 +267,44 @@ def check_kernel(device, batches=(1, 1024, 4096),
     xz = lc.lu32p_solve(lc.lu32p_factor(Z), bz).double()
     pivot_ok = bool(torch.allclose(xz, torch.linalg.solve(Z, bz), rtol=1e-5,
                                    atol=1e-5))
-    S = torch.tensor([[[1.0, 2.0, 0.0], [3.0, 4.0, 0.0], [5.0, 6.0, 0.0]]],
-                     dtype=torch.float64, device=device)
-    fac_s = lc.lu32p_factor(S)
-    xs = lc.lu32p_solve(fac_s, torch.ones((1, 3), dtype=torch.float64,
-                                          device=device))
-    singular_ok = bool(torch.all(torch.isfinite(fac_s[0]))
-                       and not torch.all(torch.isfinite(xs)))
-    P = separated(16, 53, gen, device)
-    _, piv_pad = lc.lu32p_factor(P)
-    pad_ok = bool(torch.all(piv_pad[:, :53] < 53)
-                  and torch.equal(piv_pad[:, 53:].cpu(),
-                                  torch.arange(53, 56, dtype=torch.int32)
-                                  .expand(16, 3)))
+    singular_ok = True
+    for n in (3, 70):
+        S = np.eye(n)
+        S[:3, :3] = [[1.0, 2.0, 0.0], [3.0, 4.0, 0.0], [5.0, 6.0, 0.0]]
+        fac_s = lc.lu32p_factor(torch.tensor(S[None], device=device))
+        xs = lc.lu32p_solve(fac_s, torch.ones((1, n), dtype=torch.float64,
+                                              device=device))
+        singular_ok = singular_ok and bool(
+            torch.all(torch.isfinite(fac_s[0]))
+            and not torch.all(torch.isfinite(xs)))
+    pad_ok = True
+    for m in (53, 65):
+        npad = lc.padded_n(m)
+        _, piv_pad = lc.lu32p_factor(separated(16, m, gen, device))
+        pad_ok = pad_ok and bool(
+            torch.all(piv_pad[:, :m] < m)
+            and torch.equal(piv_pad[:, m:].cpu(),
+                            torch.arange(m, npad, dtype=torch.int32)
+                            .expand(16, npad - m)))
     order = {}
     for name, (A, want) in (("exact_tie", tie_matrix()),
                             ("nan_pivot", nan_matrix())):
-        At = torch.tensor(A[None], device=device)
-        LU_k, piv_k = lc.lu32p_factor(At)
-        LU_p, piv_p = lc.lu32p_factor_plain(At)
-        same_nan = bool(torch.equal(torch.isnan(LU_k), torch.isnan(LU_p)))
-        fin = torch.isfinite(LU_p)
-        lu_err = float((LU_k[fin] - LU_p[fin]).abs().max())
-        order[name] = {"piv": piv_k[0, :9].tolist(),
-                       "piv_equal_plain": bool(torch.equal(piv_k, piv_p)),
-                       "piv_as_expected": piv_k[0, :9].tolist() == want,
-                       "nan_pattern_equal": same_nan, "lu_max_abs_err": lu_err}
+        for n in (9, 70):
+            At = torch.tensor((A if n == 9 else embedded(A, n))[None],
+                              device=device)
+            LU_k, piv_k = lc.lu32p_factor(At)
+            LU_p, piv_p = lc.lu32p_factor_plain(At)
+            same_nan = bool(torch.equal(torch.isnan(LU_k),
+                                        torch.isnan(LU_p)))
+            fin = torch.isfinite(LU_p)
+            lu_err = float((LU_k[fin] - LU_p[fin]).abs().max())
+            key = name if n == 9 else f"{name}_n{n}"
+            order[key] = {"path": lc.launch_config(1, lc.padded_n(n))["path"],
+                          "piv": piv_k[0, :9].tolist(),
+                          "piv_equal_plain": bool(torch.equal(piv_k, piv_p)),
+                          "piv_as_expected": piv_k[0, :9].tolist() == want,
+                          "nan_pattern_equal": same_nan,
+                          "lu_max_abs_err": lu_err}
     order_ok = all(c["piv_equal_plain"] and c["piv_as_expected"]
                    and c["nan_pattern_equal"] and c["lu_max_abs_err"] <= 1e-6
                    for c in order.values())
@@ -329,7 +352,9 @@ def time_kernel(M, same_pivots=True):
     own step sizes.  At the coupled path's larger steps (cond(M) to 1e18)
     they need not (``python -m batchreactor_tpu_torch.tools.lu32p_coverages``
     measures two correct ones apart), so there the pivots and the
-    difference are reported."""
+    difference are reported.  On the CTA path the kernel is also held
+    against ``blocked_lu32``, its order of operations in torch ops on the
+    card: the lanes whose factor is bit-identical are reported."""
     import torch
 
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
@@ -359,6 +384,19 @@ def time_kernel(M, same_pivots=True):
             f"lu32p at {B}x{n}: {int((~same).sum())} lanes with other "
             f"pivots, difference {fwd} of the row's |L||U|, componentwise "
             f"backward {bwd}, max|L| {l_max} (tolerance {tol})")
+    path = lc.launch_config(B, npad)["path"]
+    witness = {}
+    if path == "cta":
+        # the kernel's order of operations, emulated with torch ops on the
+        # card: lanes whose factor and pivots are bit-identical
+        from batchreactor_tpu_torch.tools.lu32p_coverages import blocked_lu32
+
+        LU_e, piv_e = blocked_lu32(M)
+        alike = (LU_k == LU_e).flatten(1).all(dim=1) & (piv_k == piv_e).all(
+            dim=1)
+        witness = {"lanes_bitwise_blocked_lu32": int(alike.sum()),
+                   "entries_off_blocked_lu32": int((LU_k != LU_e).sum())}
+        del LU_e
     del LU_k, LU_p
     out_bytes = B * npad * npad * 4 + B * npad * 4
     ms, hot_ms, sets, _ = cold_hot_ms(lc.lu32p_factor, (M,), out_bytes)
@@ -372,8 +410,7 @@ def time_kernel(M, same_pivots=True):
     flops = B * 2.0 / 3.0 * npad ** 3
     t_bytes, t_ops = bytes_moved / PEAK_BYTES, flops / PEAK_F32
     bound_ms = max(t_bytes, t_ops) * 1e3
-    return {"shape": [B, n], "npad": npad,
-            "path": lc.launch_config(B, npad)["path"], "tol": tol,
+    return {"shape": [B, n], "npad": npad, "path": path, "tol": tol,
             "lanes_same_pivots": int(same.sum()), "max_abs_err": max_abs_err,
             "diff_over_row_LLU": fwd, "backward_err": bwd,
             "max_abs_L": l_max, "ms": ms,
@@ -382,7 +419,7 @@ def time_kernel(M, same_pivots=True):
             "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "share_of_bound": bound_ms / ms, "bytes": bytes_moved,
-            "flops": flops}
+            "flops": flops, **witness}
 
 
 def sweep(bt, gm, th, T, device, **kw):
@@ -653,6 +690,8 @@ def main():
             ("main_b4096", lambda: main_path_matrices(gm, th, device, 4096),
              True),
             ("cta_n120", lambda: separated(B_MAIN, 120, gen, device), True),
+            ("cta_n176", lambda: separated(B_MAIN, 176, gen, device), True),
+            ("cta_n240", lambda: separated(B_MAIN, 240, gen, device), True),
             ("coupled_n66", lambda: eye_c - 1e-7 * J_c, True),
             ("coupled_n66_c1e-5", lambda: eye_c - 1e-5 * J_c, False),
             ("coupled_n66_c1e-3", lambda: eye_c - 1e-3 * J_c, False)):

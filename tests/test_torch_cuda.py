@@ -21,7 +21,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [1, 9, 13, 53, 64, 65, 120])
+@pytest.mark.parametrize("n", [1, 9, 13, 53, 64, 65, 66, 120, 176, 240])
 def test_lu32p_kernel_matches_plain_on_separated_pivots(cuda, n):
     rng = np.random.default_rng(n)
     A = rng.standard_normal((64, n, n)) * 0.1 + np.eye(n) * rng.uniform(
@@ -90,8 +90,9 @@ def test_lu32p_kernel_singular_guard(cuda):
 def test_lu32p_kernel_rejects_what_it_cannot_take(cuda):
     before = lc.LAUNCHES
     by_path = dict(lc.LAUNCHES_BY_PATH)
-    with pytest.raises(ValueError, match="shared memory"):
-        lc.lu32p_factor(torch.zeros((1, 241, 241), dtype=torch.float64,
+    n = lc.CTA_NPAD_MAX + 1
+    with pytest.raises(ValueError, match=f"npad <= {lc.CTA_NPAD_MAX}"):
+        lc.lu32p_factor(torch.zeros((1, n, n), dtype=torch.float64,
                                     device=cuda))
     with pytest.raises(TypeError, match="float64"):
         lc.lu32p_factor(torch.eye(3, device=cuda)[None])

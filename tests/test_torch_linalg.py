@@ -93,26 +93,74 @@ def test_lu32p_plain_matches_jax_kernel_on_pivot_order(case):
         assert np.all(np.isfinite(LU_t[:, 1:]))
 
 
-# (n, path, grid, block, smem) at B = 1023; 241 pads to 248, whose tile does
-# not fit the 227 KB of one block
+# (n, path, grid, block, smem) at B = 1023: the warp kernel to npad 64, the
+# CTA kernel with 128 threads to npad 128 and 256 above, to its cap at
+# npad 240; 241 pads to 248, whose tile does not fit the 227 KB of one block
 @pytest.mark.parametrize("n,path,grid,block,smem", [
     (1, "warp", 256, 128, 1_792),
     (56, "warp", 256, 128, 55_552),
     (64, "warp", 256, 128, 71_680),
-    (65, "cta", 1023, 128, 21_024),
-    (240, "cta", 1023, 128, 231_360),
+    (65, "cta", 1023, 128, 20_928),
+    (128, "cta", 1023, 128, 65_728),
+    (129, "cta", 1023, 256, 74_944),
+    (161, "cta", 1023, 256, 113_856),
+    (240, "cta", 1023, 256, 231_360),
     (241, None, None, None, None),
 ])
 def test_launch_config_boundaries(n, path, grid, block, smem):
     if path is None:
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="shared memory") as err:
             launch_config(1023, padded_n(n))
+        assert f"npad <= {linalg_cuda.CTA_NPAD_MAX}" in str(err.value)
         return
     cfg = launch_config(1023, padded_n(n))
     assert cfg == {"path": path, "grid": grid, "block": block, "smem": smem}
     assert cfg["smem"] <= linalg_cuda._SMEM_LIMIT
     if path == "warp":          # one warp per lane matrix covers the batch
         assert cfg["grid"] * cfg["block"] // 32 >= 1023
+
+
+def _separated(B, n, rng):
+    """Row-permuted strongly diagonally dominant matrices: every pivot is
+    unique by a wide margin."""
+    A = rng.standard_normal((B, n, n)) * 0.1 + np.eye(n) * rng.uniform(
+        10.0, 20.0, (B, 1, n))
+    perm = rng.permuted(np.broadcast_to(np.arange(n), (B, n)), axis=1)
+    return np.take_along_axis(A, perm[..., None], axis=1)
+
+
+def _row_llu(LU):
+    """Each row's largest entry of |L||U| (B, npad, 1), in float64."""
+    npad = LU.shape[-1]
+    L = torch.tril(LU.double(), -1) + torch.eye(npad, dtype=torch.float64)
+    return (L.abs() @ torch.triu(LU.double()).abs()).amax(dim=2,
+                                                          keepdim=True)
+
+
+@pytest.mark.parametrize("kind", ["separated", "random"])
+@pytest.mark.parametrize("n", [65, 66, 120, 176, 240])
+def test_blocked_lu32_order_of_the_cta_kernel(n, kind):
+    """The CTA kernel's order of operations (``blocked_lu32``: 8-wide
+    panels, fused multiply-adds) on the CPU: on separated pivots the plain
+    version's pivots and factors within 64 n eps32 of each row's largest
+    |L||U|; on random matrices the componentwise backward bound
+    |PA - LU| <= 64 n eps32 |L||U| with |L| <= 1."""
+    from batchreactor_tpu_torch.tools.lu32p_coverages import blocked_lu32
+
+    rng = np.random.default_rng(n)
+    A = torch.tensor(_separated(3, n, rng) if kind == "separated"
+                     else rng.standard_normal((3, n, n)))
+    tol = 64 * n * EPS32
+    LU, piv = blocked_lu32(A)
+    assert LU.dtype == torch.float32 and LU.shape == (3, padded_n(n),
+                                                       padded_n(n))
+    bwd, l_max = linalg_cuda.lu32p_backward_error(A, LU, piv)
+    assert float(bwd.max()) <= tol and float(l_max.max()) <= 1.0
+    if kind == "separated":
+        LU_p, piv_p = lu32p_factor_plain(A)
+        assert torch.equal(piv, piv_p)
+        diff = (LU - LU_p).abs().double() / _row_llu(LU_p)
+        assert float(diff.max()) <= tol
 
 
 @pytest.mark.parametrize("n", [1, 8, 9, 13, 24, 53])
@@ -224,6 +272,22 @@ def test_resolve_linsolve():
     assert linalg.resolve_linsolve("auto", device="cuda", batch=64,
                                    n=53) == "lu"
     assert linalg.resolve_linsolve("auto", device="cuda") == "lu"
+    # past the kernel's largest npad (240) auto keeps the float64 lu; an
+    # explicit lu32p passes through and its launch raises, naming the cap
+    cap = linalg_cuda.CTA_NPAD_MAX
+    assert padded_n(250) > cap == padded_n(cap)
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=1024,
+                                   n=250) == "lu"
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=1024,
+                                   n=cap + 1) == "lu"
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=1024,
+                                   n=cap) == "lu32p"
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=1024,
+                                   n=66, n_surface=13) == "lu"
+    assert linalg.resolve_linsolve("lu32p", device="cuda", batch=1024,
+                                   n=250) == "lu32p"
+    with pytest.raises(ValueError, match=f"npad <= {cap}"):
+        launch_config(1024, padded_n(250))
     assert linalg.resolve_linsolve("lu32p", device="cpu") == "lu32p"
     for mode in ("inv32", "inv32nr", "inv32f"):
         with pytest.raises(NotImplementedError, match="A3b"):

@@ -351,3 +351,31 @@ def test_lu32p_plain_backward_stable_on_coupled_newton_matrices(
     bad[0, i, j] += 0.01 * LLU[i, j]
     assert float(lu32p_backward_error(M, bad, piv)[0][0]) > tol
     assert 0.01 * float(LLU[i, j]) < tol * float(M[0].abs().max())
+
+
+@pytest.mark.parametrize("c", [1e-7, 1e-5, 1e-3])
+def test_blocked_lu32_order_on_coupled_newton_matrices(coupled_jacobians, c):
+    """The CTA kernel's order of operations (``blocked_lu32``) on the
+    coupled path's own Newton matrices M = I - c J (n = 66, npad 72): the
+    componentwise backward bound |PA - LU| <= 64 n eps32 |L||U| with
+    |L| <= 1 at every step size, and at c = 1e-7 s, the coupled path's own
+    step, the plain version's pivots on every lane and factors within
+    64 n eps32 of each row's largest |L||U|, the checks chip_smoke.py holds
+    the kernel to on 1024 such lanes."""
+    from batchreactor_tpu_torch.tools.lu32p_coverages import blocked_lu32
+
+    J = coupled_jacobians
+    n = J.shape[-1]
+    tol = 64 * n * float(np.finfo(np.float32).eps)
+    M = torch.eye(n, dtype=torch.float64) - c * J
+    LU, piv = blocked_lu32(M)
+    bwd, l_max = lu32p_backward_error(M, LU, piv)
+    assert float(bwd.max()) <= tol and float(l_max.max()) <= 1.0
+    if c == 1e-7:
+        LU_p, piv_p = lu32p_factor_plain(M)
+        assert torch.equal(piv, piv_p)
+        L = torch.tril(LU_p.double(), -1) + torch.eye(LU_p.shape[-1],
+                                                      dtype=torch.float64)
+        llu = (L.abs() @ torch.triu(LU_p.double()).abs()).amax(
+            dim=2, keepdim=True)
+        assert float(((LU - LU_p).abs().double() / llu).max()) <= tol
