@@ -5,8 +5,9 @@ mirrors its module names (``models/gas.py``, ``ops/gas_kinetics.py``,
 ``solver/bdf.py``, ...) with plain functions on lane-batched tensors, float64
 state, rates and Jacobians, and an explicit ``device=`` on every entry point
 (``None`` = ``cuda``; without a GPU that raises unless ``device="cpu"``).
-It runs the reference's four chemistry modes: gas, surface, coupled
-gas+surface and user-defined.
+It runs the reference's four chemistry modes (gas, surface, coupled
+gas+surface and user-defined), adiabatic gas chemistry (``energy``), both
+solvers (BDF and SDIRK4) and the ensemble layer (``parallel``).
 The JAX package's one Pallas kernel, the batched float32 LU behind
 ``linsolve="lu32p"``, is a hand-written CUDA kernel here
 (``csrc/lu32p.cu``, built with ``nvcc`` at first use).
@@ -14,6 +15,7 @@ The JAX package's one Pallas kernel, the batched float32 LU behind
 Importing the package sets no default dtype and touches no device.
 """
 
+from . import energy, parallel
 from .api import (Chemistry, batch_reactor, batch_reactor_sweep,
                   get_solution_vector, resolve_jac_window)
 from .models.gas import GasMechanism, compile_gaschemistry
@@ -30,6 +32,8 @@ __all__ = [
     "compile_gaschemistry",
     "compile_mech",
     "create_thermo",
+    "energy",
     "get_solution_vector",
+    "parallel",
     "resolve_jac_window",
 ]

@@ -16,6 +16,11 @@ reference: gas, surface, coupled gas+surface and user-defined (UDF).
 4. ``batch_reactor_sweep(inlet_comp, T, p, time, chem=, thermo_obj=, md=
    | gmd= | smd=, Asv=)`` — one lane per condition, solved together.
 
+The sweep also runs adiabatic gas chemistry (``energy="adiabatic_v"`` or
+``"adiabatic_p"``: the state gains a trailing temperature row and the sweep
+returns physical ignition delays), and every form runs either solver
+(``method="bdf"`` or ``"sdirk"``).
+
 Every entry point takes ``device=``: ``None`` runs on ``cuda`` and raises
 without a GPU; pass ``device="cpu"`` for the CPU.  Options of the JAX API
 that the port does not have yet raise ``NotImplementedError`` naming their
@@ -30,6 +35,10 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .energy.eqns import (energy_cfg, extend_states, make_energy_jac,
+                          make_energy_rhs, resolve_energy)
+from .energy.ignition import (energy_ignition_observer, extract_delay,
+                              merge_observers)
 from .io.config import input_data, parse_composition_text
 from .io.writers import trim_trajectory, write_profiles
 from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
@@ -119,7 +128,7 @@ def get_solution_vector(mole_fracs, molwt, T, p, ini_covg=None):
 def resolve_jac_window(jac_window, method, device):
     """``jac_window=None`` -> 8 for BDF on the GPU (the bench protocol's
     quasi-constant iteration matrix), 1 on the CPU (the exact per-attempt
-    Jacobian the parity tests pin)."""
+    Jacobian the parity tests pin) and for SDIRK."""
     if jac_window is not None:
         return jac_window
     return 8 if (method == "bdf" and torch.device(device).type != "cpu") else 1
@@ -133,10 +142,9 @@ def _host(x):
 
 
 _SWEEP_DEFERRED = (
-    ("mesh", None, "A5b"),
-    ("energy", None, "A9"), ("atol_T", None, "A9"),
-    ("telemetry", False, "A14"), ("pipeline", None, "A13"),
-    ("poll_every", None, "A13"), ("buckets", None, "A13"),
+    ("mesh", None, "A12"), ("telemetry", False, "A14"),
+    ("pipeline", None, "A13"), ("poll_every", None, "A13"),
+    ("buckets", None, "A13"),
     ("fetch_deadline", None, "A12"), ("quarantine", None, "A12"),
     ("admission", None, "A13"), ("refill", None, "A13"),
     ("timeline", None, "A14"), ("live_metrics", None, "A14"),
@@ -199,7 +207,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                         atol=1e-10, max_steps=200_000, segment_steps=0,
                         kc_compat=False, asv_quirk=True,
                         ignition_marker=None, ignition_mode="half",
-                        method="bdf", jac_window=None, linsolve="auto",
+                        energy=None, atol_T=None, method="bdf",
+                        jac_window=None, linsolve="auto", newton_tol=0.03,
                         setup_economy=False, stale_tol=0.3, exp32=False,
                         device=None, **deferred):
     """Ensemble form: one lane per condition, all lanes solved together.
@@ -216,6 +225,15 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     with ``ignition_marker`` (a gas species name), per-lane ignition
     delays ``tau`` from the in-loop observer; ``linsolve`` and
     ``jac_window`` report the resolved solver configuration.
+
+    ``energy="adiabatic_v"`` (constant volume) or ``"adiabatic_p"``
+    (constant pressure), gas chemistry only, solves the energy equation:
+    the state gains a trailing temperature row weighted at ``atol_T``
+    Kelvin (default ``energy.DEFAULT_ATOL_T``) in the error norms, and the
+    output gains the final temperatures ``T`` and the per-lane
+    ``ignition_delay`` (the max-dT/dt time, NaN where a lane's temperature
+    rose by less than 50 K).  ``method`` is ``"bdf"`` or ``"sdirk"``;
+    ``newton_tol`` is SDIRK's stage Newton tolerance.
     ``segment_steps > 0`` bounds each segment of the sweep driver; ``0``
     runs one segment of ``max_steps``.
 
@@ -229,9 +247,20 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     float32 rate exponentials of the gas kinetics (off by default).
     """
     check_deferred(deferred, _SWEEP_DEFERRED)
+    energy = resolve_energy(energy)
+    if energy is None and atol_T is not None:
+        raise ValueError(
+            "atol_T weights the temperature row of a non-isothermal "
+            "solve; pass energy= ('adiabatic_v'/'adiabatic_p') or drop "
+            "the argument")
     if chem is None or thermo_obj is None:
         raise TypeError("batch_reactor_sweep needs chem= and thermo_obj=")
     mode, gm, sm = _sweep_mode(chem, md, gmd, smd, thermo_obj)
+    if energy is not None and mode != "gas":
+        raise ValueError(
+            f"energy={energy!r} supports gas chemistry only (the "
+            f"surface/coupled/udf state layouts have no temperature-row "
+            f"contract yet); drop the knob for mode {mode!r}")
     device = resolve_device(device)
     thermo_obj = thermo_obj.to(device)
     gm = gm.to(device) if gm is not None else None
@@ -257,16 +286,34 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
             "Asv": torch.tensor(np.broadcast_to(Asv_np, (B,)).copy(),
                                 device=device)}
 
+    if energy is not None:
+        # the trailing T row, and its atol weight as a per-lane operand
+        y0s = extend_states(y0s, T_t)
+        cfgs = energy_cfg(cfgs, energy, B, y0s.shape[1], atol, atol_T,
+                          device=device)
+
     observer = obs0 = None
+    if energy is not None:
+        observer, obs0 = energy_ignition_observer(len(species))
     if ignition_marker is not None:
         key = ignition_marker.upper()
         if key not in idx:
             raise KeyError(f"ignition_marker {ignition_marker!r} not in "
                            f"species list")
-        observer, obs0 = ignition_observer(idx[key], mode=ignition_mode)
-    rhs = _make_rhs(mode, chem.udf, gm, sm, thermo_obj, kc_compat, asv_quirk,
-                    exp32)
-    jac = _make_jac(mode, gm, sm, thermo_obj, kc_compat, asv_quirk, exp32)
+        sp_obs, sp_obs0 = ignition_observer(idx[key], mode=ignition_mode)
+        if observer is None:
+            observer, obs0 = sp_obs, sp_obs0
+        else:
+            observer, obs0 = merge_observers(observer, obs0, sp_obs,
+                                             sp_obs0)
+    if energy is not None:
+        rhs = make_energy_rhs(gm, thermo_obj, energy, kc_compat, exp32)
+        jac = make_energy_jac(gm, thermo_obj, energy, kc_compat, exp32)
+    else:
+        rhs = _make_rhs(mode, chem.udf, gm, sm, thermo_obj, kc_compat,
+                        asv_quirk, exp32)
+        jac = _make_jac(mode, gm, sm, thermo_obj, kc_compat, asv_quirk,
+                        exp32)
     jac_window = resolve_jac_window(jac_window, method, device)
     linsolve = resolve_linsolve(
         linsolve, method=method, device=device, batch=B, n=y0s.shape[1],
@@ -278,7 +325,7 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     res = ensemble_solve_segmented(
         rhs, y0s, 0.0, float(time), cfgs, rtol=rtol, atol=atol, jac=jac,
         observer=observer, observer_init=obs0, method=method,
-        jac_window=jac_window, linsolve=linsolve,
+        jac_window=jac_window, linsolve=linsolve, newton_tol=newton_tol,
         setup_economy=setup_economy, stale_tol=stale_tol, **seg)
 
     ng = len(species)
@@ -289,13 +336,20 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         "x": {s: x_end[:, k] for k, s in enumerate(species)},
         "t": res.t.cpu().numpy(),
         "status": res.status.cpu().numpy(),
-        "report": sweep_report(res, cfgs),
+        # reserved operand keys (the energy path's atol weight) are solver
+        # plumbing, not conditions
+        "report": sweep_report(res, {k: v for k, v in cfgs.items()
+                                     if not k.startswith("_")}),
         # the resolved solver configuration the sweep actually ran
         "linsolve": linsolve,
         "jac_window": jac_window,
     }
     if chem.surfchem:
         out["covg"] = y_end[:, ng:]
+    if energy is not None:
+        # final temperatures and the physical ignition delay
+        out["T"] = y_end[:, -1]
+        out["ignition_delay"] = extract_delay(res.observed)
     if ignition_marker is not None:
         out["tau"] = res.observed["tau"].cpu().numpy()
     return out
@@ -431,12 +485,12 @@ def batch_reactor(*args, surfchem=False, gaschem=False, Asv=1.0, chem=None,
         surface chemistry.
 
     ``segmented=None``/``True`` runs the solve in segments of at most 512
-    attempts; ``False`` in one segment of ``max_steps``.  ``jac_window``
-    follows :func:`resolve_jac_window`."""
+    attempts; ``False`` in one segment of ``max_steps``.  ``method`` is
+    ``"bdf"`` or ``"sdirk"``; ``jac_window`` follows
+    :func:`resolve_jac_window`."""
     check_deferred(deferred, _RUN_DEFERRED)
-    if method != "bdf":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP A8)")
+    if method not in ("bdf", "sdirk"):
+        raise ValueError(f"unknown method {method!r}; use 'sdirk'/'bdf'")
     solve_kw = dict(rtol=rtol, atol=atol, n_save=n_save, max_steps=max_steps,
                     method=method, jac_window=jac_window,
                     segmented=segmented)

@@ -24,9 +24,8 @@ per-lane masks at all three levels:
 
 The any-lane tests are host syncs; CUDA graphs come later.
 
-Options the main path does not run are not ported yet and raise
-``NotImplementedError``: ``freeze_precond`` (ROADMAP A4b), ``tangent``
-(A11), ``stats`` and ``timeline`` (A14), ``step_audit`` (A14).
+Options not ported yet raise ``NotImplementedError``: ``tangent``
+(ROADMAP A11), ``stats``, ``timeline`` and ``step_audit`` (A14).
 """
 
 import math
@@ -34,7 +33,9 @@ import math
 import torch
 
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
-                     SolveResult, check_deferred, scaled_norm)
+                     SolveResult, atol_scale_of, check_deferred,
+                     jacfwd_lanes, scaled_norm)
+from .common import where_lanes as _where
 from .linalg import (apply_factor, factor_m, factor_zeros, make_solve_m,
                      resolve_linsolve)
 
@@ -55,9 +56,8 @@ _ERRC_TAB = [1.0 / (q + 1) for q in range(_ROWS)]
 
 # (keyword, default, ROADMAP item) of the JAX solver's options that wait
 # for a later slice
-_DEFERRED = (("freeze_precond", False, "A4b"), ("tangent", None, "A11"),
-             ("step_audit", False, "A14"), ("stats", False, "A14"),
-             ("timeline", None, "A14"))
+_DEFERRED = (("tangent", None, "A11"), ("step_audit", False, "A14"),
+             ("stats", False, "A14"), ("timeline", None, "A14"))
 
 
 def _change_D(D, order, factor):
@@ -100,29 +100,6 @@ def _row(D, r):
     return torch.gather(D, 1, idx)[:, 0]
 
 
-def _where(mask, a, b):
-    """Per-lane select over tensors or dicts of tensors."""
-    if isinstance(a, dict):
-        return {k: _where(mask, a[k], b[k]) for k in a}
-    m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
-    return torch.where(m, a, b)
-
-
-def _jacfwd(rhs):
-    """Per-lane forward-mode Jacobian of a batched RHS (the solver's
-    ``jac=None`` fallback, as ``jax.jacfwd`` is in the JAX package)."""
-    from torch.func import jacfwd, vmap
-
-    def jac(t, y, cfg):
-        def one(t1, y1, cfg1):
-            return rhs(t1[None], y1[None],
-                       {k: v[None] for k, v in cfg1.items()})[0]
-
-        return vmap(jacfwd(one, argnums=1))(t, y, cfg)
-
-    return jac
-
-
 def solve(
     rhs,
     y0,
@@ -143,6 +120,7 @@ def solve(
     observer_init=None,
     solver_state=None,
     jac_window=1,
+    freeze_precond=False,
     setup_economy=False,
     stale_tol=0.3,
     **deferred,
@@ -162,16 +140,28 @@ def solve(
     to resume the multistep history (lanes whose history is all zero start
     cold).  ``jac_window=K`` evaluates the Jacobian once per window of up
     to K attempts; a Newton failure closes the window early.
+    ``freeze_precond=True`` (needs ``jac_window > 1``) also factors M =
+    I - c0 J once per window, at the window's opening c0, and rescales
+    each correction by 2/(1 + c/c0): the setup economy's frozen
+    factorization without its reuse across windows.
     ``setup_economy=True`` (with ``jac_window > 1``) carries the
     iteration-matrix factorization across windows and refreshes it only on
     a cj-ratio breach ``|c/c0 - 1| > stale_tol``, a Newton failure, or
     after ``_ECON_MAX_AGE`` windows (CVODE's setup economy); under economy
     the fresh factorization is computed for every lane at each window open
     and selected per lane, as the JAX package does under ``vmap``.
+
+    A (B, n) ``cfg[ATOL_SCALE_KEY]`` weights ``atol`` per component in
+    every scaled norm and in the Newton displacement scale
+    (``solver.common``; the energy path's temperature row).
     """
     check_deferred(deferred, _DEFERRED)
     if jac_window < 1:
         raise ValueError(f"jac_window must be >= 1, got {jac_window}")
+    if freeze_precond and jac_window == 1:
+        raise ValueError(
+            "freeze_precond requires jac_window > 1 (with a window of 1 "
+            "the preconditioner is rebuilt with J anyway)")
     if not 0.0 <= float(stale_tol) <= 1.0:
         raise ValueError(f"stale_tol must be in [0, 1], got {stale_tol}")
     if (observer is None) != (observer_init is None):
@@ -196,14 +186,17 @@ def solve(
     errc_tab = torch.tensor(_ERRC_TAB, dtype=dt, device=dev)
     ones_rows = torch.ones(_ROWS, dtype=dt, device=dev)
 
+    atol_scale = atol_scale_of(cfg, y0)
+    atol_vec = atol if atol_scale is None else atol * atol_scale
+
     def _norm(e, y):
-        return scaled_norm(e, y, rtol, atol)
+        return scaled_norm(e, y, rtol, atol, atol_scale)
 
     def f(t, y):
         return rhs(t, y, cfg)
 
     if jac is None:
-        jac = _jacfwd(rhs)
+        jac = jacfwd_lanes(rhs)
 
     def J_at(t, y):
         return jac(t, y, cfg)
@@ -326,7 +319,7 @@ def solve(
         y_pred = _masked_row_sum(D, ones_rows, order)
         psi = _masked_row_sum(D, gamma_tab, order, lo=1) / gam[:, None]
         cc = h / gam
-        scale = atol + rtol * torch.abs(y_pred)
+        scale = atol_vec + rtol * torch.abs(y_pred)
 
         J = J_at(t_new, y_pred) if J_stale is None else J_stale
         if pre is None:
@@ -451,22 +444,25 @@ def solve(
         t, D, order, h = c["t"], c["D"], c["order"], c["h"]
         y_pred = _masked_row_sum(D, ones_rows, order)
         J = J_at(t + h, y_pred)
-        reuse = None
-        if economy:
-            live0 = c["status"] == RUNNING
+        reuse = pre = None
+        if economy or freeze_precond:
+            # the window's frozen factorization at its opening c0; the
+            # economy keeps a lane's carried one instead when it passes the
+            # staleness test (the economy subsumes freeze_precond)
             c_open = h / gamma_tab[order]
-            ratio = torch.where(econ["c0"] > 0, c_open / econ["c0"],
-                                math.inf)
-            reuse = (econ["ok"] & (torch.abs(ratio - 1.0) <= stale_tol)
-                     & (econ["age"] + 1 < _ECON_MAX_AGE))
-            need = ~reuse
-            fac_fresh = factor_m(eye - c_open[:, None, None] * J, linsolve)
-            fac = _where(need, fac_fresh, econ["fac"])
-            c0 = torch.where(need, c_open, econ["c0"])
-            age = torch.where(need, 0, econ["age"] + 1)
+            fac = factor_m(eye - c_open[:, None, None] * J, linsolve)
+            c0 = c_open
+            if economy:
+                live0 = c["status"] == RUNNING
+                ratio = torch.where(econ["c0"] > 0, c_open / econ["c0"],
+                                    math.inf)
+                reuse = (econ["ok"] & (torch.abs(ratio - 1.0) <= stale_tol)
+                         & (econ["age"] + 1 < _ECON_MAX_AGE))
+                need = ~reuse
+                fac = _where(need, fac, econ["fac"])
+                c0 = torch.where(need, c_open, econ["c0"])
+                age = torch.where(need, 0, econ["age"] + 1)
             pre = ((lambda b: apply_factor(fac, b, linsolve, dt)), c0)
-        else:
-            pre = None
         nf = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(jac_window):
             active = ~nf & (c["status"] == RUNNING)

@@ -1,10 +1,11 @@
-"""What the BDF solver shares with the JAX package's SDIRK module.
+"""What the BDF and SDIRK solvers share.
 
 The JAX package's ``solver/bdf.py`` imports its result type, status codes
-and scaled error norm from ``batchreactor_tpu/solver/sdirk.py`` (``SolveResult``
-at :53, the status codes at :50, ``_scaled_norm`` at :116).  SDIRK itself
-is not ported yet (ROADMAP A8); these are the pieces BDF needs, batched
-over lanes.
+and scaled error norm from ``batchreactor_tpu/solver/sdirk.py``
+(``SolveResult`` at :53, the status codes at :50, ``ATOL_SCALE_KEY`` at
+:130, ``_scaled_norm`` at :133).  Here they live in one module both
+solvers import, batched over lanes, with the helpers both solvers use on
+lane-batched tensors (the per-lane select and the ``jac=None`` fallback).
 """
 
 import dataclasses
@@ -13,6 +14,13 @@ import torch
 
 # status codes (per lane)
 RUNNING, SUCCESS, MAX_STEPS_REACHED, DT_UNDERFLOW = 0, 1, 2, 3
+
+#: reserved per-lane cfg key: a (B, n) multiplier on ``atol`` in every
+#: scaled norm of both solvers (the energy path's temperature row, whose
+#: absolute tolerance is ``atol_T`` Kelvin while the species rows keep
+#: ``atol``; ``energy/eqns.py``).  Absent, the norms are the plain-atol
+#: computation, operation for operation.
+ATOL_SCALE_KEY = "_atol_scale"
 
 
 @dataclasses.dataclass
@@ -30,7 +38,8 @@ class SolveResult:
     n_saved: torch.Tensor    # (B,) valid rows in ts/ys (saturates)
     h: torch.Tensor = None   # (B,) step size the controller would try next
     observed: object = None  # observer fold state (None without observer)
-    solver_state: object = None  # opaque multistep carry (resume)
+    err_prev: torch.Tensor = None  # (B,) SDIRK's PI memory (resume)
+    solver_state: object = None  # opaque multistep carry (BDF resume)
 
 
 def check_deferred(kwargs, table):
@@ -49,7 +58,41 @@ def check_deferred(kwargs, table):
                 f"{name}={val!r} is not ported yet (ROADMAP {item})")
 
 
-def scaled_norm(e, y, rtol, atol):
-    """Per-lane RMS of e / (atol + rtol |y|) over the last axis, (B,)."""
-    scale = atol + rtol * torch.abs(y)
+def scaled_norm(e, y, rtol, atol, atol_scale=None):
+    """Per-lane RMS of e / (atol w + rtol |y|) over the last axis, (B,);
+    ``atol_scale`` is the (B, n) weight w (:data:`ATOL_SCALE_KEY`), or
+    None for w = 1."""
+    a = atol if atol_scale is None else atol * atol_scale
+    scale = a + rtol * torch.abs(y)
     return torch.sqrt(torch.mean(torch.square(e / scale), dim=-1))
+
+
+def atol_scale_of(cfg, y0):
+    """The :data:`ATOL_SCALE_KEY` operand of ``cfg`` as a tensor like
+    ``y0``, or None when the key is absent."""
+    w = cfg.get(ATOL_SCALE_KEY) if isinstance(cfg, dict) else None
+    return None if w is None else torch.as_tensor(w, dtype=y0.dtype,
+                                                  device=y0.device)
+
+
+def where_lanes(mask, a, b):
+    """Per-lane select over tensors or dicts of tensors."""
+    if isinstance(a, dict):
+        return {k: where_lanes(mask, a[k], b[k]) for k in a}
+    m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
+    return torch.where(m, a, b)
+
+
+def jacfwd_lanes(rhs):
+    """Per-lane forward-mode Jacobian of a batched RHS (the solvers'
+    ``jac=None`` fallback, as ``jax.jacfwd`` is in the JAX package)."""
+    from torch.func import jacfwd, vmap
+
+    def jac(t, y, cfg):
+        def one(t1, y1, cfg1):
+            return rhs(t1[None], y1[None],
+                       {k: v[None] for k, v in cfg1.items()})[0]
+
+        return vmap(jacfwd(one, argnums=1))(t, y, cfg)
+
+    return jac

@@ -1,17 +1,22 @@
 """Newton linear algebra on lane-batched iteration matrices.
 
-Port of ``batchreactor_tpu/solver/linalg.py`` for the modes the main path
-runs:
+Port of ``batchreactor_tpu/solver/linalg.py``, every mode:
 
-* ``"lu"``    exact float64 partially pivoted elimination (plain batched
-              torch) — the CPU / parity mode;
-* ``"lu32p"`` float32 LU with partial pivoting, the Hopper kernel of
-              :mod:`.linalg_cuda` (its plain version on the CPU) — a
-              float32 preconditioner for the quasi-Newton corrector, whose
-              fixed point does not depend on the solve's accuracy.
+* ``"lu"``      exact float64 partially pivoted elimination (plain batched
+                torch) — the CPU / parity mode;
+* ``"inv32"``   float32 inverse of M (``torch.linalg.inv_ex``) applied in
+                float64 with one float64 refinement pass, x + Minv (b - M x)
+                (restores ~float64 accuracy while cond(M) stays below ~1e7);
+* ``"inv32nr"`` the float32 inverse, applied in float64, no refinement;
+* ``"inv32f"``  inv32nr with the matrix-vector product in float32;
+* ``"lu32p"``   float32 LU with partial pivoting, the Hopper kernel of
+                :mod:`.linalg_cuda` (its plain version on the CPU).
 
-The JAX package's ``inv32``/``inv32nr``/``inv32f`` modes are not ported yet
-(ROADMAP A3b) and raise ``NotImplementedError``.
+Every mode but ``"lu"`` is a float32 preconditioner for the quasi-Newton
+corrector, whose fixed point does not depend on the solve's accuracy.  The
+JAX package computes the ``inv32*`` modes with XLA's batched inverse and
+matmul, outside any Pallas kernel; here they are ``torch.linalg.inv_ex`` and
+batched matmul.
 
 Two layers, as in the JAX package: :func:`factor_m` / :func:`apply_factor`
 hold the factorization as a plain dict of tensors (the BDF setup economy
@@ -22,11 +27,8 @@ import torch
 
 from .linalg_cuda import CTA_NPAD_MAX, lu32p_factor, lu32p_solve, padded_n
 
-#: Newton linear-solver modes of the port
-MODES = ("lu", "lu32p")
-
-#: the JAX package's modes that wait for a later slice
-_DEFERRED_MODES = ("inv32", "inv32nr", "inv32f")
+#: Newton linear-solver modes
+MODES = ("lu", "inv32", "inv32nr", "inv32f", "lu32p")
 
 #: ``resolve_linsolve`` gate: ``"lu32p"`` is selected for BDF on the GPU
 #: when the sweep's B * n reaches this many lane-equations (B=1024 GRI
@@ -78,18 +80,21 @@ def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
     """The resolution rule for ``linsolve="auto"``:
 
     * CPU: ``"lu"`` — exact float64.
-    * CUDA, BDF, a state with surface coverages (``n_surface > 0``):
-      ``"lu"``.  A float32 factor does not carry these states: eliminating
-      the gas rows of adsorbing species against coverage pivot rows up to
-      ten decades larger leaves those rows with errors of the order of
-      their own entries, in any float32 LU with partial pivoting (the
-      plain version as much as the kernel:
-      ``python -m batchreactor_tpu_torch.tools.lu32p_coverages``).  With
-      ``"lu32p"`` the coupled GRI-3.0 + CH4/Ni sweep stalls at small steps
-      (3 of 4 lanes short of 10 s in twice ``"lu"``'s steps, on the CPU),
-      and on an H100 the CH4/Ni surface sweep took 19.24 s against 8.73 s
-      with ``"lu"`` (B = 2048) with its coverage sums 1.7e-6 off 1
-      (PERF.md).
+    * A state with surface coverages (``n_surface > 0``) on CUDA: ``"lu"``.
+      A float32 factor does not carry these states: eliminating the gas
+      rows of adsorbing species against coverage pivot rows up to ten
+      decades larger leaves those rows with errors of the order of their
+      own entries, in any float32 LU with partial pivoting (the plain
+      version as much as the kernel: ``python -m
+      batchreactor_tpu_torch.tools.lu32p_coverages``), and cond(M)
+      reaches 1e7-2.2e18 there, past what one float32 refinement pass
+      restores.  With ``"lu32p"`` the coupled GRI-3.0 + CH4/Ni sweep
+      stalls at small steps (3 of 4 lanes short of 10 s in twice
+      ``"lu"``'s steps, on the CPU), and on an H100 the CH4/Ni surface
+      sweep took 19.24 s against 8.73 s with ``"lu"`` (B = 2048) with its
+      coverage sums 1.7e-6 off 1 (PERF.md).
+    * CUDA, SDIRK (``method="sdirk"``): ``"inv32"`` — its five sequential
+      stage solves want the refinement's accuracy, as in the JAX package.
     * CUDA, BDF, a state wider than the kernel takes (``padded_n(n) >
       CTA_NPAD_MAX``, n > 240): ``"lu"``.  An explicit ``"lu32p"`` there
       raises at the launch, naming the cap.
@@ -97,21 +102,16 @@ def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
       ``batch * n >= LU32P_MIN_BN`` (the TPU's gate), else ``"lu"``.  ``n``
       is the state width.
 
-    Explicit modes pass through validated; the JAX package's ``inv32*``
-    modes raise ``NotImplementedError`` (ROADMAP A3b)."""
-    if linsolve in _DEFERRED_MODES:
-        raise NotImplementedError(
-            f"linsolve={linsolve!r} is not ported yet (ROADMAP A3b)")
+    Explicit modes pass through validated."""
     if linsolve != "auto":
         if linsolve not in MODES:
             raise ValueError(f"unknown linsolve {linsolve!r}; use one of "
                              f"{MODES + ('auto',)}")
         return linsolve
-    if method != "bdf":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet (ROADMAP A8)")
     if torch.device(device).type == "cpu" or n_surface:
         return "lu"
+    if method == "sdirk":
+        return "inv32"
     if (batch is not None and n is not None and batch * n >= LU32P_MIN_BN
             and padded_n(n) <= CTA_NPAD_MAX):
         return "lu32p"
@@ -132,6 +132,16 @@ def factor_zeros(linsolve, batch, n, dtype, device):
                                   device=device),
                 "piv": torch.zeros((batch, npad), dtype=torch.int32,
                                    device=device)}
+    if linsolve == "inv32f":
+        return {"minv": torch.zeros((batch, n, n), dtype=torch.float32,
+                                    device=device)}
+    if linsolve == "inv32nr":
+        return {"minv": torch.zeros((batch, n, n), dtype=dtype,
+                                    device=device)}
+    if linsolve == "inv32":
+        return {"minv": torch.zeros((batch, n, n), dtype=dtype,
+                                    device=device),
+                "m": torch.zeros((batch, n, n), dtype=dtype, device=device)}
     raise ValueError(f"unknown linsolve {linsolve!r}")
 
 
@@ -140,11 +150,27 @@ def factor_m(M, linsolve):
     into a dict of tensors (layout: :func:`factor_zeros`)."""
     if linsolve == "lu":
         LU, piv = lu_factor(M)
-    elif linsolve == "lu32p":
+        return {"lu": LU, "piv": piv}
+    if linsolve == "lu32p":
         LU, piv = lu32p_factor(M)
-    else:
+        return {"lu": LU, "piv": piv}
+    if linsolve not in MODES:
         raise ValueError(f"unknown linsolve {linsolve!r}")
-    return {"lu": LU, "piv": piv}
+    # inv_ex: no host sync on the info flag; a singular M gives a
+    # non-finite inverse, which Newton's divergence gate turns into a
+    # rejected step (as XLA's inverse does in the JAX package)
+    Minv32 = torch.linalg.inv_ex(M.to(torch.float32))[0]
+    if linsolve == "inv32f":
+        return {"minv": Minv32}
+    Minv = Minv32.to(M.dtype)
+    if linsolve == "inv32nr":
+        return {"minv": Minv}
+    return {"minv": Minv, "m": M}
+
+
+def _matvec(A, x):
+    """A x per lane: (B, n, n) by (B, n)."""
+    return torch.matmul(A, x[..., None])[..., 0]
 
 
 def apply_factor(fac, b, linsolve, dtype):
@@ -153,6 +179,13 @@ def apply_factor(fac, b, linsolve, dtype):
         return lu_solve((fac["lu"], fac["piv"]), b)
     if linsolve == "lu32p":
         return lu32p_solve((fac["lu"], fac["piv"]), b).to(dtype)
+    if linsolve == "inv32f":
+        return _matvec(fac["minv"], b.to(torch.float32)).to(dtype)
+    if linsolve == "inv32nr":
+        return _matvec(fac["minv"], b)
+    if linsolve == "inv32":
+        x = _matvec(fac["minv"], b)
+        return x + _matvec(fac["minv"], b - _matvec(fac["m"], x))
     raise ValueError(f"unknown linsolve {linsolve!r}")
 
 

@@ -8,10 +8,10 @@ It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
 against its plain PyTorch version on the card (phase 2: random matrices,
 n = 1..240 across both paths, the contract cases on both, and each path's
-own Newton matrices, the coupled path's at three step sizes, with their
-condition numbers; the CTA path timed at n = 66, 120, 176 and 240), and
-drives the port's paths through
-its own entry points:
+own Newton matrices, the coupled path's and the energy path's at three step
+sizes, with the coupled ones' condition numbers; the CTA path timed at
+n = 66, 120, 176 and 240), and drives the port's paths through its own
+entry points:
 
 - the gas main path, the GRI-3.0 isothermal ignition sweep at B = 1024
   lanes (the kernel's warp path), its float64 ``lu`` cross-check, and the
@@ -22,7 +22,18 @@ its own entry points:
   n = 66, npad 72) against ``lu`` (phases 6-7);
 - the surface-only CH4/Ni sweep at B = 2048, the user-defined-chemistry
   sweep at B = 4096 (the warp path) and the file-driven surface run
-  (phases 8-10).
+  (phases 8-10);
+- the energy path, a GRI-3.0 phi x T ignition-delay sweep of CH4 in air
+  at B = 1024 lanes, adiabatic at constant volume (53 species + T, the
+  kernel's warp path, npad 56), with its energy conservation against a
+  bound from the JAX package on the CPU (phase 11); its first 64 lanes
+  with the float64 ``lu`` and at constant pressure (phase 12);
+- SDIRK4 on the main path's conditions at B = 256 (``inv32``) against
+  phase 3's BDF delays, and one ``temperature_sweep`` (phase 13);
+- below the ``lu32p`` gate (B = 256): BDF through the monolithic
+  ``ensemble_solve`` with every Newton mode (``lu``, ``inv32``,
+  ``inv32nr``, ``inv32f``, ``lu32p``) and with ``lu32p`` under
+  ``freeze_precond``, an A/B with no assertion on speed (phase 14).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  ``--profile`` adds a phase that runs the gas main path
@@ -77,6 +88,20 @@ COMP7 = {"CH4": 0.25, "H2O": 0.25, "N2": 0.5}
 B_SURF, T_LO_S, T_HI_S, T1_S = 2048, 1023.0, 1223.0, 10.0
 # the user-defined path: first-order H2 decay on h2o2, 4096 temperatures
 B_UDF, T_LO_U, T_HI_U, T1_U = 4096, 1000.0, 2000.0, 5.0
+# the energy path: CH4 in air, phi x 256 temperatures in 1500-2000 K, 1 bar,
+# adiabatic; the coolest, leanest lane ignites at 0.90 ms (the JAX package
+# on the CPU), well before T1_E / 2
+PHI_E = (0.5, 0.75, 1.0, 1.5)
+N_T_E, T1_E = 256, 1e-2
+# bounds on the energy drift |e(t1) - e(0)| / sum_k |Y_k e_k(0)| (phases 11
+# and 12): ten times the largest drift of the JAX package's reference
+# configuration on lanes of the same grid on the CPU, 5.918e-7 over 24
+# lanes at constant volume and 4.348e-6 over the 64 lanes of phase 12 at
+# constant pressure (python scripts/energy_drift_reference.py)
+DRIFT_REF_V, DRIFT_REF_P = 5.918e-7, 4.348e-6
+DRIFT_BOUND_V, DRIFT_BOUND_P = 10 * DRIFT_REF_V, 10 * DRIFT_REF_P
+# the SDIRK path and the Newton-mode A/B: every 4th main-path temperature
+SDIRK_STRIDE = 4
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -423,11 +448,14 @@ def time_kernel(M, same_pivots=True):
 
 
 def sweep(bt, gm, th, T, device, **kw):
+    """The main path's sweep of the temperatures T; ``kw`` overrides its
+    solver configuration."""
+    cfg = dict(method="bdf", jac_window=8, setup_economy=True)
+    cfg.update(kw)
     return bt.batch_reactor_sweep(
         COMP, T, 1e5, T1, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
-        md=gm, rtol=RTOL, atol=ATOL, method="bdf", jac_window=8,
-        setup_economy=True, ignition_marker="CH4", segment_steps=256,
-        device=device, **kw)
+        md=gm, rtol=RTOL, atol=ATOL, ignition_marker="CH4",
+        segment_steps=256, device=device, **cfg)
 
 
 def counted(fn):
@@ -511,14 +539,15 @@ def h2_decay_udf(species, device):
     return udf
 
 
-def check_sweep(name, out, B, by_path, want_path):
+def check_sweep(name, out, B, by_path, want_path, want_ls=None):
     """The assertions every sweep phase shares: all lanes successful,
     finite states and, with surface chemistry, coverages that sum to 1
-    within 1e-6; the kernel launched on ``want_path`` only (``None``: the
-    float64 ``lu`` mode, no launch).  Returns the coverage sums' largest
-    distance from 1."""
+    within 1e-6; the kernel launched on ``want_path`` only (``None``: no
+    launch, and the float64 ``lu`` mode unless ``want_ls`` names
+    another).  Returns the coverage sums' largest distance from 1."""
     rep = out["report"]
-    want_ls = "lu" if want_path is None else "lu32p"
+    if want_ls is None:
+        want_ls = "lu" if want_path is None else "lu32p"
     if out["linsolve"] != want_ls:
         raise AssertionError(f"{name}: linsolve resolved to "
                              f"{out['linsolve']!r}, not {want_ls!r}")
@@ -551,6 +580,297 @@ def surface_sweep(bt, th7, sm7, T, device, **kw):
         COMP7, T, 1e5, T1_S, chem=bt.Chemistry(surfchem=True),
         thermo_obj=th7, smd=sm7, Asv=10.0, rtol=RTOL, atol=ATOL,
         segment_steps=256, device=device, **kw)
+
+
+def energy_conditions(gm, device):
+    """Phase 11's lanes: (phi, T) per lane on the phi x T grid, phi-major,
+    and the premixed CH4/air mole fractions (B, 53) as numpy arrays."""
+    from batchreactor_tpu_torch.parallel import (condition_grid,
+                                                 premixed_mole_fracs)
+
+    g = condition_grid(phi=PHI_E, T=np.linspace(T_LO, T_HI, N_T_E),
+                       device=device)
+    x = premixed_mole_fracs(list(gm.species), "CH4", g["phi"],
+                            diluent="N2", stoich_o2=2.0, o2_to_diluent=3.76,
+                            device=device)
+    return (g["phi"].cpu().numpy(), g["T"].cpu().numpy(),
+            x.cpu().numpy())
+
+
+def energy_jacobians(gm, th, device):
+    """The constant-volume energy Jacobians (B = 1024, n = 53 + 1) at phase
+    11's initial states."""
+    import torch
+
+    from batchreactor_tpu_torch.energy import eqns
+    from batchreactor_tpu_torch.parallel import sweep_solution_vectors
+
+    _, T, x = energy_conditions(gm, device)
+    T = torch.tensor(T, device=device)
+    y0 = eqns.extend_states(sweep_solution_vectors(x, th.molwt, T, 1e5), T)
+    return eqns.make_energy_jac(gm, th, "adiabatic_v")(0.0, y0, {})
+
+
+def energy_sweep(bt, gm, th, x, T, device, energy="adiabatic_v", **kw):
+    """An adiabatic GRI-3.0 sweep of the lanes (x, T) with the main path's
+    solver configuration."""
+    comp = {s: x[:, k] for k, s in enumerate(gm.species) if x[:, k].any()}
+    return bt.batch_reactor_sweep(
+        comp, T, 1e5, T1_E, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
+        md=gm, rtol=RTOL, atol=ATOL, energy=energy, jac_window=8,
+        setup_economy=True, segment_steps=256, device=device, **kw)
+
+
+def energy_drift(th, x0, T0, out, mode):
+    """Per-lane |e(t1) - e(0)| / sum_k |Y_k e_k(0)| of the specific internal
+    energy (``adiabatic_v``) or enthalpy (``adiabatic_p``), which the
+    reactor conserves, from the initial and final x and T."""
+    import torch
+
+    from batchreactor_tpu_torch.ops.thermo import cp_h_s_over_R
+    from batchreactor_tpu_torch.utils.constants import R
+
+    molwt = th.molwt.cpu().numpy()
+
+    def specific(x, T):
+        _, h_RT, _ = cp_h_s_over_R(torch.tensor(T, device=th.molwt.device),
+                                   th)
+        h = h_RT.cpu().numpy() * R * T[:, None]
+        e = h - R * T[:, None] if mode == "adiabatic_v" else h
+        Y = x * molwt / (x @ molwt)[:, None]
+        terms = Y * e / molwt
+        return terms.sum(axis=1), np.abs(terms).sum(axis=1)
+
+    e0, scale = specific(x0, T0)
+    x1 = np.stack([out["x"][s] for s in th.species], axis=1)
+    e1, _ = specific(x1, out["T"])
+    return np.abs(e1 - e0) / scale
+
+
+def timed(fn):
+    """``counted(fn)`` with the wall of the call, the card synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, launches, by_path = counted(fn)
+    torch.cuda.synchronize()
+    return out, launches, by_path, time.perf_counter() - t0
+
+
+def steps(rep):
+    return {"mean_accepted": rep["n_accepted"]["mean"],
+            "max_accepted": rep["n_accepted"]["max"],
+            "mean_rejected": rep["n_rejected"]["mean"],
+            "max_rejected": rep["n_rejected"]["max"]}
+
+
+def phase_energy(bt, gm, th, device, smi, timing, by_phase):
+    """Phases 11 and 12: the adiabatic GRI-3.0 phi x T sweep (the kernel's
+    warp path), then its first B_CROSS lanes with the float64 ``lu`` and
+    at constant pressure."""
+    import torch
+
+    # ---- phase 11: the energy path --------------------------------------
+    phi_e, T_e, x_e = energy_conditions(gm, device)
+    B_E = T_e.shape[0]
+    t0 = time.perf_counter()
+    energy_sweep(bt, gm, th, x_e, T_e, device)
+    torch.cuda.synchronize()
+    cold_e = time.perf_counter() - t0
+    out_e, launches_e, by_phase["energy"], wall_e = timed(
+        lambda: energy_sweep(bt, gm, th, x_e, T_e, device))
+    check_sweep("energy", out_e, B_E, by_phase["energy"], "warp")
+    tau_e = out_e["ignition_delay"]
+    if not np.all(np.isfinite(tau_e)):
+        raise AssertionError(f"energy: {int((~np.isfinite(tau_e)).sum())} "
+                             f"lanes without an ignition delay")
+    rise = out_e["T"] - T_e
+    if not np.all(rise > 500.0):
+        raise AssertionError(f"energy: final T only {rise.min()} K above "
+                             f"the initial T")
+    tau_grid = tau_e.reshape(len(PHI_E), -1)
+    if not np.all(np.diff(tau_grid, axis=1) < 0):
+        raise AssertionError("energy: tau not strictly decreasing in T at "
+                             "every phi")
+    x_sum = np.abs(sum(out_e["x"].values()) - 1.0).max()
+    if x_sum > 1e-12:
+        raise AssertionError(f"energy: sum x off 1 by {x_sum}")
+    drift_e = energy_drift(th, x_e, T_e, out_e, "adiabatic_v")
+    if not drift_e.max() <= DRIFT_BOUND_V:
+        raise AssertionError(f"energy: internal energy drift "
+                             f"{drift_e.max()} > {DRIFT_BOUND_V}")
+    emit({"phase": "energy", "gpu": smi, "B": B_E,
+          "mechanism": "GRI-3.0 (53 species) + T, n = 54",
+          "energy": "adiabatic_v", "phi": list(PHI_E), "T": [T_LO, T_HI],
+          "t1": T1_E, "linsolve": out_e["linsolve"],
+          "jac_window": out_e["jac_window"], "cold_s": cold_e,
+          "wall_s": wall_e, "cond_per_s": B_E / wall_e,
+          **steps(out_e["report"]),
+          "tau_min": float(tau_e.min()), "tau_max": float(tau_e.max()),
+          "T_rise_min": float(rise.min()), "sum_x_max_dev": float(x_sum),
+          "u_drift_max": float(drift_e.max()),
+          "u_drift_median": float(np.median(drift_e)),
+          "u_drift_bound": DRIFT_BOUND_V, "u_drift_jax_cpu": DRIFT_REF_V,
+          "lu32p_launches": launches_e,
+          "lu32p_launches_by_path": by_phase["energy"],
+          "kernel_share": launches_e * timing["energy_n54"]["hot_ms"]
+          / 1e3 / wall_e})
+
+    # ---- phase 12: the energy path's cross-checks ------------------------
+    t0 = time.perf_counter()
+    m = min(B_CROSS, B_E)
+    ref_e, _, by_lu, wall_lu = timed(
+        lambda: energy_sweep(bt, gm, th, x_e[:m], T_e[:m], device,
+                             linsolve="lu"))
+    check_sweep("energy lu", ref_e, m, by_lu, None)
+    tau_rel = np.abs(tau_e[:m] / ref_e["ignition_delay"] - 1.0)
+    T_rel = np.abs(out_e["T"][:m] / ref_e["T"] - 1.0)
+    if not (tau_rel.max() <= 1e-3 and T_rel.max() <= 1e-5):
+        raise AssertionError(f"energy lu32p vs lu: tau max rel "
+                             f"{tau_rel.max()}, T max rel {T_rel.max()}")
+    out_p, _, by_p, wall_p = timed(
+        lambda: energy_sweep(bt, gm, th, x_e[:m], T_e[:m], device,
+                             energy="adiabatic_p"))
+    check_sweep("energy adiabatic_p", out_p, m, by_p, None)
+    drift_p = energy_drift(th, x_e[:m], T_e[:m], out_p, "adiabatic_p")
+    if not (np.all(np.isfinite(out_p["ignition_delay"]))
+            and drift_p.max() <= DRIFT_BOUND_P):
+        raise AssertionError(f"energy adiabatic_p: enthalpy drift "
+                             f"{drift_p.max()} > {DRIFT_BOUND_P}, or lanes "
+                             f"without a delay")
+    emit({"phase": "energy_cross_check", "gpu": smi, "lanes": m,
+          "tau_max_rel_vs_lu": float(tau_rel.max()),
+          "T_max_rel_vs_lu": float(T_rel.max()), "lu_wall_s": wall_lu,
+          "lu_steps": steps(ref_e["report"]),
+          "adiabatic_p_linsolve": out_p["linsolve"],
+          "adiabatic_p_wall_s": wall_p,
+          "adiabatic_p_steps": steps(out_p["report"]),
+          "adiabatic_p_tau_range": [float(out_p["ignition_delay"].min()),
+                                    float(out_p["ignition_delay"].max())],
+          "h_drift_max": float(drift_p.max()),
+          "h_drift_bound": DRIFT_BOUND_P, "h_drift_jax_cpu": DRIFT_REF_P,
+          "seconds": time.perf_counter() - t0})
+
+
+def main_path_lanes(gm, th, Ts, device):
+    """The main path's composition at the temperatures Ts: (y0s, cfg, rhs,
+    jac, observer, observer_init) for the ensemble layer's entry points."""
+    import torch
+
+    from batchreactor_tpu_torch.ops.rhs import make_gas_jac, make_gas_rhs
+    from batchreactor_tpu_torch.parallel import (ignition_observer,
+                                                 sweep_solution_vectors)
+
+    sp = list(gm.species)
+    x0 = np.zeros(len(sp))
+    for k, v in COMP.items():
+        x0[sp.index(k)] = v
+    Tt = torch.tensor(Ts, device=device)
+    y0s = sweep_solution_vectors(np.broadcast_to(x0, (len(Ts), len(sp))),
+                                 th.molwt, Tt, 1e5)
+    obs, obs0 = ignition_observer(sp.index("CH4"), mode="half")
+    return (y0s, {"T": Tt}, make_gas_rhs(gm, th), make_gas_jac(gm, th), obs,
+            obs0)
+
+
+def phase_sdirk(bt, gm, th, Ts, tau_bdf, rep_bdf, device, smi):
+    """Phase 13: SDIRK4 (``auto`` -> ``inv32``) on the main path's
+    conditions at the temperatures Ts against phase 3's BDF delays there,
+    and one ``temperature_sweep``."""
+    from batchreactor_tpu_torch.parallel import temperature_sweep
+
+    B_S = Ts.shape[0]
+    out_sd, _, by_sd, wall_sd = timed(
+        lambda: sweep(bt, gm, th, Ts, device, method="sdirk",
+                      jac_window=None, setup_economy=False))
+    check_sweep("sdirk", out_sd, B_S, by_sd, None, want_ls="inv32")
+    rel_sd = np.abs(out_sd["tau"] / tau_bdf - 1.0)
+    if out_sd["jac_window"] != 1 or not rel_sd.max() <= 1e-3:
+        raise AssertionError(f"sdirk: tau max rel {rel_sd.max()} against "
+                             f"phase 3's BDF, jac_window "
+                             f"{out_sd['jac_window']}")
+    # one initial state (T_LO, 1 bar) over the 16 hottest temperatures to
+    # T1 / 4, through the monolithic ensemble_solve: hotter lanes ignite
+    # sooner, all of them within 1e-4 s
+    y0s, _, rhs, jac, obs, obs0 = main_path_lanes(gm, th, Ts[:1], device)
+    T_ts = Ts[-16:]
+    res_ts, _, by_ts, wall_ts = timed(
+        lambda: temperature_sweep(rhs, y0s[0], T_ts, T1 / 4, method="sdirk",
+                                  rtol=RTOL, atol=ATOL, jac=jac,
+                                  observer=obs, observer_init=obs0))
+    tau_ts = res_ts.observed["tau"].cpu().numpy()
+    if not (bool((res_ts.status == 1).all()) and np.all(np.isfinite(tau_ts))
+            and np.all(np.diff(tau_ts) < 0) and not any(by_ts.values())):
+        raise AssertionError(f"temperature_sweep sdirk: status "
+                             f"{res_ts.status.tolist()}, tau {tau_ts}")
+    emit({"phase": "sdirk", "gpu": smi, "B": B_S, "t1": T1,
+          "linsolve": out_sd["linsolve"], "jac_window": out_sd["jac_window"],
+          "wall_s": wall_sd, "cond_per_s": B_S / wall_sd,
+          **steps(out_sd["report"]),
+          "bdf_mean_accepted_phase3": rep_bdf["n_accepted"]["mean"],
+          "tau_max_rel_vs_bdf": float(rel_sd.max()),
+          "tau_mean_rel_vs_bdf": float(rel_sd.mean()),
+          "lu32p_launches_by_path": by_sd,
+          "temperature_sweep": {"B": int(T_ts.shape[0]), "t1": T1 / 4,
+                                "T": [float(T_ts[0]), float(T_ts[-1])],
+                                "wall_s": wall_ts,
+                                "mean_accepted": float(
+                                    res_ts.n_accepted.double().mean()),
+                                "tau_range": [float(tau_ts.min()),
+                                              float(tau_ts.max())]}})
+
+
+def phase_linsolve_ab(gm, th, Ts, device, smi, by_phase):
+    """Phase 14: below the ``lu32p`` gate, BDF through one monolithic
+    ``ensemble_solve`` of the same lanes with every Newton mode at the main
+    path's economy settings, and ``lu32p`` under ``freeze_precond``: warm
+    walls, steps, lanes successful and tau against ``lu`` (<= 1e-3).  No
+    assertion on speed."""
+    import torch
+
+    from batchreactor_tpu_torch.parallel import ensemble_solve
+    from batchreactor_tpu_torch.solver import linalg as la
+
+    B_S = Ts.shape[0]
+    y0s, cfg, rhs, jac, obs, obs0 = main_path_lanes(gm, th, Ts, device)
+    n = y0s.shape[1]
+    eye = torch.eye(n, dtype=torch.float64, device=device).expand(4, n, n)
+    one = torch.ones((4, n), dtype=torch.float64, device=device)
+    for mode in la.MODES:      # first use of each mode's library calls
+        la.apply_factor(la.factor_m(eye, mode), one, mode, torch.float64)
+    torch.cuda.synchronize()
+    economy = dict(jac_window=8, setup_economy=True)
+    runs = [(m, dict(linsolve=m, **economy)) for m in
+            ("lu", "inv32", "inv32nr", "inv32f", "lu32p")]
+    runs.append(("lu32p_freeze_precond",
+                 dict(linsolve="lu32p", jac_window=8, freeze_precond=True,
+                      setup_economy=False)))
+    ab, taus = {}, {}
+    for name, kw in runs:
+        res, _, by_ab, wall_ab = timed(
+            lambda kw=kw: ensemble_solve(
+                rhs, y0s, 0.0, T1, cfg, rtol=RTOL, atol=ATOL, jac=jac,
+                observer=obs, observer_init=obs0, **kw))
+        taus[name] = res.observed["tau"].cpu().numpy()
+        ab[name] = {"wall_s": wall_ab,
+                    "success": int((res.status == 1).sum()),
+                    "mean_accepted": float(res.n_accepted.double().mean()),
+                    "max_accepted": int(res.n_accepted.max()),
+                    "mean_rejected": float(res.n_rejected.double().mean()),
+                    "lu32p_launches_by_path": by_ab,
+                    "tau_max_rel_vs_lu": float(
+                        np.abs(taus[name] / taus["lu"] - 1.0).max())}
+        if name.startswith("lu32p"):
+            by_phase["linsolve_ab_" + name] = by_ab
+    bad = {k: v for k, v in ab.items() if v["success"] != B_S
+           or not v["tau_max_rel_vs_lu"] <= 1e-3}
+    if bad:
+        raise AssertionError(f"linsolve A/B: {bad}")
+    emit({"phase": "linsolve_ab", "gpu": smi, "B": B_S, "n": n,
+          "B_times_n": B_S * n, "gate": la.LU32P_MIN_BN, "t1": T1,
+          "auto": la.resolve_linsolve("auto", device=device, batch=B_S,
+                                      n=n), "runs": ab})
 
 
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
@@ -701,6 +1021,17 @@ def main():
     emit({"phase": "coupled_conditioning", "gpu": smi,
           **coupled_conditioning(J_c, gm.n_species)})
     del J_c, eye_c
+    # energy_n54: the energy path's Newton matrices M = I - c J at its
+    # initial adiabatic states, whose T row and column are 1e3-1e4 times
+    # the species entries
+    J_e = energy_jacobians(gm, th, device)
+    eye_e = torch.eye(J_e.shape[-1], dtype=torch.float64, device=device)
+    for name, c in (("energy_n54", 1e-7), ("energy_n54_c1e-5", 1e-5),
+                    ("energy_n54_c1e-3", 1e-3)):
+        timing[name] = time_kernel(eye_e - c * J_e, True)
+        emit({"phase": "kernel_timing", "case": name, "gpu": smi,
+              **timing[name]})
+    del J_e, eye_e
     emit({"phase": "kernel_checked", "seconds": time.perf_counter() - t0})
 
     # ---- phase 3: the main path -----------------------------------------
@@ -718,7 +1049,7 @@ def main():
     launches = lc.LAUNCHES
     by_path = dict(lc.LAUNCHES_BY_PATH)
     tau = out["tau"]
-    rep = out["report"]
+    rep = rep_main = out["report"]
     if out["linsolve"] != "lu32p":
         raise AssertionError(f"linsolve resolved to {out['linsolve']!r}")
     if launches <= 0 or by_path["warp"] != launches or by_path["cta"] != 0:
@@ -915,10 +1246,19 @@ def main():
           "covg_sum": float(theta.sum()),
           "seconds": time.perf_counter() - t0})
 
+    # ---- phases 11-14: the energy path, SDIRK4, the Newton-mode A/B ------
+    phase_energy(bt, gm, th, device, smi, timing, by_phase)
+    Ts = T[::SDIRK_STRIDE]
+    phase_sdirk(bt, gm, th, Ts, tau[::SDIRK_STRIDE], rep_main, device, smi)
+    phase_linsolve_ab(gm, th, Ts, device, smi, by_phase)
+
     print(smi, flush=True)
     kernels = []
-    for path, case, paths in (("warp", "main", ("gas_main", "udf")),
-                              ("cta", "coupled_n66", ("coupled_lu32p",))):
+    for path, case, paths in (
+            ("warp", "main", ("gas_main", "udf", "energy",
+                              "linsolve_ab_lu32p",
+                              "linsolve_ab_lu32p_freeze_precond")),
+            ("cta", "coupled_n66", ("coupled_lu32p",))):
         kt = timing[case]
         kernels.append({
             "name": f"lu32p_{path}", "route": "cuda",
@@ -932,7 +1272,11 @@ def main():
             "hot_ms": kt["hot_ms"], "plain_ms": kt["plain_ms"],
             "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
             "share_of_bound": kt["share_of_bound"],
-            "library_ms": kt["library_ms"]})
+            "library_ms": kt["library_ms"],
+            "by_case": {c: {k: timing[c][k] for k in (
+                "shape", "ms", "hot_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "share_of_bound", "max_abs_err")}
+                for c in timing if timing[c]["path"] == path}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ sweeps at rtol 1e-6 never do.  So this is where the per-lane masks of the
 three loops (Newton, jac window, steps) show: a lane whose Newton failed
 stops stepping in its window while its siblings go on.  Same formulas on
 both sides, so every lane's accepted and rejected counts are equal and the
-final state agrees to roundoff.
+final state agrees to roundoff.  The same holds with ``freeze_precond``
+(one frozen factorization per window) and with a per-component atol
+weight (``ATOL_SCALE_KEY``, the energy path's T row).
 """
 
 import jax
@@ -61,3 +63,63 @@ def test_robertson_lanes_match_jax(jac_window, economy):
                                atol=1e-8 * np.abs(y_ref).max())
     print(f"jac_window={jac_window} economy={economy}: accepted",
           got.n_accepted.tolist(), "rejected", got.n_rejected.tolist())
+
+
+def test_freeze_precond_robertson_lanes_match_jax():
+    """The in-window frozen factorization (one M = I - c0 J per window,
+    corrections rescaled by 2/(1 + c/c0)) on the lanes that fail Newton
+    at different attempts."""
+    kw = dict(rtol=1e-4, atol=1e-10, jac_window=8, freeze_precond=True,
+              linsolve="lu")
+    ref = jax.vmap(lambda y, k: bdf_j.solve(_robertson_j, y, 0.0, T1,
+                                            {"k": k}, **kw))(
+        jnp.asarray(Y0), jnp.asarray(K3))
+    got = bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, T1,
+                    {"k": torch.tensor(K3)}, **kw)
+    np.testing.assert_array_equal(got.status.numpy(), np.asarray(ref.status))
+    np.testing.assert_array_equal(got.n_accepted.numpy(),
+                                  np.asarray(ref.n_accepted))
+    np.testing.assert_array_equal(got.n_rejected.numpy(),
+                                  np.asarray(ref.n_rejected))
+    y_ref = np.asarray(ref.y)
+    np.testing.assert_allclose(got.y.numpy(), y_ref, rtol=1e-8,
+                               atol=1e-8 * np.abs(y_ref).max())
+    print("freeze_precond: accepted", got.n_accepted.tolist(), "rejected",
+          got.n_rejected.tolist())
+
+
+def test_freeze_precond_needs_a_window_as_jax():
+    kw = dict(jac_window=1, freeze_precond=True)
+    with pytest.raises(ValueError, match="freeze_precond requires") as e_t:
+        bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, 1.0,
+                  {"k": torch.tensor(K3)}, **kw)
+    with pytest.raises(ValueError, match="freeze_precond requires") as e_j:
+        bdf_j.solve(_robertson_j, jnp.asarray(Y0[0]), 0.0, 1.0,
+                    {"k": jnp.asarray(K3[0])}, **kw)
+    assert str(e_t.value) == str(e_j.value)
+
+
+def test_atol_scale_weights_the_bdf_norms_as_jax():
+    """A (B, n) atol weight in cfg enters the error norms and the Newton
+    displacement scale on both sides alike."""
+    from batchreactor_tpu.solver.sdirk import ATOL_SCALE_KEY as KEY_J
+    from batchreactor_tpu_torch.solver.common import ATOL_SCALE_KEY
+
+    w = np.array([[1.0, 1e3, 1.0]] * len(K3))
+    kw = dict(rtol=1e-4, atol=1e-10, linsolve="lu")
+    ref = jax.vmap(lambda y, k, w1: bdf_j.solve(
+        _robertson_j, y, 0.0, T1, {"k": k, KEY_J: w1}, **kw))(
+        jnp.asarray(Y0), jnp.asarray(K3), jnp.asarray(w))
+    got = bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, T1,
+                    {"k": torch.tensor(K3), ATOL_SCALE_KEY: torch.tensor(w)},
+                    **kw)
+    plain = bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, T1,
+                      {"k": torch.tensor(K3)}, **kw)
+    np.testing.assert_array_equal(got.n_accepted.numpy(),
+                                  np.asarray(ref.n_accepted))
+    np.testing.assert_array_equal(got.n_rejected.numpy(),
+                                  np.asarray(ref.n_rejected))
+    assert not torch.equal(got.n_accepted, plain.n_accepted)
+    y_ref = np.asarray(ref.y)
+    np.testing.assert_allclose(got.y.numpy(), y_ref, rtol=1e-8,
+                               atol=1e-8 * np.abs(y_ref).max())

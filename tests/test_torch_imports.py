@@ -42,7 +42,8 @@ def test_port_files_found():
              for p in PORT_FILES}
     assert {"api.py", "models/gas.py", "models/surface.py",
             "ops/gas_kinetics.py", "ops/surface_kinetics.py",
-            "solver/bdf.py", "solver/linalg_cuda.py",
+            "solver/bdf.py", "solver/sdirk.py", "solver/linalg_cuda.py",
+            "energy/eqns.py", "energy/ignition.py", "parallel/grid.py",
             "parallel/sweep.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
 
@@ -58,10 +59,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch,
     th = bt.create_thermo(list(gm.species), therm, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bt.create_thermo(list(gm.species), therm)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.15, "N2": 0.55}, 1200.0,
-                               1e5, 1e-5, chem=bt.Chemistry(gaschem=True),
-                               thermo_obj=th, md=gm)
+    for kw in ({}, {"energy": "adiabatic_v"}, {"method": "sdirk"}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.15, "N2": 0.55},
+                                   1200.0, 1e5, 1e-5,
+                                   chem=bt.Chemistry(gaschem=True),
+                                   thermo_obj=th, md=gm, **kw)
 
 
 def test_deferred_options_raise_not_implemented(fixtures_dir):
@@ -74,13 +77,18 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
               device="cpu")
     for opt, item in (({"telemetry": True}, "A14"),
                       ({"admission": 4}, "A13"),
-                      ({"energy": "adiabatic_v"}, "A9"),
-                      ({"method": "sdirk"}, "A8"),
-                      ({"linsolve": "inv32f"}, "A3b"),
+                      ({"mesh": object()}, "A12"),
                       ({"analytic_jac": False}, "A13")):
         with pytest.raises(NotImplementedError, match=item):
             bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
                                    **opt)
+    # what the fifth slice ported runs: the energy path, SDIRK and the
+    # float32-inverse Newton modes
+    for opt in ({"energy": "adiabatic_v"}, {"method": "sdirk"},
+                {"linsolve": "inv32f"}):
+        out = bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.2, "N2": 0.5},
+                                     1200.0, 1e5, 1e-7, **kw, **opt)
+        assert out["report"]["counts"] == {"success": 1}, opt
     # surface chemistry is ported: a coupled sweep given md= alone raises
     # the JAX package's TypeError (it needs gmd= and smd=)
     with pytest.raises(TypeError, match="needs gmd=.*and smd="):

@@ -7,7 +7,9 @@ mode: pivots equal, LU within 1e-5 of its largest entry (both are float32
 with the same blocked algorithm; XLA and PyTorch round their reductions
 differently).  Solve errors are bounded by cond(A) * eps_f32 scaled by n,
 not by a fixed tolerance: a fixed 2e-5 fails on the reference itself
-(ROADMAP C1).  The float64 ``lu`` mode agrees with JAX's to 1e-12.
+(ROADMAP C1).  The float64 ``lu`` mode agrees with JAX's to 1e-12, and the
+float32-inverse modes ``inv32``/``inv32nr``/``inv32f`` with JAX's to each
+mode's precision.
 """
 
 import jax
@@ -247,7 +249,42 @@ def test_lu_mode_matches_jax():
                                atol=1e-12 * np.abs(np.asarray(x_j)).max())
 
 
-@pytest.mark.parametrize("mode", ["lu", "lu32p"])
+@pytest.mark.parametrize("mode", ["inv32", "inv32nr", "inv32f"])
+def test_inv32_modes_match_jax(mode):
+    """factor_m/apply_factor of the float32-inverse modes against the JAX
+    package's, each to its own precision: the float32 inverses of two
+    LAPACK builds differ by ~cond(M) eps32, which inv32's float64
+    refinement pass takes to ~cond(M)^2 eps32^2."""
+    n, B = 13, 4
+    rng = np.random.default_rng(11)
+    M = np.eye(n) + 0.3 * rng.standard_normal((B, n, n)) / np.sqrt(n)
+    b = rng.standard_normal((B, n))
+    fac_j = jax.vmap(lambda m: linalg_j.factor_m(m, mode, jnp.float64))(
+        jnp.asarray(M))
+    x_j = np.asarray(jax.vmap(
+        lambda f, v: linalg_j.apply_factor(f, v, mode, jnp.float64))(
+        fac_j, jnp.asarray(b)))
+    fac = linalg.factor_m(torch.tensor(M), mode)
+    assert fac.keys() == fac_j.keys()
+    for k in fac:
+        assert fac[k].dtype == {"float32": torch.float32,
+                                "float64": torch.float64}[
+            str(fac_j[k].dtype)]
+    x = linalg.apply_factor(fac, torch.tensor(b), mode, torch.float64)
+    assert x.dtype == torch.float64
+    x_ref = np.linalg.solve(M, b[..., None])[..., 0]
+    cond = np.linalg.cond(M).max()
+    tol = (n * cond * EPS32) ** 2 if mode == "inv32" else n * cond * EPS32
+    for got in (x.numpy(), x_j):
+        assert np.max(np.abs(got - x_ref)) <= tol * np.abs(x_ref).max()
+    assert np.max(np.abs(x.numpy() - x_j)) <= 2 * tol * np.abs(x_ref).max()
+    np.testing.assert_allclose(fac["minv"].double().numpy(),
+                               np.asarray(fac_j["minv"]), rtol=0,
+                               atol=n * cond * EPS32 * np.abs(
+                                   np.asarray(fac_j["minv"])).max())
+
+
+@pytest.mark.parametrize("mode", linalg.MODES)
 def test_factor_zeros_mirrors_factor_m(mode):
     n, B = 9, 3
     M = torch.eye(n, dtype=torch.float64).repeat(B, 1, 1)
@@ -289,11 +326,22 @@ def test_resolve_linsolve():
     with pytest.raises(ValueError, match=f"npad <= {cap}"):
         launch_config(1024, padded_n(250))
     assert linalg.resolve_linsolve("lu32p", device="cpu") == "lu32p"
+    # the float32-inverse modes pass through; SDIRK's auto is inv32 on the
+    # GPU for gas and UDF states at any B, the float64 lu for states with
+    # coverages and on the CPU; BDF below the gate keeps lu
     for mode in ("inv32", "inv32nr", "inv32f"):
-        with pytest.raises(NotImplementedError, match="A3b"):
-            linalg.resolve_linsolve(mode, device="cuda")
-    with pytest.raises(NotImplementedError, match="A8"):
-        linalg.resolve_linsolve("auto", method="sdirk", device="cuda")
+        assert linalg.resolve_linsolve(mode, device="cuda") == mode
+        assert linalg.resolve_linsolve(mode, method="sdirk",
+                                       device="cpu") == mode
+    for batch in (None, 4, 1024):
+        assert linalg.resolve_linsolve("auto", method="sdirk", device="cuda",
+                                       batch=batch, n=53) == "inv32"
+        assert linalg.resolve_linsolve("auto", method="sdirk", device="cpu",
+                                       batch=batch, n=53) == "lu"
+    assert linalg.resolve_linsolve("auto", method="sdirk", device="cuda",
+                                   batch=1024, n=66, n_surface=13) == "lu"
+    assert linalg.resolve_linsolve("auto", device="cuda", batch=256,
+                                   n=53) == "lu"
     with pytest.raises(ValueError):
         linalg.resolve_linsolve("cholesky", device="cpu")
 
