@@ -7,7 +7,10 @@ state, rates and Jacobians, and an explicit ``device=`` on every entry point
 (``None`` = ``cuda``; without a GPU that raises unless ``device="cpu"``).
 It runs the reference's four chemistry modes (gas, surface, coupled
 gas+surface and user-defined), adiabatic gas chemistry (``energy``), both
-solvers (BDF and SDIRK4) and the ensemble layer (``parallel``).
+solvers (BDF and SDIRK4), the ensemble layer (``parallel``),
+mechanism-shape padding (``models/padding.py``) and parameter
+sensitivities (``sensitivity``: forward tangents, adjoint gradients,
+reaction ranking).
 The JAX package's one Pallas kernel, the batched float32 LU behind
 ``linsolve="lu32p"``, is a hand-written CUDA kernel here
 (``csrc/lu32p.cu``, built with ``nvcc`` at first use).
@@ -15,16 +18,23 @@ The JAX package's one Pallas kernel, the batched float32 LU behind
 Importing the package sets no default dtype and touches no device.
 """
 
-from . import energy, parallel
-from .api import (Chemistry, batch_reactor, batch_reactor_sweep,
-                  get_solution_vector, resolve_jac_window)
+from . import energy, parallel, sensitivity
+from .api import (Chemistry, SensitivityProblem, SensitivitySolution,
+                  batch_reactor, batch_reactor_sweep, get_solution_vector,
+                  resolve_jac_window)
+from .io.config import InputData, input_data
 from .models.gas import GasMechanism, compile_gaschemistry
+from .models.padding import (mech_shape_class, pad_gas_mechanism, pad_states,
+                             pad_thermo)
 from .models.surface import SurfaceMechanism, compile_mech
 from .models.thermo import ThermoTable, create_thermo
 
 __all__ = [
     "Chemistry",
     "GasMechanism",
+    "InputData",
+    "SensitivityProblem",
+    "SensitivitySolution",
     "SurfaceMechanism",
     "ThermoTable",
     "batch_reactor",
@@ -34,6 +44,12 @@ __all__ = [
     "create_thermo",
     "energy",
     "get_solution_vector",
+    "input_data",
+    "mech_shape_class",
+    "pad_gas_mechanism",
+    "pad_states",
+    "pad_thermo",
     "parallel",
     "resolve_jac_window",
+    "sensitivity",
 ]

@@ -16,6 +16,13 @@ reference: gas, surface, coupled gas+surface and user-defined (UDF).
 4. ``batch_reactor_sweep(inlet_comp, T, p, time, chem=, thermo_obj=, md=
    | gmd= | smd=, Asv=)`` — one lane per condition, solved together.
 
+The file-driven forms take ``sens=``: ``True`` returns the problem
+unsolved (:class:`SensitivityProblem`, the reference's hook), and
+``"forward"``/``"adjoint"`` solve it with parameter sensitivities
+(:class:`SensitivitySolution`, ``sensitivity/``).  The sweep pads a
+mechanism onto a larger shape with ``species_buckets``/``reaction_buckets``
+(``models/padding.py``).
+
 The sweep also runs adiabatic gas chemistry (``energy="adiabatic_v"`` or
 ``"adiabatic_p"``: the state gains a trailing temperature row and the sweep
 returns physical ignition delays), and every form runs either solver
@@ -34,6 +41,7 @@ import sys
 import numpy as np
 import torch
 
+from .aot.buckets import normalize_buckets, resolve_bucket
 from .device import resolve_device
 from .energy.eqns import (energy_cfg, extend_states, make_energy_jac,
                           make_energy_rhs, resolve_energy)
@@ -41,6 +49,8 @@ from .energy.ignition import (energy_ignition_observer, extract_delay,
                               merge_observers)
 from .io.config import input_data, parse_composition_text
 from .io.writers import trim_trajectory, write_profiles
+from .models.padding import (nlive_cfg, pad_gas_mechanism, pad_states,
+                             pad_thermo)
 from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
                       make_surface_rhs, make_udf_rhs)
 from .parallel.sweep import (ensemble_solve_segmented, ignition_observer,
@@ -49,6 +59,56 @@ from .solver.common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING,
                             SUCCESS, check_deferred)
 from .solver.linalg import resolve_linsolve
 from .utils.composition import density, mole_to_mass
+
+
+@dataclasses.dataclass(frozen=True)
+class SensitivityProblem:
+    """What ``sens=True`` returns instead of solving (the reference returns
+    ``(params, prob, t_span)``).  ``rhs(t, y, cfg)`` is the lane-batched
+    RHS (y (1, n)) in plain torch ops, so ``torch.func.jacfwd``/``jvp``
+    differentiate it in ``y0`` or ``cfg``; ``cfg`` holds (1,) tensors.
+
+    ``theta``/``spec`` name the differentiable mechanism parameters
+    (default: every reaction's ln A of the primary mechanism), so the hook
+    composes with ``sensitivity.params.apply``; both are ``None`` for
+    user-defined chemistry.  ``sens="forward"``/``"adjoint"`` solve and
+    return the sensitivities directly."""
+
+    rhs: object
+    y0: torch.Tensor
+    cfg: dict
+    t_span: tuple
+    species: tuple
+    surface_species: tuple | None
+    theta: dict | None = None
+    spec: object | None = None  # sensitivity.params.ParamSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class SensitivitySolution:
+    """What ``sens="forward"``/``"adjoint"`` return: a solved run and its
+    parameter sensitivities.  ``tangents`` is the forward (P, n) block
+    dy(t_end)/dtheta in ``sensitivity.params.names(spec)`` row order
+    (``None`` in adjoint mode); ``qoi``/``qoi_grad`` are the scalar QoI
+    and its theta-shaped gradient of (K,) numpy arrays (``None`` unless a
+    QoI was requested)."""
+
+    status: str
+    t: float
+    y: object                      # (n,) final state
+    species: tuple
+    surface_species: tuple | None
+    spec: object                   # sensitivity.params.ParamSpec
+    theta: dict                    # the theta the run was evaluated at
+    names: tuple                   # one label per tangent row
+    tangents: object = None        # (P, n) forward sensitivities
+    qoi: object = None
+    qoi_grad: object = None        # theta-shaped dict
+    n_accepted: int = 0
+    n_rejected: int = 0
+    truncated: bool = False        # adjoint only: the grid-pinning pass
+    #                                overflowed sens_grid — the re-solve
+    #                                lost resolution; raise sens_grid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +130,20 @@ _STATUS = {SUCCESS: "Success", MAX_STEPS_REACHED: "MaxIters",
 
 def _status_str(code):
     return _STATUS.get(int(code)) or f"Failure({int(code)})"
+
+
+def _normalize_sens(sens):
+    """The one validation of ``sens``: False/None -> None (plain solve),
+    True -> "hook" (return the problem unsolved), "forward"/"adjoint" pass
+    through, anything else raises."""
+    if sens is False or sens is None:
+        return None
+    if sens is True:
+        return "hook"
+    if sens in ("forward", "adjoint"):
+        return sens
+    raise ValueError(
+        f"sens must be False, True, 'forward' or 'adjoint'; got {sens!r}")
 
 
 def _mode(chem):
@@ -148,9 +222,28 @@ _SWEEP_DEFERRED = (
     ("fetch_deadline", None, "A12"), ("quarantine", None, "A12"),
     ("admission", None, "A13"), ("refill", None, "A13"),
     ("timeline", None, "A14"), ("live_metrics", None, "A14"),
-    ("species_buckets", None, "A10"), ("reaction_buckets", None, "A10"),
-    ("mech_operands", False, "A10"), ("analytic_jac", True, "A13"),
+    ("analytic_jac", True, "A13"),
 )
+
+# padded (mechanism, thermo) pairs per (source ids, shape): the same
+# padded bundle for repeated sweeps of one mechanism; strong references to
+# the sources keep the ids valid
+_PADDED_MECHS = {}
+
+
+def _padded_mech(gm, thermo_obj, s_pad, r_pad, canonical):
+    """Identity-cached ``(gm_padded, thermo_padded)`` for a (mechanism,
+    shape) pair (``batchreactor_tpu/api.py::_padded_mech``)."""
+    key = (id(gm), id(thermo_obj), int(s_pad), int(r_pad), bool(canonical))
+    hit = _PADDED_MECHS.get(key)
+    if hit is not None and hit[0] is gm and hit[1] is thermo_obj:
+        return hit[2], hit[3]
+    gm_pad = pad_gas_mechanism(gm, s_pad, r_pad, canonical=canonical)
+    th_pad = pad_thermo(thermo_obj, s_pad, canonical=canonical)
+    if len(_PADDED_MECHS) >= 32:
+        _PADDED_MECHS.pop(next(iter(_PADDED_MECHS)))
+    _PADDED_MECHS[key] = (gm, thermo_obj, gm_pad, th_pad)
+    return gm_pad, th_pad
 
 
 def _sweep_mode(chem, md, gmd, smd, thermo_obj):
@@ -210,7 +303,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                         energy=None, atol_T=None, method="bdf",
                         jac_window=None, linsolve="auto", newton_tol=0.03,
                         setup_economy=False, stale_tol=0.3, exp32=False,
-                        device=None, **deferred):
+                        species_buckets=None, reaction_buckets=None,
+                        mech_operands=False, device=None, **deferred):
     """Ensemble form: one lane per condition, all lanes solved together.
 
     Chemistry modes: gas (``md=`` or ``gmd=``), surface (``md=`` or
@@ -245,7 +339,48 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     factorization across jac windows.  ``asv_quirk`` scales the coverage
     source by Asv too, as the reference does.  ``exp32`` selects the
     float32 rate exponentials of the gas kinetics (off by default).
+
+    ``species_buckets``/``reaction_buckets`` (gas chemistry only; ``None``,
+    ``"pow2"`` or an increasing tuple of ints, ``aot.buckets``) pad the
+    mechanism onto the smallest ``(S, R)`` rung that holds it
+    (``models/padding.py``): dead species carry zero mass, zero rates and
+    identity Newton rows, dead reactions zero rate constants, and the live
+    count rides ``cfg[NLIVE_KEY]`` so the padded run takes the unpadded
+    run's steps.  The state width, and so ``linsolve="auto"`` and the
+    ``lu32p`` kernel's path, is the padded one.  Results are stripped to
+    the live species; with ``energy=`` the T row sits at ``S_pad``.
+    ``mech_operands=True`` (needs ``segment_steps > 0``) is the padding
+    with placeholder names and both ladders defaulting to ``"pow2"``: in
+    the JAX package it also shares one compiled executable between
+    mechanisms of one rung, which the port, compiling no program per
+    mechanism, has no counterpart of; its results are the padded run's.
     """
+    if mech_operands:
+        if species_buckets is None:
+            species_buckets = "pow2"
+        if reaction_buckets is None:
+            reaction_buckets = "pow2"
+    species_buckets = normalize_buckets(species_buckets)
+    reaction_buckets = normalize_buckets(reaction_buckets)
+    if mech_operands:
+        if segment_steps <= 0:
+            raise ValueError(
+                "mech_operands=True runs the segmented driver's bundle "
+                "mode; set segment_steps > 0 or drop the knob")
+        if deferred.get("mesh") is not None:
+            raise ValueError(
+                "mech_operands=True is single-mesh-free (the operand "
+                "bundle is not sharded); drop mesh= or the knob")
+        if deferred.get("quarantine") is not None:
+            raise ValueError(
+                "mech_operands=True is incompatible with quarantine= "
+                "(the recovery ladder re-solves through closure-mode "
+                "programs); drop one of them")
+        if deferred.get("analytic_jac", True) is not True:
+            raise ValueError(
+                "mech_operands=True builds its analytic Jacobian inside the "
+                "bundle builder; analytic_jac is not configurable there — "
+                "drop the argument")
     check_deferred(deferred, _SWEEP_DEFERRED)
     energy = resolve_energy(energy)
     if energy is None and atol_T is not None:
@@ -267,6 +402,24 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     sm = sm.to(device) if sm is not None else None
     species = thermo_obj.species
 
+    # mechanism-shape padding: the kinetics run on the padded bundles, while
+    # `species`/`thermo_obj` stay live for the inputs and the results
+    s_pad = None
+    gm_k, th_k = gm, thermo_obj
+    if species_buckets is not None or reaction_buckets is not None:
+        if mode != "gas":
+            raise ValueError(
+                "species_buckets/reaction_buckets/mech_operands support "
+                "gas chemistry only (the surface/coupled/udf state "
+                "layouts have no padding contract yet); drop the knobs "
+                f"for mode {mode!r}")
+        s_pad = (resolve_bucket(len(species), species_buckets)
+                 if species_buckets is not None else len(species))
+        r_pad = (resolve_bucket(gm.n_reactions, reaction_buckets)
+                 if reaction_buckets is not None else gm.n_reactions)
+        gm_k, th_k = _padded_mech(gm, thermo_obj, s_pad, r_pad,
+                                  canonical=mech_operands)
+
     T_np = np.atleast_1d(_host(T))
     Asv_np = _host(Asv)
     B = max(T_np.shape[0], Asv_np.shape[0] if Asv_np.ndim else 1,
@@ -285,6 +438,10 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     cfgs = {"T": T_t,
             "Asv": torch.tensor(np.broadcast_to(Asv_np, (B,)).copy(),
                                 device=device)}
+    if s_pad is not None:
+        # dead species: zero initial mass, and the live-count norm operand
+        y0s = pad_states(y0s, s_pad)
+        cfgs = nlive_cfg(cfgs, len(species), B)
 
     if energy is not None:
         # the trailing T row, and its atol weight as a per-lane operand
@@ -294,7 +451,7 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
 
     observer = obs0 = None
     if energy is not None:
-        observer, obs0 = energy_ignition_observer(len(species))
+        observer, obs0 = energy_ignition_observer(th_k.n_species)
     if ignition_marker is not None:
         key = ignition_marker.upper()
         if key not in idx:
@@ -307,12 +464,12 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
             observer, obs0 = merge_observers(observer, obs0, sp_obs,
                                              sp_obs0)
     if energy is not None:
-        rhs = make_energy_rhs(gm, thermo_obj, energy, kc_compat, exp32)
-        jac = make_energy_jac(gm, thermo_obj, energy, kc_compat, exp32)
+        rhs = make_energy_rhs(gm_k, th_k, energy, kc_compat, exp32)
+        jac = make_energy_jac(gm_k, th_k, energy, kc_compat, exp32)
     else:
-        rhs = _make_rhs(mode, chem.udf, gm, sm, thermo_obj, kc_compat,
+        rhs = _make_rhs(mode, chem.udf, gm_k, sm, th_k, kc_compat,
                         asv_quirk, exp32)
-        jac = _make_jac(mode, gm, sm, thermo_obj, kc_compat, asv_quirk,
+        jac = _make_jac(mode, gm_k, sm, th_k, kc_compat, asv_quirk,
                         exp32)
     jac_window = resolve_jac_window(jac_window, method, device)
     linsolve = resolve_linsolve(
@@ -355,11 +512,7 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     return out
 
 
-_RUN_DEFERRED = (
-    ("sens", False, "A11"), ("sens_params", None, "A11"),
-    ("sens_qoi", None, "A11"), ("sens_grid", 512, "A11"),
-    ("backend", None, "A16"), ("telemetry", False, "A14"),
-)
+_RUN_DEFERRED = (("backend", None, "A16"), ("telemetry", False, "A14"))
 
 
 def _run_solve(rhs, jac, y0, T, Asv, t1, *, rtol, atol, n_save, max_steps,
@@ -428,16 +581,205 @@ def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
     return ts, dict(zip(species, x_end.tolist()))
 
 
-def _file_driven_run(input_file, lib_dir, chem, *, n_save, kc_compat,
-                     asv_quirk, exp32, verbose, device, solve_kw):
+def _default_theta(gm, sm):
+    """(spec, theta) of the ``sens=True`` hook: every reaction's ln A of
+    the primary mechanism (gas if present, else surface), or (None, None)
+    without a mechanism (userchem)."""
+    from .sensitivity import params as sp_mod
+
+    mech = gm if gm is not None else sm
+    if mech is None:
+        return None, None
+    spec = sp_mod.select(mech)
+    return spec, sp_mod.extract(mech, spec)
+
+
+def _host_tree(d):
+    return {k: v.detach().cpu().numpy() for k, v in d.items()}
+
+
+def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
+                     sens_params, sens_qoi, sens_grid, rtol, atol,
+                     max_steps, kc_compat, asv_quirk, exp32, method,
+                     jac_window, segmented):
+    """Solve with sensitivities (``sens="forward"|"adjoint"``), one lane;
+    returns a :class:`SensitivitySolution`.  ``y0`` (n,) and ``cfg`` come
+    from the plain solve's construction in :func:`_file_driven_run`."""
+    from .sensitivity import adjoint as adj_mod
+    from .sensitivity import forward as fwd_mod
+    from .sensitivity import params as sp_mod
+
+    if mode == "udf":
+        raise ValueError(
+            "sens='forward'/'adjoint' needs a mechanism-driven run: "
+            "user-defined chemistry has no named mechanism parameters")
+    if method != "bdf":
+        raise ValueError(
+            f"sens={sens!r} rides the BDF step machinery; method={method!r}"
+            " is unsupported — drop the argument or pass method='bdf'")
+    if segmented is not None:
+        # sensitivity solves run monolithically: the tangent/adjoint state
+        # is not part of the segmented carry
+        raise ValueError(
+            f"sens={sens!r} solves run monolithically; the tangent/"
+            f"adjoint state does not resume across segments — drop the "
+            f"segmented argument")
+    gm, sm, thermo = id_.gmd, id_.smd, id_.thermo
+
+    # ---- parameter selection: theta lives on one mechanism -----------------
+    if isinstance(sens_params, sp_mod.ParamSpec):
+        spec = sens_params
+    else:
+        mech = gm if gm is not None else sm
+        spec = sp_mod.select(mech, **dict(sens_params or {}))
+    if spec.kind == "gas":
+        if gm is None:
+            raise ValueError("gas-parameter spec on a run without gaschem")
+        theta = sp_mod.extract(gm, spec)
+
+        def mechs_at(th):
+            return sp_mod.apply(gm, th, spec), sm
+    else:
+        if sm is None:
+            raise ValueError("surface-parameter spec on a run without "
+                             "surfchem")
+        theta = sp_mod.extract(sm, spec)
+
+        def mechs_at(th):
+            return gm, sp_mod.apply(sm, th, spec)
+
+    # the theta-parameterized RHS/Jacobian through the plain solve's mode
+    # dispatch: the sensitivity runs differ from it only by the tangent or
+    # adjoint machinery
+    def rhs_theta(t, y, theta, cfg):
+        gmm, smm = mechs_at(theta)
+        return _make_rhs(mode, None, gmm, smm, thermo, kc_compat,
+                         asv_quirk, exp32)(t, y, cfg)
+
+    def jac_theta(t, y, theta, cfg):
+        gmm, smm = mechs_at(theta)
+        return _make_jac(mode, gmm, smm, thermo, kc_compat, asv_quirk,
+                         exp32)(t, y, cfg)
+
+    jac_window = resolve_jac_window(jac_window, method, y0.device)
+    names = sp_mod.names(spec)
+
+    # ---- QoI resolution ----------------------------------------------------
+    qoi_fn = qoi_idx = None
+    if sens_qoi is not None:
+        idx = {s.upper(): k for k, s in enumerate(id_.species)}
+        if isinstance(sens_qoi, str):
+            key = sens_qoi.upper()
+            if key not in idx:
+                raise KeyError(f"sens_qoi species {sens_qoi!r} not in the "
+                               f"gas-phase species list")
+            qoi_idx = idx[key]
+            qoi_fn = adj_mod.final_species_qoi(qoi_idx)
+        elif (isinstance(sens_qoi, tuple) and sens_qoi
+              and sens_qoi[0] == "ignition"):
+            if sens == "forward":
+                raise ValueError(
+                    "ignition-delay QoIs need the trajectory-aware adjoint "
+                    "backward pass; use sens='adjoint'")
+            key = sens_qoi[1].upper()
+            if key not in idx:
+                raise KeyError(f"ignition marker {sens_qoi[1]!r} not in the "
+                               f"gas-phase species list")
+            frac = float(sens_qoi[2]) if len(sens_qoi) > 2 else 0.5
+            qoi_fn = adj_mod.ignition_delay_qoi(idx[key], frac=frac)
+        else:
+            raise ValueError(
+                f"sens_qoi must be a species name or ('ignition', marker"
+                f"[, frac]); got {sens_qoi!r}")
+
+    y0b = y0[None]
+    if sens == "forward":
+        def jac_fixed(t, y, cfg):
+            return jac_theta(t, y, theta, cfg)
+
+        # tangent error control on: the caller never sees the controller,
+        # and a few more steps buy tighter tangents
+        res = fwd_mod.solve_forward(
+            rhs_theta, y0b, 0.0, id_.tf, theta, cfg, rtol=rtol, atol=atol,
+            max_steps=max_steps, jac=jac_fixed, jac_window=jac_window,
+            sens_errcon=True)
+        S = res.tangents[0]
+        qoi = qoi_grad = None
+        if qoi_idx is not None:
+            # a final-state QoI from forward tangents is one slice
+            qoi = float(res.y[0, qoi_idx])
+            _, unflat = sp_mod.flatten(theta)
+            qoi_grad = _host_tree(unflat(S[:, qoi_idx]))
+        return SensitivitySolution(
+            status=_status_str(res.status[0]), t=float(res.t[0]),
+            y=res.y[0].cpu().numpy(), species=id_.species,
+            surface_species=surf_species, spec=spec, theta=theta,
+            names=names, tangents=S.cpu().numpy(), qoi=qoi,
+            qoi_grad=qoi_grad, n_accepted=int(res.n_accepted[0]),
+            n_rejected=int(res.n_rejected[0]))
+
+    # ---- adjoint -----------------------------------------------------------
+    if qoi_fn is None:
+        raise ValueError(
+            "sens='adjoint' differentiates a scalar QoI: pass "
+            "sens_qoi=<species name> (final mass density) or "
+            "sens_qoi=('ignition', marker_species[, frac])")
+    # segments is not an API knob: round the grid up to the adjoint's
+    # segment count (the buffer size is a capacity, not a semantic)
+    sens_grid = max(8, -(-int(sens_grid) // 8) * 8)
+    qoi, grad, aux = adj_mod.solve_adjoint(
+        rhs_theta, qoi_fn, y0b, 0.0, id_.tf, theta, cfg,
+        jac_theta=jac_theta, rtol=rtol, atol=atol, grid_size=sens_grid,
+        segments=8, max_steps=max_steps, jac_window=jac_window)
+    truncated = bool(aux["truncated"][0])
+    if truncated:
+        # unconditional: a truncated grid means the re-solve stopped short
+        # of t1 and the gradient is for the wrong horizon
+        print(f"warning: adjoint grid buffer full (the grid-pinning pass "
+              f"accepted {int(aux['n_accepted'][0])} steps > sens_grid="
+              f"{sens_grid}); the fixed-grid re-solve lost resolution — "
+              f"raise sens_grid", file=sys.stderr)
+    return SensitivitySolution(
+        status=_status_str(aux["status"][0]), t=float(aux["t"][0]),
+        y=aux["y"][0].cpu().numpy(), species=id_.species,
+        surface_species=surf_species, spec=spec, theta=theta, names=names,
+        qoi=float(qoi[0]), qoi_grad=_host_tree(grad),
+        n_accepted=int(aux["n_accepted"][0]),
+        n_rejected=int(aux["n_rejected"][0]), truncated=truncated)
+
+
+def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
+                     kc_compat, asv_quirk, exp32, verbose, device, solve_kw,
+                     sens_kw=None):
     """Parse the XML, solve, write the profile files next to it and
-    return the status string."""
+    return the status string; with ``sens`` (normalized by
+    :func:`_normalize_sens`) return the :class:`SensitivityProblem` or the
+    :class:`SensitivitySolution` instead, writing no files."""
     mode = _mode(chem)
     id_ = input_data(input_file, lib_dir, chem, device=device)
     surf_species = id_.smd.species if id_.smd is not None else None
     y0 = get_solution_vector(
         id_.mole_fracs, id_.thermo.molwt, id_.T, id_.p,
         ini_covg=id_.smd.ini_covg if id_.smd is not None else None)
+    if sens is not None:
+        dev = y0.device
+        cfg = {"T": torch.full((1,), float(id_.T), dtype=torch.float64,
+                               device=dev),
+               "Asv": torch.full((1,), float(id_.Asv), dtype=torch.float64,
+                                 device=dev)}
+        if sens == "hook":
+            spec, theta = _default_theta(id_.gmd, id_.smd)
+            return SensitivityProblem(
+                rhs=_make_rhs(mode, chem.udf, id_.gmd, id_.smd, id_.thermo,
+                              kc_compat, asv_quirk, exp32),
+                y0=y0, cfg=cfg, t_span=(0.0, id_.tf), species=id_.species,
+                surface_species=surf_species, theta=theta, spec=spec)
+        return _sensitivity_run(
+            sens, mode, id_, y0, cfg, surf_species, kc_compat=kc_compat,
+            asv_quirk=asv_quirk, exp32=exp32, rtol=solve_kw["rtol"],
+            atol=solve_kw["atol"], max_steps=solve_kw["max_steps"],
+            method=solve_kw["method"], jac_window=solve_kw["jac_window"],
+            segmented=solve_kw["segmented"], **sens_kw)
     status, t_end, _, ts, ys, truncated, n_acc, n_rej = _run_solve(
         _make_rhs(mode, chem.udf, id_.gmd, id_.smd, id_.thermo, kc_compat,
                   asv_quirk, exp32),
@@ -465,11 +807,12 @@ def _file_driven_run(input_file, lib_dir, chem, *, n_save, kc_compat,
     return status
 
 
-def batch_reactor(*args, surfchem=False, gaschem=False, Asv=1.0, chem=None,
-                  thermo_obj=None, md=None, rtol=1e-6, atol=1e-10,
+def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
+                  chem=None, thermo_obj=None, md=None, rtol=1e-6, atol=1e-10,
                   n_save=16384, max_steps=200_000, kc_compat=False,
                   asv_quirk=True, verbose=True, segmented=None, method="bdf",
-                  jac_window=None, exp32=False, device=None, **deferred):
+                  jac_window=None, sens_params=None, sens_qoi=None,
+                  sens_grid=512, exp32=False, device=None, **deferred):
     """Simulate an isothermal constant-volume batch reactor.
 
     File-driven:   ``batch_reactor(input_file, lib_dir, surfchem=,
@@ -487,8 +830,23 @@ def batch_reactor(*args, surfchem=False, gaschem=False, Asv=1.0, chem=None,
     ``segmented=None``/``True`` runs the solve in segments of at most 512
     attempts; ``False`` in one segment of ``max_steps``.  ``method`` is
     ``"bdf"`` or ``"sdirk"``; ``jac_window`` follows
-    :func:`resolve_jac_window`."""
+    :func:`resolve_jac_window`.
+
+    ``sens`` (file-driven forms): ``False`` solves; ``True`` returns the
+    problem unsolved as a :class:`SensitivityProblem`; ``"forward"`` solves
+    with staggered forward tangents riding the BDF loop (tangent error
+    control on) and returns a :class:`SensitivitySolution` with the (P, n)
+    block dy(t_end)/dtheta; ``"adjoint"`` solves, then differentiates a
+    scalar QoI at a cost independent of the parameter count (needs
+    ``sens_qoi``).  ``sens_params`` selects theta: ``None`` = every
+    reaction's ln A of the primary mechanism, a dict of
+    ``sensitivity.params.select`` keywords, or a ``ParamSpec``.
+    ``sens_qoi`` is a gas species name (final mass density) or
+    ``("ignition", marker[, frac])`` (adjoint only); ``sens_grid`` sizes
+    the adjoint's fixed re-solve grid.  Sensitivity runs are BDF,
+    monolithic (``segmented`` unset) and write no profile files."""
     check_deferred(deferred, _RUN_DEFERRED)
+    sens = _normalize_sens(sens)
     if method not in ("bdf", "sdirk"):
         raise ValueError(f"unknown method {method!r}; use 'sdirk'/'bdf'")
     solve_kw = dict(rtol=rtol, atol=atol, n_save=n_save, max_steps=max_steps,
@@ -503,6 +861,12 @@ def batch_reactor(*args, surfchem=False, gaschem=False, Asv=1.0, chem=None,
                 "Asv=..., chem=..., thermo_obj=..., md=...)")
         if chem is None or thermo_obj is None or md is None:
             raise TypeError("programmatic form needs chem=, thermo_obj=, md=")
+        if sens is not None:
+            # the reference's programmatic method has no sens hook either;
+            # ignoring it would report a plain solve as a sensitivity run
+            raise ValueError(
+                "sens is a file-driven-form knob; the programmatic "
+                "dict-in/dict-out form does not support it")
         return _programmatic_run(*args, Asv=Asv, chem=chem,
                                  thermo_obj=thermo_obj, md=md, **chem_kw)
     if len(args) == 3 and callable(args[2]):
@@ -513,5 +877,7 @@ def batch_reactor(*args, surfchem=False, gaschem=False, Asv=1.0, chem=None,
     else:
         raise TypeError(
             f"unrecognized batch_reactor argument pattern: {args!r}")
-    return _file_driven_run(args[0], args[1], chem, n_save=n_save,
-                            verbose=verbose, **chem_kw)
+    return _file_driven_run(
+        args[0], args[1], chem, sens, n_save=n_save, verbose=verbose,
+        sens_kw=dict(sens_params=sens_params, sens_qoi=sens_qoi,
+                     sens_grid=sens_grid), **chem_kw)

@@ -38,7 +38,7 @@ from ..device import resolve_device
 from ..ops.gas_kinetics import production_rates, production_rates_and_jac
 from ..ops.rhs import make_gas_jac, make_gas_rhs
 from ..ops.thermo import cp_h_s_over_R
-from ..solver.common import ATOL_SCALE_KEY
+from ..solver.common import ATOL_SCALE_KEY, NLIVE_KEY
 from ..utils.constants import R
 
 #: accepted non-None mode literals, in documentation order
@@ -205,11 +205,14 @@ def energy_atol_scale(n_lanes, n, atol, atol_T=None, device=None):
 
 def energy_cfg(cfgs, energy, n_lanes, n, atol, atol_T=None, device=None):
     """A copy of the per-lane ``cfgs`` extended for an energy-mode sweep
-    with the T-row :data:`ATOL_SCALE_KEY` operand; ``energy=None``
-    returns ``cfgs`` itself."""
+    with the T-row :data:`ATOL_SCALE_KEY` operand, and the live count
+    (``NLIVE_KEY``, set by mechanism padding) bumped by one for the live T
+    row; ``energy=None`` returns ``cfgs`` itself."""
     if resolve_energy(energy) is None:
         return cfgs
     out = dict(cfgs)
+    if NLIVE_KEY in out:
+        out[NLIVE_KEY] = out[NLIVE_KEY] + 1.0
     out[ATOL_SCALE_KEY] = energy_atol_scale(n_lanes, n, atol, atol_T,
                                             device=device)
     return out

@@ -1,9 +1,8 @@
 """Ignition delay of energy-mode sweeps: the crossing rule and the
 in-loop detector.
 
-Port of ``batchreactor_tpu/energy/ignition.py`` (its detectors, not its
-gradient passes), as lane-batched folds in the observer form of
-``parallel/sweep.py``:
+Port of ``batchreactor_tpu/energy/ignition.py``, as lane-batched folds in
+the observer form of ``parallel/sweep.py``:
 
 * :func:`interp_crossing` / :func:`grid_crossing` — the one linear-
   interpolation crossing rule;
@@ -12,7 +11,9 @@ gradient passes), as lane-batched folds in the observer form of
   marker) and the first interpolated crossing of ``T0 + dT_thr``;
 * :func:`merge_observers` — two folds over disjoint keys as one;
 * :func:`extract_delay` — the host-side read-out: the max-dT/dt time where
-  the lane ignited (T rose by >= ``dT_min``), NaN elsewhere.
+  the lane ignited (T rose by >= ``dT_min``), NaN elsewhere;
+* :func:`temperature_ignition_qoi` and :func:`delay_sensitivity_forward`
+  — the ignition delay's gradient passes (adjoint QoI, forward tangents).
 """
 
 import numpy as np
@@ -126,3 +127,87 @@ def extract_delay(observed, dT_min=DEFAULT_DT_MIN):
     tau = _host(observed["ign_tau_dT"])
     rise = _host(observed["ign_T_max"]) - _host(observed["ign_T0"])
     return np.where(rise >= float(dT_min), tau, np.nan)
+
+
+# --------------------------------------------------------------------------
+# gradient passes: the adjoint QoI and the forward implicit-function pass
+# --------------------------------------------------------------------------
+def temperature_ignition_qoi(t_index, dT_thr=DEFAULT_DT_THRESHOLD):
+    """Adjoint QoI builder (``sensitivity.adjoint.solve_adjoint``:
+    ``qoi(tk, ys, y_final) -> (B,)``): the ignition delay as the
+    interpolated first rising crossing of ``T0 + dT_thr`` on each lane's
+    pinned-grid temperature row."""
+
+    def qoi(tk, ys, y_final):
+        Tser = ys[:, :, t_index]
+        return grid_crossing(tk, Tser, Tser[:, 0] + dT_thr, rising=True)
+
+    return qoi
+
+
+def delay_sensitivity_forward(rhs_theta, y0, theta, cfg, t_index, *,
+                              t_max, jac=None, dT_thr=DEFAULT_DT_THRESHOLD,
+                              rtol=1e-8, atol=1e-12, max_steps=100_000,
+                              jac_window=1, sens_iters=2):
+    """Forward (tangent) ignition-delay gradients of every lane of ``y0``
+    (B, n): ``(tau (B,), grad, aux)`` with ``grad`` theta-shaped, (B, K)
+    per field, dtau/dtheta.
+
+    tau is the threshold time T(tau) = T0 + ``dT_thr``, and the gradient is
+    the implicit-function theorem at the crossing, dtau/dtheta = -S_T(tau)
+    / Tdot(tau), in two passes: (1) a plain adaptive solve to ``t_max``
+    finds the interpolated crossing (:func:`energy_ignition_observer`);
+    (2) a tangent-carrying solve (``sensitivity.forward.solve_forward``,
+    tangent error control on) to t1 = tau lands state and tangents on the
+    crossing, where one RHS evaluation closes Tdot.  ``jac(t, y, theta,
+    cfg)`` is the theta-parameterized analytic Jacobian.  A lane that
+    never crosses inside ``t_max`` gets NaN (``aux["ignited"]`` False).
+    """
+    from ..sensitivity import params as P
+    from ..sensitivity.forward import solve_forward
+    from ..solver import bdf
+
+    theta0 = {k: v.detach() for k, v in theta.items()}
+
+    def rhs0(t, y, cfg):
+        return rhs_theta(t, y, theta0, cfg)
+
+    jac0 = None
+    if jac is not None:
+        def jac0(t, y, cfg):
+            return jac(t, y, theta0, cfg)
+
+    B = y0.shape[0]
+    observer, obs0 = energy_ignition_observer(t_index, dT_thr=dT_thr)
+    obs0 = {k: torch.full((B,), v, dtype=y0.dtype, device=y0.device)
+            for k, v in obs0.items()}
+    pin = bdf.solve(rhs0, y0, 0.0, float(t_max), cfg, rtol=rtol, atol=atol,
+                    max_steps=max_steps, jac=jac0, jac_window=jac_window,
+                    observer=observer, observer_init=obs0)
+    tau = pin.observed["ign_tau_thr"]
+    ignited = torch.isfinite(tau)
+    theta_flat, unflat = P.flatten(theta)
+    nP = theta_flat.shape[-1]
+    aux = {"ignited": ignited, "status": pin.status}
+    if not bool(ignited.any()):
+        grad = torch.full((B, nP), torch.nan, dtype=y0.dtype,
+                          device=y0.device)
+        return tau, unflat(grad), {**aux, "Tdot": torch.full_like(tau,
+                                                               torch.nan)}
+    jac_fixed = None
+    if jac is not None:
+        def jac_fixed(t, y, cfg):
+            return jac(t, y, theta, cfg)
+
+    # a lane that never crossed runs to t_max and reports NaN
+    t1 = torch.where(ignited, tau, float(t_max))
+    res = solve_forward(rhs_theta, y0, 0.0, t1, theta, cfg, rtol=rtol,
+                        atol=atol, max_steps=max_steps, jac=jac_fixed,
+                        jac_window=jac_window, sens_iters=sens_iters,
+                        sens_errcon=True)
+    Tdot = rhs_theta(res.t, res.y, theta, cfg)[:, t_index]
+    grad = -res.tangents[:, :, t_index] / Tdot[:, None]
+    grad = torch.where(ignited[:, None], grad, torch.nan)
+    return tau, unflat(grad), {
+        **aux, "status": res.status, "Tdot": Tdot,
+        "T_at_tau": res.y[:, t_index], "n_accepted": res.n_accepted}

@@ -50,15 +50,41 @@ def _exp(x, exp32=False):
     return torch.exp(x)
 
 
+# per stoichiometry tensor: (nu, idx (R, K), powers (R, K)) of the K
+# species a row involves at most (_stoich_gather)
+_STOICH_INDEX = {}
+
+
+def _stoich_gather(nu):
+    """The species each row of an integer stoichiometry ``nu`` (R, S)
+    involves, in species order: (idx (R, K), powers (R, K)) with K the most
+    any row involves, rows with fewer padded with power 0.  Computed once
+    per tensor (one host sync) and kept beside it."""
+    hit = _STOICH_INDEX.get(id(nu))
+    if hit is not None and hit[0] is nu:
+        return hit[1], hit[2]
+    nz = nu != 0
+    K = max(int(nz.sum(dim=1).max()), 1) if nu.numel() else 1
+    idx = torch.argsort((~nz).to(torch.int8), dim=1, stable=True)[:, :K]
+    pw = torch.gather(nu, 1, idx)
+    if len(_STOICH_INDEX) >= 64:
+        _STOICH_INDEX.pop(next(iter(_STOICH_INDEX)))
+    _STOICH_INDEX[id(nu)] = (nu, idx, pw)
+    return idx, pw
+
+
 def _stoich_prod(conc, nu, int_stoich):
     """prod_k c_k^nu_ik for each reaction row, (B, R); fast path for
     integer nu <= 3 (integer powers of transient negative Newton iterates,
-    no NaNs)."""
-    c = conc[:, None, :]
+    no NaNs) over the K <= S species each row involves, gathered (B, R, K)
+    rather than masked over all S (the factors that are 1 drop out
+    exactly)."""
     if int_stoich:
-        p = torch.where(nu >= 1, c, 1.0)
-        p = torch.where(nu >= 2, p * c, p)
-        p = torch.where(nu >= 3, p * c, p)
+        idx, pw = _stoich_gather(nu)
+        c = conc[:, idx]                                   # (B, R, K)
+        p = torch.where(pw >= 1, c, 1.0)
+        p = torch.where(pw >= 2, p * c, p)
+        p = torch.where(pw >= 3, p * c, p)
         return torch.prod(p, dim=2)
     safe_c = torch.where(conc > _TINY, conc, _TINY)[:, None, :]
     return torch.exp(torch.sum(nu * torch.log(safe_c), dim=2))

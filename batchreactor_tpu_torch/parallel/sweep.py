@@ -1,7 +1,8 @@
 """Ensemble sweeps: one reactor condition per lane, lane-batched.
 
 Port of ``batchreactor_tpu/parallel/sweep.py``: :func:`ensemble_solve`
-(one solver call over the whole horizon), :func:`ensemble_solve_segmented`
+(one solver call over the whole horizon), its forward-sensitivity twin
+:func:`ensemble_solve_forward`, :func:`ensemble_solve_segmented`
 (the segment loop, park/budget, the ``n_save`` drain, ``progress``),
 :func:`temperature_sweep`, :func:`sweep_report`, :func:`ignition_observer`
 and :func:`ignition_delay`.  Both solvers run under both entry points
@@ -40,7 +41,9 @@ _DEFERRED = (
     ("admission", None, "A13"), ("refill", None, "A13"),
     ("mesh_resident", None, "A13"), ("upshift", None, "A13"),
     ("timeline", None, "A14"), ("live", None, "A14"),
-    ("rhs_bundle", None, "A13"),
+    ("rhs_bundle", None, "A13"), ("axis", "batch", "A12"),
+    ("upshift_patience", 2, "A13"), ("_on_harvest", None, "A13"),
+    ("_feed", None, "A13"), ("_live_source", "sweep", "A14"),
 )
 
 
@@ -116,6 +119,42 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
         observer_init=_lane_obs(observer, observer_init, B, dt, dev),
         **_solver_kw(method, newton_tol, jac_window, setup_economy,
                      stale_tol, freeze_precond))
+
+
+# (keyword, default, ROADMAP item) of the forward sweep's deferred options
+_FWD_DEFERRED = (("mesh", None, "A12"), ("axis", "batch", "A12"),
+                 ("stats", False, "A14"))
+
+
+def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
+                           rtol=1e-6, atol=1e-10, max_steps=200_000,
+                           jac=None, jac_window=1, linsolve="auto",
+                           sens_iters=2, S0=None, **deferred):
+    """Forward-sensitivity ensemble sweep: one theta, per-lane conditions.
+
+    The sensitivity twin of :func:`ensemble_solve`: every lane integrates
+    state and tangents S = dy/dtheta in one tangent-carrying BDF solve
+    (``sensitivity.forward.solve_forward``); ``result.tangents`` is
+    (B, P, n) with rows in ``sensitivity.params.names`` order.  The
+    tangents leave the state's step grid as the plain solve takes it.
+
+    ``rhs_theta(t, y, theta, cfg)`` is the theta-parameterized RHS
+    (``sensitivity.params.make_rhs_theta``); ``theta`` (a dict of (K,)
+    tensors) is shared by the lanes.  ``jac`` is the analytic Jacobian at
+    that theta.  ``S0`` defaults to zeros.  ``linsolve="auto"`` resolves
+    with the sweep's B and n (``solver.linalg.resolve_linsolve``), so a
+    GRI-3.0 sweep at B = 1024 takes ``"lu32p"`` on the GPU and every
+    tangent solve goes through the kernel's factor."""
+    from ..sensitivity.forward import solve_forward
+
+    check_deferred(deferred, _FWD_DEFERRED)
+    B, n = y0s.shape
+    linsolve = resolve_linsolve(linsolve, method="bdf", device=y0s.device,
+                                batch=B, n=n)
+    return solve_forward(rhs_theta, y0s, float(t0), float(t1), theta, cfgs,
+                         rtol=rtol, atol=atol, max_steps=max_steps, jac=jac,
+                         jac_window=jac_window, linsolve=linsolve,
+                         sens_iters=sens_iters, S0=S0)
 
 
 def temperature_sweep(rhs, y0, T_grid, t1, base_cfg=None, **kw):

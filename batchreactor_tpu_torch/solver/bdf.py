@@ -24,8 +24,11 @@ per-lane masks at all three levels:
 
 The any-lane tests are host syncs; CUDA graphs come later.
 
-Options not ported yet raise ``NotImplementedError``: ``tangent``
-(ROADMAP A11), ``stats``, ``timeline`` and ``step_audit`` (A14).
+``tangent=`` carries forward sensitivities (CVODES's staggered corrector)
+in a (B, ROWS, P, n) difference history, held as (B, ROWS, P n), stepped
+with the state's grid, order and factor (``sensitivity/forward.py``).  Options not ported yet
+raise ``NotImplementedError``: ``stats``, ``timeline``,
+``timeline_state`` and ``step_audit`` (ROADMAP A14).
 """
 
 import math
@@ -34,7 +37,7 @@ import torch
 
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
                      SolveResult, atol_scale_of, check_deferred,
-                     jacfwd_lanes, scaled_norm)
+                     jacfwd_lanes, nlive_of, rms, scaled_norm)
 from .common import where_lanes as _where
 from .linalg import (apply_factor, factor_m, factor_zeros, make_solve_m,
                      resolve_linsolve)
@@ -56,16 +59,17 @@ _ERRC_TAB = [1.0 / (q + 1) for q in range(_ROWS)]
 
 # (keyword, default, ROADMAP item) of the JAX solver's options that wait
 # for a later slice
-_DEFERRED = (("tangent", None, "A11"), ("step_audit", False, "A14"),
-             ("stats", False, "A14"), ("timeline", None, "A14"))
+_DEFERRED = (("step_audit", False, "A14"), ("stats", False, "A14"),
+             ("timeline", None, "A14"), ("timeline_state", None, "A14"))
 
 
 def _change_D(D, order, factor):
     """Rescale backward differences for h -> factor*h at each lane's order.
 
     Order-masked build of the Shampine-Reichelt (R U)^T transform at fixed
-    (6, 6): rows/cols beyond a lane's order act as identity.  D: (B, 8, n),
-    order (B,) int64, factor (B,)."""
+    (6, 6): rows/cols beyond a lane's order act as identity.  D: (B, 8, m)
+    (m = n, or P n for the flattened tangent history), order (B,) int64,
+    factor (B,)."""
     dt, dev = D.dtype, D.device
     i = torch.arange(_M, dtype=dt, device=dev)[:, None]
     j = torch.arange(_M, dtype=dt, device=dev)[None, :]
@@ -118,11 +122,15 @@ def solve(
     jac=None,
     observer=None,
     observer_init=None,
+    err0=None,
     solver_state=None,
     jac_window=1,
     freeze_precond=False,
     setup_economy=False,
     stale_tol=0.3,
+    tangent=None,
+    sens_iters=2,
+    sens_errcon=False,
     **deferred,
 ):
     """Integrate ``dy/dt = rhs(t, y, cfg)`` per lane with BDF(1..5).
@@ -153,7 +161,24 @@ def solve(
 
     A (B, n) ``cfg[ATOL_SCALE_KEY]`` weights ``atol`` per component in
     every scaled norm and in the Newton displacement scale
-    (``solver.common``; the energy path's temperature row).
+    (``solver.common``; the energy path's temperature row), and a (B,)
+    ``cfg[NLIVE_KEY]`` divides every norm's sum of squares by the live
+    count of a padded state.  ``err0`` is accepted for SDIRK's interface
+    and ignored (the BDF history carries its own memory).
+
+    ``tangent=(fdot, S0)`` carries forward sensitivities S = dy/dtheta:
+    ``S0`` (B, P, n) (or (P, n), shared) rides a (B, ROWS, P, n)
+    difference history with the state's step grid, order and rescaling.
+    After each attempt's Newton, ``sens_iters`` sweeps of
+    ``dS += solve_m(c FS - psi_S - dS)`` with ``FS = fdot(t, y, S_pred +
+    dS)`` (``fdot(t, y, S) -> (B, P, n)``, the rows J S_p + df/dtheta_p)
+    solve the tangent corrector through the attempt's already-built
+    factor (the frozen one with its cj-ratio rescale under the setup
+    economy or ``freeze_precond``).  ``sens_errcon=True`` joins the
+    tangent's local error to the step controller on a scale of
+    1e-8 max|S| + atol; by default the tangents leave the state's grid as
+    it is.  Tangents cannot resume from ``solver_state``.  They land in
+    ``SolveResult.tangents`` (B, P, n).
     """
     check_deferred(deferred, _DEFERRED)
     if jac_window < 1:
@@ -168,6 +193,13 @@ def solve(
         raise ValueError("observer and observer_init must be given together")
     if y0.ndim != 2:
         raise ValueError(f"y0 must be (B, n), got {tuple(y0.shape)}")
+    if tangent is not None and solver_state is not None:
+        raise ValueError(
+            "tangent propagation cannot resume from solver_state: the "
+            "tangent difference history is not part of the segmented "
+            "carry — run forward-sensitivity solves monolithically")
+    if sens_iters < 1:
+        raise ValueError(f"sens_iters must be >= 1, got {sens_iters}")
 
     dt, dev = y0.dtype, y0.device
     B, n = y0.shape
@@ -188,9 +220,10 @@ def solve(
 
     atol_scale = atol_scale_of(cfg, y0)
     atol_vec = atol if atol_scale is None else atol * atol_scale
+    nlive = nlive_of(cfg, y0)
 
     def _norm(e, y):
-        return scaled_norm(e, y, rtol, atol, atol_scale)
+        return scaled_norm(e, y, rtol, atol, atol_scale, nlive)
 
     def f(t, y):
         return rhs(t, y, cfg)
@@ -246,6 +279,19 @@ def solve(
         if economy and econ_prev is not None:
             econ = _where(cold, econ_cold, econ_prev)
 
+    if tangent is not None:
+        fdot, S0 = tangent
+        S0 = torch.as_tensor(S0, dtype=dt, device=dev)
+        if S0.ndim == 2:
+            S0 = S0.expand((B,) + tuple(S0.shape))
+        if S0.ndim != 3 or S0.shape[0] != B or S0.shape[2] != n:
+            raise ValueError(f"tangent S0 must be (B, P, {n}) or (P, {n}), "
+                             f"got {tuple(S0.shape)}")
+        nP = S0.shape[1]
+        DS = torch.zeros((B, _ROWS, nP * n), dtype=dt, device=dev)
+        DS[:, 0] = S0.reshape(B, -1)
+        DS[:, 1] = (h_init[:, None, None] * fdot(t0, y0, S0)).reshape(B, -1)
+
     nsb = max(n_save, 1)
     carry = {
         "t": t0.clone(), "D": D, "order": order, "h": h, "n_equal": n_equal,
@@ -258,6 +304,8 @@ def solve(
         "obs": (dict(observer_init) if observer is not None
                 else {"_": torch.zeros(B, dtype=dt, device=dev)}),
     }
+    if tangent is not None:
+        carry["DS"] = DS
 
     def newton(solve_m, t_new, y_pred, psi, c, scale, live):
         """Solve c f(t_new, y_pred + d) = psi + d per lane; returns
@@ -275,7 +323,7 @@ def solve(
                 break
             res = c[:, None] * f(t_new, ynew) - psi - d
             dd = solve_m(res)
-            dw = torch.sqrt(torch.mean(torch.square(dd / scale), dim=-1))
+            dw = rms(dd / scale, nlive)
             rate = torch.where(dw_old > 0, dw / dw_old, 0.0)
             slow = (dw_old > 0) & (
                 (rate >= 1.0)
@@ -311,6 +359,9 @@ def solve(
         factor_clip = torch.clamp(factor_clip, min=1e-14)
         clip = factor_clip < 1.0
         D = _where(clip, _change_D(D, order, factor_clip), D)
+        if tangent is not None:
+            DS = c["DS"]
+            DS = _where(clip, _change_D(DS, order, factor_clip), DS)
         h = h * factor_clip
         n_equal = torch.where(clip, 0, n_equal)
 
@@ -329,11 +380,30 @@ def solve(
             cj_fac = 2.0 / (1.0 + cc / c0)
 
             def solve_m(b):
-                return solve0(b) * cj_fac[:, None]
+                return solve0(b) * cj_fac.reshape((B,) + (1,) * (b.ndim - 1))
         d, conv = newton(solve_m, t_new, y_pred, psi, cc, scale,
                          running & ~already)
 
         err = _norm(errc_tab[order][:, None] * d, y_pred)
+        if tangent is not None:
+            # the staggered tangent corrector through this attempt's factor
+            S_pred = _masked_row_sum(DS, ones_rows, order).reshape(B, nP, n)
+            psi_S = (_masked_row_sum(DS, gamma_tab, order, lo=1)
+                     / gam[:, None]).reshape(B, nP, n)
+            y_cand = y_pred + d
+            dS = torch.zeros_like(S_pred)
+            for _ in range(sens_iters):
+                FS = fdot(t_new, y_cand, S_pred + dS)
+                dS = dS + solve_m(cc[:, None, None] * FS - psi_S - dS)
+            dSf = dS.reshape(B, -1)
+            if sens_errcon:
+                S_predf = S_pred.reshape(B, -1)
+                s_floor = (1e-8 * torch.amax(torch.abs(S_predf)
+                                             + torch.abs(dSf), dim=1)
+                           + atol)
+                err_S = scaled_norm(errc_tab[order][:, None] * dSf, S_predf,
+                                    rtol, s_floor[:, None])
+                err = torch.maximum(err, err_S)
         accept = conv & (err <= 1.0) & torch.isfinite(err) & running & ~already
 
         # rejected: Newton failure halves h (or retries at the same h when
@@ -356,6 +426,12 @@ def solve(
         take = (kidx >= ridx) & (kidx <= o3 + 1) & (ridx <= o3)  # (B, 8, 8)
         D_summed = torch.matmul(take.to(dt), D_acc)
         D_acc = torch.where(ridx <= o3, D_summed, D_acc)
+        if tangent is not None:
+            DSq1 = _row(DS, order + 1)
+            DS_acc = torch.where(ridx == o3 + 2, (dSf - DSq1)[:, None, :], DS)
+            DS_acc = torch.where(ridx == o3 + 1, dSf[:, None, :], DS_acc)
+            DS_acc = torch.where(ridx <= o3,
+                                 torch.matmul(take.to(dt), DS_acc), DS_acc)
 
         y_new = D_acc[:, 0]
         n_equal_acc = n_equal + 1
@@ -390,6 +466,10 @@ def solve(
         D_base = _where(accept, D_acc, D)
         D_new = _where(factor != 1.0, _change_D(D_base, order_new, factor),
                        D_base)
+        if tangent is not None:
+            DS_base = _where(accept, DS_acc, DS)
+            DS_new = _where(factor != 1.0,
+                            _change_D(DS_base, order_new, factor), DS_base)
         h_new = h * factor
         n_equal_new = torch.where(accept & ~sel, n_equal_acc, 0)
 
@@ -399,6 +479,8 @@ def solve(
         # freeze the carry of lanes that are terminated OR already at t1
         hold = ~running | already
         D_new = _where(hold, D, D_new)
+        if tangent is not None:
+            DS_new = _where(hold, DS, DS_new)
         h_new = torch.where(hold, h, h_new)
         order_new = torch.where(hold, order, order_new)
         n_equal_new = torch.where(hold, n_equal, n_equal_new)
@@ -435,6 +517,8 @@ def solve(
                "n_equal": n_equal_new, "status": status2, "n_acc": n_acc2,
                "n_rej": n_rej2, "ts": ts, "ys": ys, "n_saved": n_saved,
                "obs": obs}
+        if tangent is not None:
+            out["DS"] = DS_new
         return out, newton_failed
 
     def window(c):
@@ -495,4 +579,6 @@ def solve(
         n_accepted=carry["n_acc"], n_rejected=carry["n_rej"],
         ts=carry["ts"], ys=carry["ys"], n_saved=carry["n_saved"],
         h=carry["h"], observed=carry["obs"] if observer is not None else None,
-        solver_state=state_out)
+        solver_state=state_out,
+        tangents=(carry["DS"][:, 0].reshape(B, nP, n) if tangent is not None
+                  else None))

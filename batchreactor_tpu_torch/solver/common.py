@@ -2,10 +2,11 @@
 
 The JAX package's ``solver/bdf.py`` imports its result type, status codes
 and scaled error norm from ``batchreactor_tpu/solver/sdirk.py``
-(``SolveResult`` at :53, the status codes at :50, ``ATOL_SCALE_KEY`` at
-:130, ``_scaled_norm`` at :133).  Here they live in one module both
-solvers import, batched over lanes, with the helpers both solvers use on
-lane-batched tensors (the per-lane select and the ``jac=None`` fallback).
+(``SolveResult`` at :53, the status codes at :50, ``NLIVE_KEY`` at :102,
+``ATOL_SCALE_KEY`` at :130, ``_scaled_norm`` at :133).  Here they live in
+one module both solvers import, batched over lanes, with the helpers both
+solvers use on lane-batched tensors (the per-lane select and the
+``jac=None`` fallback).
 """
 
 import dataclasses
@@ -21,6 +22,14 @@ RUNNING, SUCCESS, MAX_STEPS_REACHED, DT_UNDERFLOW = 0, 1, 2, 3
 #: ``atol``; ``energy/eqns.py``).  Absent, the norms are the plain-atol
 #: computation, operation for operation.
 ATOL_SCALE_KEY = "_atol_scale"
+
+#: reserved per-lane cfg key: the (B,) live component count of a padded
+#: state (``models/padding.py``).  Present, every scaled RMS norm of both
+#: solvers divides the sum of squares by it instead of taking the mean
+#: over the padded width, so the dead components (exactly 0 in every
+#: norm) leave step control as it is unpadded.  Absent, the norms are the
+#: mean, operation for operation.
+NLIVE_KEY = "_nlive"
 
 
 @dataclasses.dataclass
@@ -40,6 +49,7 @@ class SolveResult:
     observed: object = None  # observer fold state (None without observer)
     err_prev: torch.Tensor = None  # (B,) SDIRK's PI memory (resume)
     solver_state: object = None  # opaque multistep carry (BDF resume)
+    tangents: torch.Tensor = None  # (B, P, n) forward sensitivities (BDF)
 
 
 def check_deferred(kwargs, table):
@@ -58,13 +68,21 @@ def check_deferred(kwargs, table):
                 f"{name}={val!r} is not ported yet (ROADMAP {item})")
 
 
-def scaled_norm(e, y, rtol, atol, atol_scale=None):
+def rms(x, nlive=None):
+    """Per-lane RMS over the last axis, (B,): the mean of the squares, or
+    with ``nlive`` (B,) (:data:`NLIVE_KEY`) their sum over the live count."""
+    if nlive is None:
+        return torch.sqrt(torch.mean(torch.square(x), dim=-1))
+    return torch.sqrt(torch.sum(torch.square(x), dim=-1) / nlive)
+
+
+def scaled_norm(e, y, rtol, atol, atol_scale=None, nlive=None):
     """Per-lane RMS of e / (atol w + rtol |y|) over the last axis, (B,);
     ``atol_scale`` is the (B, n) weight w (:data:`ATOL_SCALE_KEY`), or
-    None for w = 1."""
+    None for w = 1; ``nlive`` the (B,) live count (:data:`NLIVE_KEY`)."""
     a = atol if atol_scale is None else atol * atol_scale
     scale = a + rtol * torch.abs(y)
-    return torch.sqrt(torch.mean(torch.square(e / scale), dim=-1))
+    return rms(e / scale, nlive)
 
 
 def atol_scale_of(cfg, y0):
@@ -72,6 +90,14 @@ def atol_scale_of(cfg, y0):
     ``y0``, or None when the key is absent."""
     w = cfg.get(ATOL_SCALE_KEY) if isinstance(cfg, dict) else None
     return None if w is None else torch.as_tensor(w, dtype=y0.dtype,
+                                                  device=y0.device)
+
+
+def nlive_of(cfg, y0):
+    """The :data:`NLIVE_KEY` operand of ``cfg`` as a (B,) tensor like
+    ``y0``, or None when the key is absent."""
+    k = cfg.get(NLIVE_KEY) if isinstance(cfg, dict) else None
+    return None if k is None else torch.as_tensor(k, dtype=y0.dtype,
                                                   device=y0.device)
 
 

@@ -70,9 +70,13 @@ def lu_factor(A):
 
 
 def lu_solve(lu_piv, b):
-    """Solve A x = b, b (B, n), given :func:`lu_factor` output."""
+    """Solve A x = b, b (B, n) or (B, P, n) (P right-hand sides per lane,
+    one batched solve), given :func:`lu_factor` output."""
     LU, piv = lu_piv
-    return torch.linalg.lu_solve(LU, piv + 1, b[..., None])[..., 0]
+    if b.ndim == 2:
+        return torch.linalg.lu_solve(LU, piv + 1, b[..., None])[..., 0]
+    return torch.linalg.lu_solve(LU, piv + 1,
+                                 b.transpose(-1, -2)).transpose(-1, -2)
 
 
 def resolve_linsolve(linsolve, method="bdf", device=None, batch=None,
@@ -169,12 +173,16 @@ def factor_m(M, linsolve):
 
 
 def _matvec(A, x):
-    """A x per lane: (B, n, n) by (B, n)."""
-    return torch.matmul(A, x[..., None])[..., 0]
+    """A x per lane: (B, n, n) by (B, n), or by each row of (B, P, n)."""
+    if x.ndim == 2:
+        return torch.matmul(A, x[..., None])[..., 0]
+    return torch.matmul(x, A.transpose(-1, -2))
 
 
 def apply_factor(fac, b, linsolve, dtype):
-    """Solve M x = b, b (B, n), given ``fac = factor_m(M, ...)``."""
+    """Solve M x = b given ``fac = factor_m(M, ...)``: b (B, n), or
+    (B, P, n) for P right-hand sides per lane (the forward tangents), in
+    one batched solve in every mode."""
     if linsolve == "lu":
         return lu_solve((fac["lu"], fac["piv"]), b)
     if linsolve == "lu32p":

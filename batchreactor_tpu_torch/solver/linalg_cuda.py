@@ -292,18 +292,20 @@ def lu32p_factor(A):
 
 
 def lu32p_solve(lu_piv, b):
-    """Solve with :func:`lu32p_factor` output: b (B, n) -> x (B, n)
-    float32.  b is padded with zeros (pad rows solve to exact 0 against
-    the identity block) and the substitution runs on the padded float32
-    factor with the pivots made 1-based."""
+    """Solve with :func:`lu32p_factor` output: b (B, n) -> x (B, n), or P
+    right-hand sides b (B, P, n) -> x (B, P, n), float32.  b is padded
+    with zeros to (B, npad, P) columns (pad rows solve to exact 0 against
+    the identity block) and the substitution runs once on the padded
+    float32 factor with the pivots made 1-based."""
     LU, piv = lu_piv
     npad = LU.shape[-1]
     n = b.shape[-1]
-    bp = torch.zeros(b.shape[:-1] + (npad,), dtype=torch.float32,
-                     device=b.device)
-    bp[..., :n] = b.to(torch.float32)
-    x = torch.linalg.lu_solve(LU, piv + 1, bp[..., None])
-    return x[..., :n, 0]
+    cols = b[..., None] if b.ndim == 2 else b.transpose(-1, -2)
+    bp = torch.zeros((cols.shape[0], npad, cols.shape[-1]),
+                     dtype=torch.float32, device=b.device)
+    bp[:, :n] = cols.to(torch.float32)
+    x = torch.linalg.lu_solve(LU, piv + 1, bp)[:, :n]
+    return x[..., 0] if b.ndim == 2 else x.transpose(-1, -2)
 
 
 def permute_rows(A, piv):

@@ -27,7 +27,7 @@ import torch
 
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
                      SolveResult, atol_scale_of, check_deferred,
-                     jacfwd_lanes, scaled_norm, where_lanes)
+                     jacfwd_lanes, nlive_of, scaled_norm, where_lanes)
 from .linalg import make_solve_m, resolve_linsolve
 
 # --- SDIRK4 tableau (Hairer & Wanner II, Table 6.5; gamma = 1/4) ---
@@ -78,7 +78,8 @@ def solve(
     """Integrate ``dy/dt = rhs(t, y, cfg)`` per lane with SDIRK4.
 
     ``y0`` (B, n) float64; ``t0``/``t1`` floats or (B,) tensors; ``cfg`` a
-    dict of (B,) tensors (and the (B, n) ``ATOL_SCALE_KEY`` weight);
+    dict of (B,) tensors (and the (B, n) ``ATOL_SCALE_KEY`` weight and the
+    (B,) ``NLIVE_KEY`` live count of a padded state);
     ``rhs(t, y, cfg) -> (B, n)`` and ``jac(t, y, cfg) -> (B, n, n)``
     (``jac=None`` takes ``torch.func.jacfwd`` of the RHS).  ``dt0`` is a
     float or a (B,) tensor whose entries <= 0 ask for the heuristic first
@@ -115,9 +116,10 @@ def solve(
     span = t1 - t0
     eye = torch.eye(n, dtype=dt, device=dev)
     atol_scale = atol_scale_of(cfg, y0)
+    nlive = nlive_of(cfg, y0)
 
     def _norm(e, y):
-        return scaled_norm(e, y, rtol, atol, atol_scale)
+        return scaled_norm(e, y, rtol, atol, atol_scale, nlive)
 
     def f(t, y):
         return rhs(t, y, cfg)

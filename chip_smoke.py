@@ -8,10 +8,10 @@ It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
 against its plain PyTorch version on the card (phase 2: random matrices,
 n = 1..240 across both paths, the contract cases on both, and each path's
-own Newton matrices, the coupled path's and the energy path's at three step
-sizes, with the coupled ones' condition numbers; the CTA path timed at
-n = 66, 120, 176 and 240), and drives the port's paths through its own
-entry points:
+own Newton matrices, the coupled path's, the energy path's and the padded
+gas path's at three step sizes, with the coupled ones' condition numbers;
+the CTA path timed at n = 66, 96, 120, 176 and 240), and drives the port's
+paths through its own entry points:
 
 - the gas main path, the GRI-3.0 isothermal ignition sweep at B = 1024
   lanes (the kernel's warp path), its float64 ``lu`` cross-check, and the
@@ -33,7 +33,18 @@ entry points:
 - below the ``lu32p`` gate (B = 256): BDF through the monolithic
   ``ensemble_solve`` with every Newton mode (``lu``, ``inv32``,
   ``inv32nr``, ``inv32f``, ``lu32p``) and with ``lu32p`` under
-  ``freeze_precond``, an A/B with no assertion on speed (phase 14).
+  ``freeze_precond``, an A/B with no assertion on speed (phase 14);
+- the gas main path with GRI-3.0 padded to 96 species and 512 reactions
+  (``species_buckets``/``reaction_buckets``: the kernel's CTA path, npad
+  96) against phase 3's delays (phase 15);
+- forward sensitivities, ``ensemble_solve_forward`` on phase 3's 1024
+  lanes over ln A of the 18 ``*CH4*`` reactions (every tangent solve
+  through the warp kernel's factor) against a plain twin and a float64
+  ``lu`` run, with the peak device memory (phase 16);
+- the adjoint ranking of all 325 reactions by d ln tau / d ln A on 16
+  lanes (``inv32``), lane 0 against the JAX package on the CPU
+  (``scripts/sens_reference.py``), and on 4 lanes at rtol 1e-8 the
+  adjoint gradient against the forward tangents (phase 17).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  ``--profile`` adds a phase that runs the gas main path
@@ -102,6 +113,72 @@ DRIFT_REF_V, DRIFT_REF_P = 5.918e-7, 4.348e-6
 DRIFT_BOUND_V, DRIFT_BOUND_P = 10 * DRIFT_REF_V, 10 * DRIFT_REF_P
 # the SDIRK path and the Newton-mode A/B: every 4th main-path temperature
 SDIRK_STRIDE = 4
+# the padded gas path (phase 15): GRI-3.0 padded to 96 species (the CTA
+# path of lu32p, npad 96) and the pow2 rung of its 325 reactions
+S_PAD, R_PAD = 96, 512
+# the adjoint ranking (phase 17): every 128th main-path temperature (8
+# lanes; the Python loop of stage solves, not the lanes, sets its wall);
+# the forward-against-adjoint check runs every 16th of the 64 coolest
+# temperatures to T1 / 4, before they ignite
+SENS_LANES = 8
+# lane 0 of phase 17 (1500 K) in the JAX package's reference configuration
+# on the CPU (python scripts/sens_reference.py): d ln tau / d ln A_i of the
+# CH4 half-crossing delay (tau 5.692e-4 s) for the 325 GRI-3.0 reactions in
+# reaction order, to 4 significant digits; the card is held to 1e-2 of the
+# largest, 0.4203 (HO2+CH3<=>OH+CH3O)
+SENS_REF_LANE0_COEFFS = (
+    2.343e-10, 1.073e-07, -0.00357, 0.007418, 0.0002244, 3.772e-09, 6.339e-06,
+    1.189e-06, 3.155e-07, 0.02032, -0.02092, 1.816e-05, 0.0001127, 9.173e-05,
+    -0.01318, 1.248e-06, 0.0001156, -0.001054, -0.0001769, 2.794e-09,
+    -0.0001039, -3.931e-07, -5.019e-05, 1.961e-05, -0.0001345, 0.0003901,
+    -0.007697, 9.95e-06, -1.419e-05, -5.332e-05, -9.897e-05, -0.1306,
+    0.0003028, 0.0002414, 0.0006435, 0.0001695, 0.0, -0.3838, 5.631e-07,
+    2.356e-08, 4.774e-07, 3.632e-10, 1.479e-05, 0.001615, 0.04344, 0.02794,
+    -0.0008324, 0.0007805, 2.723e-08, 2.002e-08, 1.019e-06, 0.00108, 0.216,
+    -9.943e-06, 0.001158, -2.988e-06, 0.001565, 0.03036, -1.471e-08, 1.079e-05,
+    -0.003456, -8.401e-05, 6.158e-08, 2.403e-06, 0.00092, 0.001146, 0.0006344,
+    -0.0001633, 0.000688, 2.117e-09, 0.0003641, 1.135e-06, 8.7e-05, -0.000531,
+    -0.005151, 3.237e-05, 0.0001225, -1.226e-05, 1.281e-05, 0.0002567,
+    0.0006589, -4.083e-08, 1.749e-05, -0.02553, -0.004394, -0.0002297, 0.03529,
+    0.0003869, 0.01969, 6.564e-12, 3.569e-09, 9.737e-06, 1.674e-06, 4.416e-06,
+    0.001032, -0.001946, -0.003365, 0.05949, -0.004299, 0.001066, -0.07431,
+    3.522e-06, 0.0003264, -0.001351, -0.001619, -2.908e-09, -8.978e-07,
+    -8.004e-07, -4.407e-06, 1.265e-07, 1.909e-05, -0.01696, -0.02448,
+    -4.335e-05, 0.00294, 0.09813, 0.0001213, -0.0484, -0.4203, 0.00534,
+    -0.04677, -7.145e-11, 3.009e-14, 6.672e-11, -8.572e-06, 3.104e-05,
+    8.196e-07, 5.74e-11, -2.002e-08, 6.903e-06, -1.335e-08, 2.743e-09,
+    1.79e-06, 1.265e-10, 0.0003504, -3.573e-05, 1.166e-07, 0.0003437,
+    -0.001436, -4.64e-05, 4.002e-08, -0.003927, 0.0, -0.01514, 0.02014,
+    0.0001222, 3.948e-05, -0.001559, 3.743e-05, 0.0005326, -0.0001974,
+    -5.288e-06, 3.713e-05, -7.122e-05, -0.3852, -0.129, -0.04666, 0.2277,
+    -0.08777, 0.01367, -0.09282, -0.001069, 0.02538, -0.003219, -0.006327,
+    -0.003531, 0.00514, -0.01849, 1.11e-05, -0.08658, 3.847e-07, -5.765e-07,
+    0.006394, 3.105e-06, -0.01589, -2.389e-05, 4.464e-08, 9.816e-11,
+    -2.582e-12, 3.729e-12, -5.275e-09, 7.699e-11, 2.252e-09, 4.909e-07,
+    3.157e-09, 4.381e-10, -2.34e-12, 1.256e-11, 1.283e-10, 1.182e-11,
+    1.608e-11, 5.787e-12, 8.434e-12, -3.458e-10, 1.952e-10, -6.919e-20,
+    2.436e-11, -5.44e-14, 3.31e-11, 1.027e-14, 5.629e-13, -1.398e-11,
+    -1.545e-13, 1.738e-09, 7.191e-10, 4.926e-08, 2.187e-10, 5.253e-10,
+    1.805e-09, 9.756e-10, 2.293e-09, -4.22e-12, 4.336e-12, 1.109e-10,
+    1.923e-11, -6.061e-11, 3.631e-15, 3.327e-15, -2.132e-12, -3.033e-13,
+    -2.562e-13, 2.45e-13, 3.861e-13, 2.919e-14, 7.269e-22, 1.766e-13,
+    1.057e-14, -2.262e-13, -6.453e-20, 4.673e-16, -1.207e-12, 2.783e-13,
+    -3.13e-13, -1.388e-13, -4.109e-14, 2.349e-15, -2.205e-16, -3.495e-14,
+    -4.756e-15, 5.454e-10, -2.489e-11, 1.092e-13, 2.558e-16, -4.052e-18,
+    1.087e-19, 2.659e-15, 5.272e-16, -5.992e-16, 1.256e-12, 2.989e-13,
+    3.259e-13, 1.64e-13, 6.132e-14, 4.175e-14, 2.528e-12, -1.252e-12,
+    7.888e-13, 1.034e-13, -9.348e-11, 8.806e-13, 2.468e-12, 2.295e-15,
+    2.278e-19, 9.253e-16, -1.26e-13, -1.254e-12, -2.408e-13, 1.468e-15,
+    9.243e-13, 2.731e-15, 6.807e-15, 6.237e-15, -4.807e-15, 2.437e-12,
+    -4.301e-11, 3.735e-11, -4.1e-12, -3.573e-13, -3.1e-15, -1.696e-11,
+    4.589e-22, 5.512e-21, 1.837e-13, 0.01702, -0.002349, 0.001545, 0.03073,
+    0.00187, -1.63e-08, -0.002392, 0.001018, 8.192e-09, 9.106e-05, -0.009196,
+    0.001054, -3.643e-06, 6.499e-08, -1.125e-05, -4.292e-06, 3.009e-05,
+    2.911e-05, -8.892e-06, 1.011e-05, 7.982e-05, -2.612e-05, 3.12e-05,
+    -0.0004069, 1.785e-05, 3.111e-05, 4.403e-05, -8.016e-06, 0.00266,
+    -1.201e-05, 0.000165, 4.575e-05, -1.199e-05, 3.13e-06, 1.708e-06,
+    2.566e-06, 8.423e-09, -5.677e-07, -1.668e-06, -4.777e-07, -5.771e-06,
+    5.16e-06,)
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -551,9 +628,7 @@ def check_sweep(name, out, B, by_path, want_path, want_ls=None):
     if out["linsolve"] != want_ls:
         raise AssertionError(f"{name}: linsolve resolved to "
                              f"{out['linsolve']!r}, not {want_ls!r}")
-    launched = {k for k, v in by_path.items() if v}
-    if launched != ({want_path} if want_path else set()):
-        raise AssertionError(f"{name}: lu32p launches by path {by_path}")
+    check_launches(name, by_path, want_path)
     if rep["counts"] != {"success": B}:
         raise AssertionError(f"{name}: lanes not all successful: "
                              f"{rep['counts']}")
@@ -873,6 +948,269 @@ def phase_linsolve_ab(gm, th, Ts, device, smi, by_phase):
                                       n=n), "runs": ab})
 
 
+def padded_matrices(gm, th, device, c):
+    """Phase 15's Newton matrices M = I - c J at the main path's initial
+    states (B = 1024) on GRI-3.0 padded to (S_PAD, R_PAD): the live block
+    is the main path's, the dead block the identity."""
+    import torch
+
+    from batchreactor_tpu_torch.api import get_solution_vector
+    from batchreactor_tpu_torch.models.padding import (pad_gas_mechanism,
+                                                       pad_states, pad_thermo)
+    from batchreactor_tpu_torch.ops.rhs import make_gas_jac
+
+    gmp, thp = pad_gas_mechanism(gm, S_PAD, R_PAD), pad_thermo(th, S_PAD)
+    sp = list(gm.species)
+    x0 = np.zeros(len(sp))
+    for k, v in COMP.items():
+        x0[sp.index(k)] = v
+    T = torch.linspace(T_LO, T_HI, B_MAIN, dtype=torch.float64, device=device)
+    y0 = pad_states(get_solution_vector(
+        np.broadcast_to(x0, (B_MAIN, len(sp))), th.molwt, T, 1e5), S_PAD)
+    J = make_gas_jac(gmp, thp)(0.0, y0, {"T": T})
+    return torch.eye(S_PAD, dtype=torch.float64, device=device) - c * J
+
+
+def phase_padded(bt, gm, th, T, tau_main, rep_main, device, smi, by_phase):
+    """Phase 15: the gas main path with GRI-3.0 padded to S_PAD species and
+    the pow2 reaction rung (53 -> 96, 325 -> 512): ``auto`` -> ``lu32p``
+    on the CTA path (npad 96).  Every lane successful, CTA launches only,
+    the 53 live species in ``x``, tau within 1e-3 of phase 3's; the steps
+    are reported against phase 3's (the two kernel paths round the live
+    block differently, so they need not be equal on the card)."""
+    pad = dict(species_buckets=(S_PAD,), reaction_buckets="pow2")
+    _, _, _, cold = timed(lambda: sweep(bt, gm, th, T, device, **pad))
+    out, launches, by_phase["padded_gas"], wall = timed(
+        lambda: sweep(bt, gm, th, T, device, **pad))
+    check_sweep("padded_gas", out, B_MAIN, by_phase["padded_gas"], "cta")
+    if list(out["x"]) != list(gm.species):
+        raise AssertionError(f"padded_gas: x holds {len(out['x'])} species, "
+                             f"not the {gm.n_species} live ones")
+    rel = np.abs(out["tau"] / tau_main - 1.0)
+    if not rel.max() <= 1e-3:
+        raise AssertionError(f"padded_gas: tau max rel {rel.max()} against "
+                             f"phase 3's")
+    rep = out["report"]
+    emit({"phase": "padded_gas", "gpu": smi, "B": B_MAIN,
+          "shape": {"S": [gm.n_species, S_PAD], "R": [gm.n_reactions,
+                                                      R_PAD]},
+          "linsolve": out["linsolve"], "cold_s": cold, "wall_s": wall,
+          "cond_per_s": B_MAIN / wall, **steps(rep),
+          "accepted_minus_phase3": {
+              k: rep["n_accepted"][k] - rep_main["n_accepted"][k]
+              for k in ("mean", "max")},
+          "rejected_minus_phase3": {
+              k: rep["n_rejected"][k] - rep_main["n_rejected"][k]
+              for k in ("mean", "max")},
+          "tau_max_rel_vs_phase3": float(rel.max()),
+          "tau_mean_rel_vs_phase3": float(rel.mean()),
+          "lu32p_launches": launches,
+          "lu32p_launches_by_path": by_phase["padded_gas"]})
+
+
+def ch4_theta(gm, th, reactions):
+    """(spec, theta, rhs_theta, jac_theta) over ln A of the selected
+    reactions of the (unpadded) mechanism."""
+    from batchreactor_tpu_torch.ops.rhs import make_gas_jac, make_gas_rhs
+    from batchreactor_tpu_torch.sensitivity import params
+
+    spec = params.select(gm, reactions=reactions)
+    theta = params.extract(gm, spec)
+    rhs_theta = params.make_rhs_theta(gm, spec,
+                                      lambda m: make_gas_rhs(m, th))
+
+    def jac_theta(t, y, th_, cfg):
+        return make_gas_jac(params.apply(gm, th_, spec), th)(t, y, cfg)
+
+    return spec, theta, rhs_theta, jac_theta
+
+
+def max_rel_to_lane(a, ref):
+    """Largest |a - ref| over each lane's largest |ref|, over all lanes."""
+    a, ref = (np.asarray(v.cpu()) if hasattr(v, "cpu") else np.asarray(v)
+              for v in (a, ref))
+    scale = np.abs(ref).reshape(ref.shape[0], -1).max(axis=1)
+    diff = np.abs(a - ref).reshape(ref.shape[0], -1).max(axis=1)
+    return float((diff / scale).max())
+
+
+def phase_sens_forward(gm, th, T, device, smi, by_phase):
+    """Phase 16: ``ensemble_solve_forward`` on phase 3's conditions with
+    theta = ln A of the 18 reactions matching ``*CH4*`` (P = 18),
+    ``jac_window=1``, ``auto`` -> ``lu32p`` (warp path, npad 56): every
+    lane successful, the steps and final states of a plain
+    ``ensemble_solve`` with the same settings, and on the first B_CROSS
+    lanes the tangents of a float64 ``lu`` run within 1e-3 of each lane's
+    largest |S|.  Reports the wall, the launches and the peak device
+    memory."""
+    import torch
+
+    from batchreactor_tpu_torch.parallel import (ensemble_solve,
+                                                 ensemble_solve_forward)
+    from batchreactor_tpu_torch.solver.linalg import resolve_linsolve
+
+    y0s, cfg, _, _, _, _ = main_path_lanes(gm, th, T, device)
+    spec, theta, rt, jt = ch4_theta(gm, th, "*CH4*")
+
+    def jac(t, y, c):
+        return jt(t, y, theta, c)
+
+    def fwd(n_lanes=B_MAIN, **kw):
+        return ensemble_solve_forward(
+            rt, y0s[:n_lanes], 0.0, T1, theta,
+            {k: v[:n_lanes] for k, v in cfg.items()}, rtol=RTOL, atol=ATOL,
+            jac=jac, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    res, launches, by_phase["sens_forward"], wall = timed(fwd)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("sens_forward", by_phase["sens_forward"], "warp")
+    plain, _, by_plain, wall_plain = timed(lambda: ensemble_solve(
+        lambda t, y, c: rt(t, y, theta, c), y0s, 0.0, T1, cfg, rtol=RTOL,
+        atol=ATOL, jac=jac))
+    ok = bool((res.status == 1).all()) and bool((plain.status == 1).all())
+    same_steps = (torch.equal(res.n_accepted, plain.n_accepted)
+                  and torch.equal(res.n_rejected, plain.n_rejected))
+    y_rel = float(((res.y - plain.y).abs()
+                   / plain.y.abs().clamp_min(1e-300)).max())
+    S = res.tangents
+    finite = bool(torch.isfinite(S).all())
+    ref, _, _, wall_ref = timed(lambda: fwd(B_CROSS, linsolve="lu"))
+    s_rel = max_rel_to_lane(S[:B_CROSS], ref.tangents)
+    if not (ok and same_steps and finite and y_rel <= 1e-12
+            and s_rel <= 1e-3):
+        raise AssertionError(
+            f"sens_forward: success {ok}, steps equal to the plain twin "
+            f"{same_steps}, finite {finite}, final y rel {y_rel}, tangents "
+            f"vs lu {s_rel}")
+    emit({"phase": "sens_forward", "gpu": smi, "B": B_MAIN, "P": S.shape[1],
+          "reactions": "*CH4*", "t1": T1,
+          "linsolve": resolve_linsolve("auto", device=device, batch=B_MAIN,
+                                       n=y0s.shape[1]),
+          "jac_window": 1, "wall_s": wall, "cond_per_s": B_MAIN / wall,
+          "plain_twin_wall_s": wall_plain,
+          "mean_accepted": float(res.n_accepted.double().mean()),
+          "max_accepted": int(res.n_accepted.max()),
+          "mean_rejected": float(res.n_rejected.double().mean()),
+          "steps_equal_plain_twin": same_steps,
+          "final_y_max_rel_vs_plain_twin": y_rel,
+          "tangents_max_rel_vs_lu": s_rel, "lu_lanes": B_CROSS,
+          "lu_wall_s": wall_ref,
+          "max_memory_allocated_bytes": int(peak),
+          "memory_before_bytes": int(base_mem),
+          "tangents_bytes": S.numel() * S.element_size(),
+          "lu32p_launches": launches,
+          "lu32p_launches_by_path": by_phase["sens_forward"],
+          "plain_twin_lu32p_launches_by_path": by_plain})
+
+
+def check_launches(name, by_path, want_path):
+    """The kernel launched on ``want_path`` only (``None``: no launch)."""
+    launched = {k for k, v in by_path.items() if v}
+    if launched != ({want_path} if want_path else set()):
+        raise AssertionError(f"{name}: lu32p launches by path {by_path}")
+
+
+def phase_adjoint(gm, th, T, device, smi):
+    """Phase 17: the adjoint ranking of all GRI-3.0 reactions by their
+    effect on the ignition delay, over SENS_LANES lanes (every 128th
+    temperature of phase 3): ``solve_adjoint`` of the CH4 half-crossing
+    delay with respect to ln A of the 325 reactions, one theta row per
+    lane, ``grid_size=512``, ``segments=8``, ``grid_refine=2``, ``auto`` ->
+    ``inv32``.  Lane 0's coefficients d ln tau / d ln A against the JAX
+    package's on the CPU (``scripts/sens_reference.py``) within 1e-2 of the
+    largest; then on 4 lanes (every 16th of the coolest 64) to T1 / 4 at
+    rtol 1e-8 / atol 1e-12 the adjoint gradient of the final H2O over the
+    18 ``*CH4*`` reactions against the forward tangents' H2O row, within
+    1e-3 of the largest |grad| (the JAX package's own tier, also on a
+    horizon before ignition).  Counts the RHS and Jacobian calls."""
+    import torch
+
+    from batchreactor_tpu_torch.parallel import ensemble_solve_forward
+    from batchreactor_tpu_torch.sensitivity import adjoint, rank
+
+    sp = list(gm.species)
+    Ts = T[::B_MAIN // SENS_LANES]
+    y0s, cfg, _, _, _, _ = main_path_lanes(gm, th, Ts, device)
+    spec, theta, rt0, jt0 = ch4_theta(gm, th, None)
+    calls = {"rhs": 0, "jacobian": 0}
+
+    def rt(*a):
+        calls["rhs"] += 1
+        return rt0(*a)
+
+    def jt(*a):
+        calls["jacobian"] += 1
+        return jt0(*a)
+
+    rows = {k: v.expand(len(Ts), -1) for k, v in theta.items()}
+    t0 = time.perf_counter()
+    tau, grad, aux = adjoint.solve_adjoint(
+        rt, adjoint.ignition_delay_qoi(sp.index("CH4"), frac=0.5), y0s, 0.0,
+        T1, rows, cfg, jac_theta=jt, rtol=RTOL, atol=ATOL, grid_size=512,
+        segments=8, grid_refine=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = rank.normalized_sensitivities(tau, grad["log_A"])       # (L, 325)
+    ref = np.asarray(SENS_REF_LANE0_COEFFS)
+    lane0_err = float(np.abs(s[0] - ref).max() / np.abs(ref).max())
+    tau_np = tau.cpu().numpy()
+    ok = (bool((aux["status"] == 1).all())
+          and not bool(aux["truncated"].any())
+          and np.all(np.isfinite(tau_np)) and np.all(np.isfinite(s)))
+    if not (ok and lane0_err <= 1e-2):
+        raise AssertionError(
+            f"adjoint: status {aux['status'].tolist()}, truncated "
+            f"{aux['truncated'].tolist()}, tau {tau_np}, lane 0 against the "
+            f"JAX package {lane0_err}")
+    top = rank.top_k(np.abs(s).mean(axis=0), spec.equations, k=10)
+
+    # the forward-against-adjoint tier of the JAX package's own tests
+    Tc = T[:64:16]
+    t1c = T1 / 4
+    y0c, cfgc, _, _, _, _ = main_path_lanes(gm, th, Tc, device)
+    spec18, theta18, rt18, jt18 = ch4_theta(gm, th, "*CH4*")
+    h2o = sp.index("H2O")
+    t0 = time.perf_counter()
+    fwd = ensemble_solve_forward(
+        rt18, y0c, 0.0, t1c, theta18, cfgc, rtol=1e-8, atol=1e-12,
+        jac=lambda t, y, c: jt18(t, y, theta18, c))
+    rows18 = {k: v.expand(len(Tc), -1) for k, v in theta18.items()}
+    q, g, aux_c = adjoint.solve_adjoint(
+        rt18, adjoint.final_species_qoi(h2o), y0c, 0.0, t1c, rows18, cfgc,
+        jac_theta=jt18, rtol=1e-8, atol=1e-12, grid_size=256, segments=8,
+        grid_refine=2)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    cross = max_rel_to_lane(g["log_A"], fwd.tangents[:, :, h2o])
+    if not (bool((fwd.status == 1).all()) and bool((aux_c["status"] == 1)
+                                                   .all())
+            and not bool(aux_c["truncated"].any()) and cross <= 1e-3):
+        raise AssertionError(f"adjoint vs forward: {cross}, status "
+                             f"{fwd.status.tolist()} "
+                             f"{aux_c['status'].tolist()}")
+    emit({"phase": "adjoint", "gpu": smi, "lanes": len(Ts), "P": s.shape[1],
+          "T": [float(Ts[0]), float(Ts[-1])], "qoi": "tau(CH4, frac 0.5)",
+          "linsolve": adjoint._resolve_linsolve("auto", device),
+          "grid_size": 512, "grid_refine": 2, "segments": 8, "wall_s": wall,
+          "calls": calls,
+          "pin_mean_accepted": float(aux["n_accepted"].double().mean()),
+          "pin_max_accepted": int(aux["n_accepted"].max()),
+          "tau_range": [float(tau_np.min()), float(tau_np.max())],
+          "lane0_max_err_vs_jax": lane0_err,
+          "lane0_max_abs_coeff": float(np.abs(ref).max()),
+          "top10_mean_abs_dlntau_dlnA": [
+              {"rank": r, "rxn": i, "equation": eq, "coeff": c}
+              for r, i, eq, c in top],
+          "cross_check": {"lanes": len(Tc), "T": [float(v) for v in Tc],
+                          "t1": t1c, "rtol": 1e-8, "P": 18,
+                          "wall_s": wall_c,
+                          "pin_max_accepted": int(aux_c["n_accepted"].max()),
+                          "adjoint_vs_forward_max_rel": cross}})
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
     """Where the main path's time goes: the sweep under torch.profiler,
     with the port's layers labelled by ``record_function`` ranges (RHS,
@@ -971,6 +1309,7 @@ def main():
     import batchreactor_tpu_torch as bt
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     smi = gpu_name_and_limit()
     print(smi, flush=True)
@@ -1014,7 +1353,13 @@ def main():
             ("cta_n240", lambda: separated(B_MAIN, 240, gen, device), True),
             ("coupled_n66", lambda: eye_c - 1e-7 * J_c, True),
             ("coupled_n66_c1e-5", lambda: eye_c - 1e-5 * J_c, False),
-            ("coupled_n66_c1e-3", lambda: eye_c - 1e-3 * J_c, False)):
+            ("coupled_n66_c1e-3", lambda: eye_c - 1e-3 * J_c, False),
+            ("padded_n96", lambda: padded_matrices(gm, th, device, 1e-7),
+             True),
+            ("padded_n96_c1e-5", lambda: padded_matrices(gm, th, device,
+                                                         1e-5), True),
+            ("padded_n96_c1e-3", lambda: padded_matrices(gm, th, device,
+                                                         1e-3), True)):
         timing[name] = time_kernel(build(), same_pivots)
         emit({"phase": "kernel_timing", "case": name, "gpu": smi,
               **timing[name]})
@@ -1252,13 +1597,28 @@ def main():
     phase_sdirk(bt, gm, th, Ts, tau[::SDIRK_STRIDE], rep_main, device, smi)
     phase_linsolve_ab(gm, th, Ts, device, smi, by_phase)
 
+    # ---- phases 15-17: padding, forward and adjoint sensitivities --------
+    walls = {}
+    for name, run in (
+            ("padded_gas", lambda: phase_padded(bt, gm, th, T, tau, rep_main,
+                                                device, smi, by_phase)),
+            ("sens_forward", lambda: phase_sens_forward(gm, th, T, device,
+                                                        smi, by_phase)),
+            ("adjoint", lambda: phase_adjoint(gm, th, T, device, smi))):
+        t0 = time.perf_counter()
+        run()
+        walls[name] = time.perf_counter() - t0
+    emit({"phase": "walls", "new_phases_s": walls,
+          "total_s": time.perf_counter() - t_start})
+
     print(smi, flush=True)
     kernels = []
     for path, case, paths in (
             ("warp", "main", ("gas_main", "udf", "energy",
                               "linsolve_ab_lu32p",
-                              "linsolve_ab_lu32p_freeze_precond")),
-            ("cta", "coupled_n66", ("coupled_lu32p",))):
+                              "linsolve_ab_lu32p_freeze_precond",
+                              "sens_forward")),
+            ("cta", "coupled_n66", ("coupled_lu32p", "padded_gas"))):
         kt = timing[case]
         kernels.append({
             "name": f"lu32p_{path}", "route": "cuda",

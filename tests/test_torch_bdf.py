@@ -123,3 +123,72 @@ def test_atol_scale_weights_the_bdf_norms_as_jax():
     y_ref = np.asarray(ref.y)
     np.testing.assert_allclose(got.y.numpy(), y_ref, rtol=1e-8,
                                atol=1e-8 * np.abs(y_ref).max())
+
+
+def _robertson_theta_t(t, y, theta, cfg):
+    d1 = -0.04 * y[:, 0] + theta["a"][..., 0] * y[:, 1] * y[:, 2]
+    d3 = cfg["k"] * y[:, 1] * y[:, 1]
+    return torch.stack([d1, -d1 - d3, d3], dim=1)
+
+
+def _robertson_theta_j(t, y, theta, cfg):
+    d1 = -0.04 * y[0] + theta["a"][0] * y[1] * y[2]
+    d3 = cfg["k"] * y[1] * y[1]
+    return jnp.stack([d1, -d1 - d3, d3])
+
+
+@pytest.mark.parametrize("opts", [
+    dict(jac_window=1), dict(jac_window=8, setup_economy=True),
+    dict(jac_window=8, freeze_precond=True),
+    dict(jac_window=8, setup_economy=True, sens_errcon=True)],
+    ids=["window1", "economy", "freeze_precond", "economy_errcon"])
+def test_tangent_hook_robertson_lanes_match_jax(opts):
+    """Forward tangents through the BDF hook, with the attempt's factor
+    (fresh, carried by the setup economy, or frozen in the window with
+    the cj-ratio rescale): per-lane steps equal to the JAX solver's under
+    vmap, tangents to roundoff."""
+    from batchreactor_tpu.sensitivity import forward as forward_j
+    from batchreactor_tpu_torch.sensitivity import forward
+
+    kw = dict(rtol=1e-4, atol=1e-10, linsolve="lu", **opts)
+    theta = {"a": torch.tensor([1e4], dtype=torch.float64)}
+    theta_j = {"a": jnp.asarray([1e4])}
+    S0 = np.zeros((1, 3))
+
+    def one(y, k):
+        cfg = {"k": k}
+        fdot = forward_j.make_fdot(_robertson_theta_j, theta_j, cfg)
+        return bdf_j.solve(
+            lambda t, yy, cfg: _robertson_theta_j(t, yy, theta_j, cfg), y,
+            0.0, T1, cfg, tangent=(fdot, jnp.asarray(S0)), **kw)
+
+    ref = jax.vmap(one)(jnp.asarray(Y0), jnp.asarray(K3))
+    cfg = {"k": torch.tensor(K3)}
+    got = bdf.solve(
+        lambda t, y, c: _robertson_theta_t(t, y, theta, c),
+        torch.tensor(Y0), 0.0, T1, cfg,
+        tangent=(forward.make_fdot(_robertson_theta_t, theta, cfg),
+                 torch.tensor(S0)), **kw)
+    np.testing.assert_array_equal(got.status.numpy(), np.asarray(ref.status))
+    np.testing.assert_array_equal(got.n_accepted.numpy(),
+                                  np.asarray(ref.n_accepted))
+    np.testing.assert_array_equal(got.n_rejected.numpy(),
+                                  np.asarray(ref.n_rejected))
+    S_ref = np.asarray(ref.tangents)
+    assert got.tangents.shape == S_ref.shape == (len(K3), 1, 3)
+    scale = np.abs(S_ref).max(axis=(1, 2), keepdims=True)
+    np.testing.assert_allclose(got.tangents.numpy() / scale, S_ref / scale,
+                               atol=1e-8)
+
+
+def test_tangent_hook_rejects_resume_as_jax():
+    fdot = (lambda t, y, S: S)  # noqa: E731
+    state = bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, 1e-3,
+                      {"k": torch.tensor(K3)}, linsolve="lu").solver_state
+    with pytest.raises(ValueError, match="cannot resume"):
+        bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, 1.0,
+                  {"k": torch.tensor(K3)}, solver_state=state,
+                  tangent=(fdot, torch.zeros((1, 3), dtype=torch.float64)))
+    with pytest.raises(ValueError, match="sens_iters"):
+        bdf.solve(_robertson_t, torch.tensor(Y0), 0.0, 1.0,
+                  {"k": torch.tensor(K3)}, sens_iters=0)

@@ -44,7 +44,10 @@ def test_port_files_found():
             "ops/gas_kinetics.py", "ops/surface_kinetics.py",
             "solver/bdf.py", "solver/sdirk.py", "solver/linalg_cuda.py",
             "energy/eqns.py", "energy/ignition.py", "parallel/grid.py",
-            "parallel/sweep.py"} <= names
+            "parallel/sweep.py", "aot/buckets.py", "models/padding.py",
+            "sensitivity/params.py", "sensitivity/forward.py",
+            "sensitivity/adjoint.py", "sensitivity/rank.py",
+            "tools/sens_rank.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
 
 
@@ -96,3 +99,38 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
                                chem=bt.Chemistry(gaschem=True,
                                                  surfchem=True),
                                thermo_obj=th, md=gm, device="cpu")
+
+
+def test_c5_reference_options_raise_not_implemented_naming_their_item():
+    """Every option of the JAX package's signatures that the port lacks
+    raises NotImplementedError naming its ROADMAP item, never TypeError."""
+    from batchreactor_tpu_torch.parallel import ensemble_solve_segmented
+    from batchreactor_tpu_torch.solver import bdf
+
+    y0 = torch.ones((1, 1), dtype=torch.float64)
+
+    def rhs(t, y, cfg):
+        return -y
+
+    for opt, item in (({"timeline_state": {"t": 0}}, "A14"),
+                      ({"step_audit": True}, "A14")):
+        with pytest.raises(NotImplementedError, match=item):
+            bdf.solve(rhs, y0, 0.0, 1.0, {}, linsolve="lu", **opt)
+    for opt, item in (({"axis": "lanes"}, "A12"),
+                      ({"upshift_patience": 4}, "A13"),
+                      ({"_feed": object()}, "A13")):
+        with pytest.raises(NotImplementedError, match=item):
+            ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                                     **opt)
+    # err0 is accepted and ignored by the BDF, as the JAX package does
+    a = bdf.solve(rhs, y0, 0.0, 1.0, {}, err0=None, linsolve="lu")
+    b = bdf.solve(rhs, y0, 0.0, 1.0, {}, err0=torch.ones(1), linsolve="lu")
+    assert int(a.status[0]) == 1 and torch.equal(a.y, b.y)
+    # sens_iters and sens_errcon are real options now
+    bdf.solve(rhs, y0, 0.0, 1.0, {}, sens_iters=3, sens_errcon=True,
+              linsolve="lu")
+    assert bt.InputData is not None and callable(bt.input_data)
+    for name in ("InputData", "input_data", "SensitivityProblem",
+                 "SensitivitySolution", "sensitivity", "mech_shape_class",
+                 "pad_gas_mechanism", "pad_states", "pad_thermo"):
+        assert name in bt.__all__, name

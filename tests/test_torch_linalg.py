@@ -358,3 +358,21 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     assert linalg_cuda.LAUNCHES_BY_PATH == by_path
     with pytest.raises(ValueError, match="cpu or cuda"):
         lu32p_factor(At.to("meta"))
+
+
+@pytest.mark.parametrize("mode", linalg.MODES)
+def test_apply_factor_takes_p_right_hand_sides(mode):
+    """A (B, P, n) right-hand side (the forward tangents) is one batched
+    solve in every mode, equal to P single solves."""
+    rng = np.random.default_rng(11)
+    B, P, n = 5, 4, 9
+    A = torch.tensor(rng.standard_normal((B, n, n)) + 4.0 * np.eye(n))
+    b = torch.tensor(rng.standard_normal((B, P, n)))
+    fac = linalg.factor_m(A, mode)
+    x = linalg.apply_factor(fac, b, mode, torch.float64)
+    assert x.shape == (B, P, n)
+    for p in range(P):
+        xp = linalg.apply_factor(fac, b[:, p], mode, torch.float64)
+        tol = 1e-14 if mode == "lu" else 1e-6
+        np.testing.assert_allclose(x[:, p].numpy(), xp.numpy(), rtol=tol,
+                                   atol=tol * float(xp.abs().max()))
