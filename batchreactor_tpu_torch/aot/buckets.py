@@ -1,11 +1,14 @@
 """Bucket ladders: the knob grammar that sets a padded shape.
 
-Port of ``batchreactor_tpu/aot/buckets.py`` (``POW2`` and
-``normalize_buckets`` at :32, ``resolve_bucket`` at :75), which the
-mechanism-shape padding of ``batch_reactor_sweep`` uses for its species
-and reaction axes (``species_buckets=``, ``reaction_buckets=``).  The
-down-shift and up-shift gears and ``bucket_ladder`` belong to the lane
-buckets of ROADMAP A13 and are not ported yet.
+Port of ``batchreactor_tpu/aot/buckets.py``: ``POW2`` and
+``normalize_buckets`` (:32), ``resolve_bucket`` (:75), ``downshift_bucket``
+(:123), ``upshift_bucket`` (:145) and ``bucket_ladder`` (:186).  The
+mechanism-shape padding of ``batch_reactor_sweep`` uses the grammar for its
+species and reaction axes (``species_buckets=``, ``reaction_buckets=``);
+the sweeps' ``buckets=`` uses it for the lane axis, and the streaming
+driver's down-shift and up-shift gears climb the ladder.  In the port a
+rung is one set of captured CUDA graphs (``solver/graphs.py``), captured at
+first use and kept for the process; there is no persistent program store.
 
 The grammar:
 
@@ -106,3 +109,59 @@ def resolve_bucket(B, buckets, *, mesh_size=1):
             f"the {int(mesh_size)}-device mesh; choose a ladder whose "
             f"entries are multiples of the mesh size")
     return bucket
+
+
+def downshift_bucket(n_live, buckets, current, *, mesh_size=1):
+    """The smaller ladder rung a draining sweep can down-shift onto, or
+    ``None`` when no down-shift applies.
+
+    The streaming driver (``parallel/sweep.py``, ``admission=``) calls this
+    when its backlog is empty and ``n_live`` lanes remain resident in a
+    ``current``-lane program: if the bucket for ``n_live`` is strictly below
+    ``current``, the carry is compacted and sliced onto that smaller rung.
+    ``n_live=0`` is treated as 1; ``buckets=None`` never down-shifts.
+    """
+    if buckets is None:
+        return None
+    target = resolve_bucket(max(int(n_live), 1), buckets,
+                            mesh_size=mesh_size)
+    return target if target < int(current) else None
+
+
+def upshift_bucket(demand, buckets, current, *, cap=None, mesh_size=1):
+    """The next-larger ladder rung a backlogged stream can up-shift onto,
+    or ``None`` when no up-shift applies — the dual of
+    :func:`downshift_bucket`.
+
+    ``demand`` is the lane count the stream wants resident (live lanes plus
+    backlog).  The answer is always the single next rung up, so every
+    migration stays inside the ladder and the hysteresis window has a fixed
+    step to damp against.  ``cap`` bounds the climb: rungs above
+    ``resolve_bucket(cap)`` are never proposed.  ``buckets=None`` never
+    up-shifts.
+    """
+    buckets = normalize_buckets(buckets)
+    if buckets is None:
+        return None
+    current = int(current)
+    if int(demand) <= current:
+        return None
+    if buckets == POW2:
+        target = resolve_bucket(current + 1, buckets, mesh_size=mesh_size)
+    else:
+        target = next((b for b in buckets
+                       if b > current and b % int(mesh_size) == 0), None)
+        if target is None:
+            return None
+    if cap is not None:
+        ceiling = resolve_bucket(max(int(cap), 1), buckets,
+                                 mesh_size=mesh_size)
+        if target > ceiling:
+            return None
+    return target if target > current else None
+
+
+def bucket_ladder(lanes, buckets):
+    """The deduplicated, sorted bucket set covering the given lane counts:
+    the rungs a run over those lane counts captures graphs for."""
+    return tuple(sorted({resolve_bucket(B, buckets) for B in lanes}))

@@ -35,6 +35,7 @@ ROADMAP item.
 """
 
 import dataclasses
+import functools
 import os
 import sys
 
@@ -54,7 +55,7 @@ from .models.padding import (nlive_cfg, pad_gas_mechanism, pad_states,
 from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
                       make_surface_rhs, make_udf_rhs)
 from .parallel.sweep import (ensemble_solve_segmented, ignition_observer,
-                             sweep_report)
+                             resolve_admission, sweep_report)
 from .solver.common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING,
                             SUCCESS, check_deferred)
 from .solver.linalg import resolve_linsolve
@@ -217,13 +218,51 @@ def _host(x):
 
 _SWEEP_DEFERRED = (
     ("mesh", None, "A12"), ("telemetry", False, "A14"),
-    ("pipeline", None, "A13"), ("poll_every", None, "A13"),
-    ("buckets", None, "A13"),
     ("fetch_deadline", None, "A12"), ("quarantine", None, "A12"),
-    ("admission", None, "A13"), ("refill", None, "A13"),
     ("timeline", None, "A14"), ("live_metrics", None, "A14"),
-    ("analytic_jac", True, "A13"),
 )
+
+# the sweep's (rhs, jac, observer, observer_init) per (chemistry, mechanism
+# identities, options): repeated sweeps of one mechanism get the same
+# callables, so the pipelined gear replays the graphs it captured for them
+# (solver/graphs.py keys its programs by the callables' identity)
+_SWEEP_FNS = {}
+
+
+def _sweep_fns(mode, udf, gm, sm, thermo, kc_compat, asv_quirk, exp32,
+               marker_idx, ignition_mode, jac_mode, energy):
+    """Identity-cached sweep callables
+    (``batchreactor_tpu/api.py::_sweep_fns``).  ``jac_mode`` is
+    ``"analytic"`` or ``"fwd"`` (no closed-form Jacobian: the solver's
+    ``torch.func.jacfwd`` fallback)."""
+    key = (mode, id(udf), id(gm), id(sm), id(thermo), kc_compat, asv_quirk,
+           exp32, marker_idx, ignition_mode, jac_mode, energy)
+    hit = _SWEEP_FNS.get(key)
+    if (hit is not None and hit[0] is gm and hit[1] is sm
+            and hit[2] is thermo and hit[3] is udf):
+        return hit[4:]
+    observer = obs0 = None
+    if energy is not None:
+        observer, obs0 = energy_ignition_observer(thermo.n_species)
+        rhs = make_energy_rhs(gm, thermo, energy, kc_compat, exp32)
+        jac = make_energy_jac(gm, thermo, energy, kc_compat, exp32)
+    else:
+        rhs = _make_rhs(mode, udf, gm, sm, thermo, kc_compat, asv_quirk,
+                        exp32)
+        jac = _make_jac(mode, gm, sm, thermo, kc_compat, asv_quirk, exp32)
+    if marker_idx is not None:
+        sp_obs, sp_obs0 = ignition_observer(marker_idx, mode=ignition_mode)
+        if observer is None:
+            observer, obs0 = sp_obs, sp_obs0
+        else:
+            observer, obs0 = merge_observers(observer, obs0, sp_obs,
+                                             sp_obs0)
+    if jac_mode == "fwd":
+        jac = None
+    if len(_SWEEP_FNS) >= 32:
+        _SWEEP_FNS.pop(next(iter(_SWEEP_FNS)))
+    _SWEEP_FNS[key] = (gm, sm, thermo, udf, rhs, jac, observer, obs0)
+    return rhs, jac, observer, obs0
 
 # padded (mechanism, thermo) pairs per (source ids, shape): the same
 # padded bundle for repeated sweeps of one mechanism; strong references to
@@ -303,6 +342,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                         energy=None, atol_T=None, method="bdf",
                         jac_window=None, linsolve="auto", newton_tol=0.03,
                         setup_economy=False, stale_tol=0.3, exp32=False,
+                        analytic_jac=True, pipeline=None, poll_every=None,
+                        buckets=None, admission=None, refill=None,
                         species_buckets=None, reaction_buckets=None,
                         mech_operands=False, device=None, **deferred):
     """Ensemble form: one lane per condition, all lanes solved together.
@@ -331,6 +372,26 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     ``segment_steps > 0`` bounds each segment of the sweep driver; ``0``
     runs one segment of ``max_steps``.
 
+    ``pipeline``/``poll_every`` (segmented runs only: an explicit value
+    with ``segment_steps=0`` raises) pick the segmented driver's gear:
+    the default pipelined gear replays CUDA graphs of fixed-trip step
+    windows on the card (``parallel/sweep.py``), ``pipeline=False`` is
+    the blocking loop; the two are bit for bit the same.  ``buckets``
+    pads the lane count onto a ladder rung (``"pow2"`` or an increasing
+    tuple, ``aot/buckets.py``) with dead copies of the last lane, stripped
+    from every output.  ``admission``/``refill`` (segmented runs only;
+    grammar ``parallel.sweep.resolve_admission``) stream the conditions
+    through ``admission`` resident slots: finished lanes are harvested,
+    freed slots refill from the backlog once ``refill`` of them have
+    parked, and with ``buckets`` the resident program shifts down the
+    ladder as the backlog drains; outputs come back in the caller's lane
+    order.  ``analytic_jac=False`` drops the closed-form Jacobian for the
+    solver's ``torch.func.jacfwd`` fallback; ``"remat"`` keeps the
+    closed form: in the JAX package it wraps it in ``jax.checkpoint``,
+    which changes the compiled program and not the numbers, and PyTorch
+    runs no program whose structure a checkpoint would change, so here it
+    is ``True``.
+
     ``jac_window=None`` resolves by device (:func:`resolve_jac_window`);
     ``linsolve="auto"`` resolves with the sweep's B, state width n and
     surface species (``solver.linalg.resolve_linsolve``): on the GPU,
@@ -355,6 +416,27 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     mechanisms of one rung, which the port, compiling no program per
     mechanism, has no counterpart of; its results are the padded run's.
     """
+    if segment_steps <= 0 and (pipeline is not None
+                               or poll_every is not None
+                               or deferred.get("fetch_deadline") is not None
+                               or admission not in (None, False)
+                               or refill is not None):
+        # these knobs shape the segmented driver only: ignoring them on the
+        # monolithic path would report a configuration that never ran
+        raise ValueError(
+            "pipeline/poll_every/fetch_deadline/admission/refill are "
+            "segmented-path knobs; set segment_steps > 0 or drop the "
+            "arguments")
+    if admission is not True:
+        resolve_admission(admission, refill, n_lanes=1)
+    buckets = normalize_buckets(buckets)
+    if isinstance(analytic_jac, str):
+        if analytic_jac != "remat":
+            raise ValueError(f"analytic_jac must be True, False, or "
+                             f"'remat'; got {analytic_jac!r}")
+        jac_mode = "analytic"
+    else:
+        jac_mode = "analytic" if analytic_jac else "fwd"
     if mech_operands:
         if species_buckets is None:
             species_buckets = "pow2"
@@ -376,7 +458,7 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                 "mech_operands=True is incompatible with quarantine= "
                 "(the recovery ladder re-solves through closure-mode "
                 "programs); drop one of them")
-        if deferred.get("analytic_jac", True) is not True:
+        if analytic_jac is not True:
             raise ValueError(
                 "mech_operands=True builds its analytic Jacobian inside the "
                 "bundle builder; analytic_jac is not configurable there — "
@@ -449,41 +531,37 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         cfgs = energy_cfg(cfgs, energy, B, y0s.shape[1], atol, atol_T,
                           device=device)
 
-    observer = obs0 = None
-    if energy is not None:
-        observer, obs0 = energy_ignition_observer(th_k.n_species)
+    marker_idx = None
     if ignition_marker is not None:
         key = ignition_marker.upper()
         if key not in idx:
             raise KeyError(f"ignition_marker {ignition_marker!r} not in "
                            f"species list")
-        sp_obs, sp_obs0 = ignition_observer(idx[key], mode=ignition_mode)
-        if observer is None:
-            observer, obs0 = sp_obs, sp_obs0
-        else:
-            observer, obs0 = merge_observers(observer, obs0, sp_obs,
-                                             sp_obs0)
-    if energy is not None:
-        rhs = make_energy_rhs(gm_k, th_k, energy, kc_compat, exp32)
-        jac = make_energy_jac(gm_k, th_k, energy, kc_compat, exp32)
-    else:
-        rhs = _make_rhs(mode, chem.udf, gm_k, sm, th_k, kc_compat,
-                        asv_quirk, exp32)
-        jac = _make_jac(mode, gm_k, sm, th_k, kc_compat, asv_quirk,
-                        exp32)
+        marker_idx = idx[key]
+    rhs, jac, observer, obs0 = _sweep_fns(
+        mode, chem.udf, gm_k, sm, th_k, kc_compat, asv_quirk, exp32,
+        marker_idx, ignition_mode, jac_mode, energy)
     jac_window = resolve_jac_window(jac_window, method, device)
+    # "auto" resolves with the lane count the device runs: the padded
+    # bucket, or the streaming driver's first resident rung
+    resident, _ = resolve_admission(admission, refill, n_lanes=B)
     linsolve = resolve_linsolve(
-        linsolve, method=method, device=device, batch=B, n=y0s.shape[1],
+        linsolve, method=method, device=device,
+        batch=resolve_bucket(min(resident or B, B), buckets),
+        n=y0s.shape[1],
         n_surface=sm.n_surface_species if sm is not None else 0)
     if segment_steps > 0:
-        seg = dict(segment_steps=segment_steps)
+        seg = dict(segment_steps=segment_steps, pipeline=pipeline,
+                   poll_every=poll_every, admission=admission,
+                   refill=refill)
     else:
         seg = dict(segment_steps=int(max_steps), max_segments=1)
     res = ensemble_solve_segmented(
         rhs, y0s, 0.0, float(time), cfgs, rtol=rtol, atol=atol, jac=jac,
         observer=observer, observer_init=obs0, method=method,
         jac_window=jac_window, linsolve=linsolve, newton_tol=newton_tol,
-        setup_economy=setup_economy, stale_tol=stale_tol, **seg)
+        setup_economy=setup_economy, stale_tol=stale_tol, buckets=buckets,
+        **seg)
 
     ng = len(species)
     y_end = res.y.cpu().numpy()
@@ -515,11 +593,30 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
 _RUN_DEFERRED = (("backend", None, "A16"), ("telemetry", False, "A14"))
 
 
-def _run_solve(rhs, jac, y0, T, Asv, t1, *, rtol, atol, n_save, max_steps,
-               method, jac_window, segmented):
-    """One condition through the sweep driver (B = 1); returns (status,
-    t_end, y_end, ts, ys, truncated, n_acc, n_rej) with ts/ys including the
-    initial row."""
+@functools.lru_cache(maxsize=32)
+def _segmented_builder(mode, udf, kc_compat, asv_quirk, exp32):
+    """Builder of the file-driven runs' RHS and Jacobian from a
+    ``(gm, sm, thermo)`` bundle (``batchreactor_tpu/api.py::
+    _segmented_builder``): one builder per chemistry configuration, so the
+    segmented driver's pipelined gear (``rhs_bundle=``) replays one set of
+    graphs for re-parsed copies of a mechanism."""
+
+    def build(bundle):
+        gm, sm, thermo = bundle
+        return (_make_rhs(mode, udf, gm, sm, thermo, kc_compat, asv_quirk,
+                          exp32),
+                _make_jac(mode, gm, sm, thermo, kc_compat, asv_quirk,
+                          exp32))
+
+    return build
+
+
+def _run_solve(builder, bundle, y0, T, Asv, t1, *, rtol, atol, n_save,
+               max_steps, method, jac_window, segmented):
+    """One condition through the sweep driver (B = 1), its RHS and
+    Jacobian built by ``builder`` from the mechanism ``bundle``; returns
+    (status, t_end, y_end, ts, ys, truncated, n_acc, n_rej) with ts/ys
+    including the initial row."""
     dev = y0.device
     jac_window = resolve_jac_window(jac_window, method, dev)
     seg_steps = (min(512, int(max_steps)) if segmented in (None, True)
@@ -528,10 +625,10 @@ def _run_solve(rhs, jac, y0, T, Asv, t1, *, rtol, atol, n_save, max_steps,
            "Asv": torch.full((1,), float(Asv), dtype=torch.float64,
                              device=dev)}
     res = ensemble_solve_segmented(
-        rhs, y0[None, :], 0.0, float(t1), cfg,
+        builder, y0[None, :], 0.0, float(t1), cfg,
         rtol=rtol, atol=atol, n_save=n_save, segment_steps=seg_steps,
         max_segments=max(1, -(-int(max_steps) // seg_steps)),
-        max_attempts=int(max_steps), jac=jac, method=method,
+        max_attempts=int(max_steps), rhs_bundle=bundle, method=method,
         jac_window=jac_window)
     y_end = res.y[0].cpu().numpy()
     ts, ys, truncated = trim_trajectory(
@@ -567,10 +664,8 @@ def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
     y0 = get_solution_vector(x0, thermo_obj.molwt, float(T), float(p),
                              ini_covg=sm.ini_covg if sm is not None else None)
     status, t_end, y_end, ts, _, _, _, _ = _run_solve(
-        _make_rhs(mode, None, gm, sm, thermo_obj, kc_compat, asv_quirk,
-                  exp32),
-        _make_jac(mode, gm, sm, thermo_obj, kc_compat, asv_quirk, exp32),
-        y0, T, Asv, time, **solve_kw)
+        _segmented_builder(mode, None, kc_compat, asv_quirk, exp32),
+        (gm, sm, thermo_obj), y0, T, Asv, time, **solve_kw)
     if status != "Success":
         raise RuntimeError(
             f"batch_reactor integration failed with {status} at "
@@ -781,11 +876,9 @@ def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
             method=solve_kw["method"], jac_window=solve_kw["jac_window"],
             segmented=solve_kw["segmented"], **sens_kw)
     status, t_end, _, ts, ys, truncated, n_acc, n_rej = _run_solve(
-        _make_rhs(mode, chem.udf, id_.gmd, id_.smd, id_.thermo, kc_compat,
-                  asv_quirk, exp32),
-        _make_jac(mode, id_.gmd, id_.smd, id_.thermo, kc_compat, asv_quirk,
-                  exp32),
-        y0, id_.T, id_.Asv, id_.tf, **solve_kw)
+        _segmented_builder(mode, chem.udf, kc_compat, asv_quirk, exp32),
+        (id_.gmd, id_.smd, id_.thermo), y0, id_.T, id_.Asv, id_.tf,
+        **solve_kw)
     if verbose:
         # the reference prints every accepted time (@printf("%4e\n",t));
         # ts[0] is the initial row and a truncated run's last row is a

@@ -22,7 +22,12 @@ per-lane masks at all three levels:
 * the Newton loop updates only lanes that have neither converged nor
   diverged.
 
-The any-lane tests are host syncs; CUDA graphs come later.
+The any-lane tests are host syncs (:func:`solve`, the blocking gear).
+:func:`make_stepper` splits the solve into pure pieces: ``window(carry,
+fixed=True)`` runs every attempt of a window and every Newton iteration
+under those masks and makes no host decision, so ``solver/graphs.py`` can
+capture it (the pipelined gear of ``parallel/sweep.py``); a lane's values
+do not depend on whether a loop stopped early.
 
 ``tangent=`` carries forward sensitivities (CVODES's staggered corrector)
 in a (B, ROWS, P, n) difference history, held as (B, ROWS, P n), stepped
@@ -36,9 +41,10 @@ import math
 import torch
 
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
-                     SolveResult, atol_scale_of, check_deferred,
+                     SolveResult, Stepper, atol_scale_of, check_deferred,
                      jacfwd_lanes, nlive_of, rms, scaled_norm)
 from .common import where_lanes as _where
+from .graphs import count, host_any
 from .linalg import (apply_factor, factor_m, factor_zeros, make_solve_m,
                      resolve_linsolve)
 
@@ -179,6 +185,9 @@ def solve(
     1e-8 max|S| + atol; by default the tangents leave the state's grid as
     it is.  Tangents cannot resume from ``solver_state``.  They land in
     ``SolveResult.tangents`` (B, P, n).
+
+    This is the blocking gear: :func:`make_stepper`'s pieces driven by a
+    loop that stops each of its three loops once no lane needs it.
     """
     check_deferred(deferred, _DEFERRED)
     if jac_window < 1:
@@ -201,29 +210,58 @@ def solve(
     if sens_iters < 1:
         raise ValueError(f"sens_iters must be >= 1, got {sens_iters}")
 
-    dt, dev = y0.dtype, y0.device
     B, n = y0.shape
-    linsolve = resolve_linsolve(linsolve, method="bdf", device=dev, batch=B,
-                                n=n)
+    linsolve = resolve_linsolve(linsolve, method="bdf", device=y0.device,
+                                batch=B, n=n)
+    st = make_stepper(
+        rhs, cfg, B, n, y0.dtype, y0.device, rtol=rtol, atol=atol,
+        max_steps=max_steps, n_save=n_save, max_newton=max_newton,
+        dt_min_factor=dt_min_factor, linsolve=linsolve, jac=jac,
+        observer=observer, jac_window=jac_window,
+        freeze_precond=freeze_precond, setup_economy=setup_economy,
+        stale_tol=stale_tol,
+        fdot=tangent[0] if tangent is not None else None,
+        sens_iters=sens_iters, sens_errcon=sens_errcon)
+    carry = st.init(y0, t0, t1, dt0=dt0, solver_state=solver_state,
+                    observer_init=observer_init,
+                    S0=tangent[1] if tangent is not None else None)
+    while host_any(carry["status"] == RUNNING):
+        carry = st.window(carry)
+    return st.result(carry)
+
+
+def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
+                 max_steps=100_000, n_save=0, max_newton=6,
+                 dt_min_factor=1e-22, linsolve="lu", jac=None,
+                 observer=None, jac_window=1, freeze_precond=False,
+                 setup_economy=False, stale_tol=0.3, fdot=None, sens_iters=2,
+                 sens_errcon=False):
+    """The BDF of :func:`solve` as a :class:`~.common.Stepper` over B lanes
+    of n components (``linsolve`` resolved, options validated by the
+    caller; ``fdot`` is the tangent hook's, whose ``S0`` goes to ``init``).
+
+    ``init(y0, t0, t1, dt0=None, solver_state=None, observer_init=None,
+    S0=None)`` takes :func:`solve`'s arguments; with tensors for ``t0``,
+    ``t1`` and ``dt0`` it allocates only on the device and reads no device
+    value, so it can run inside a captured graph (a segment's opening).
+    The carry holds the solve's per-lane constants (``t1``, the span) under
+    ``"k"`` and, under the setup economy, the carried factorization under
+    ``"econ"``, so ``window`` is a function from carry to carry.  The
+    stepper reads ``cfg``'s entries at each use, never a copy of them."""
+    dt, dev = dtype, device
     economy = bool(setup_economy) and jac_window > 1
-
-    def lanes(x):
-        return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
-
-    t0 = lanes(t0)
-    t1 = lanes(t1)
-    span = t1 - t0
     eye = torch.eye(n, dtype=dt, device=dev)
     gamma_tab = torch.tensor(_GAMMA_TAB, dtype=dt, device=dev)
     errc_tab = torch.tensor(_ERRC_TAB, dtype=dt, device=dev)
     ones_rows = torch.ones(_ROWS, dtype=dt, device=dev)
+    ridx = torch.arange(_ROWS, device=dev)[None, :, None]      # (1, 8, 1)
+    kidx = torch.arange(_ROWS, device=dev)[None, None, :]
 
-    atol_scale = atol_scale_of(cfg, y0)
-    atol_vec = atol if atol_scale is None else atol * atol_scale
-    nlive = nlive_of(cfg, y0)
-
+    # the cfg operands are read at each use: a pipelined program refreshes
+    # cfg's entries from its buffers before every step
     def _norm(e, y):
-        return scaled_norm(e, y, rtol, atol, atol_scale, nlive)
+        return scaled_norm(e, y, rtol, atol, atol_scale_of(cfg, e),
+                           nlive_of(cfg, e))
 
     def f(t, y):
         return rhs(t, y, cfg)
@@ -237,81 +275,93 @@ def solve(
     newton_tol = max(10.0 * 2.220446049250313e-16 / rtol,
                      min(0.03, math.sqrt(rtol)))
 
-    # ---- initial h (Hairer heuristic) -------------------------------------
-    f0 = f(t0, y0)
-    if dt0 is None or not isinstance(dt0, (int, float)):
-        d0 = _norm(y0, y0)
-        d1 = _norm(f0, y0)
-        h_heur = torch.minimum(
-            torch.maximum(0.01 * d0 / torch.clamp(d1, min=1e-30),
-                          span * 1e-24), span)
-        if dt0 is None:
-            h_init = h_heur
+    def init(y0, t0, t1, dt0=None, solver_state=None, observer_init=None,
+             S0=None):
+        def lanes(x):
+            return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
+
+        t0 = lanes(t0)
+        t1 = lanes(t1)
+        span = t1 - t0
+
+        # ---- initial h (Hairer heuristic) ---------------------------------
+        f0 = f(t0, y0)
+        if dt0 is None or not isinstance(dt0, (int, float)):
+            d0 = _norm(y0, y0)
+            d1 = _norm(f0, y0)
+            h_heur = torch.minimum(
+                torch.maximum(0.01 * d0 / torch.clamp(d1, min=1e-30),
+                              span * 1e-24), span)
+            if dt0 is None:
+                h_init = h_heur
+            else:
+                dt0 = torch.as_tensor(dt0, dtype=dt, device=dev)
+                h_init = torch.where(dt0 > 0, dt0, h_heur)
         else:
-            dt0 = torch.as_tensor(dt0, dtype=dt, device=dev)
-            h_init = torch.where(dt0 > 0, dt0, h_heur)
-    else:
-        h_init = lanes(dt0)
+            h_init = lanes(dt0)
 
-    econ_cold = None
-    if economy:
-        econ_cold = {"fac": factor_zeros(linsolve, B, n, dt, dev),
-                     "c0": torch.zeros(B, dtype=dt, device=dev),
-                     "ok": torch.zeros(B, dtype=torch.bool, device=dev),
-                     "age": torch.zeros(B, dtype=torch.int64, device=dev)}
-    econ = econ_cold
-    D_cold = torch.zeros((B, _ROWS, n), dtype=dt, device=dev)
-    D_cold[:, 0] = y0
-    D_cold[:, 1] = h_init[:, None] * f0
-    if solver_state is None:
-        D = D_cold
-        order = torch.ones(B, dtype=torch.int64, device=dev)
-        h = h_init
-        n_equal = torch.zeros(B, dtype=torch.int64, device=dev)
-    else:
-        D_prev, order_prev, h_prev, nequal_prev = solver_state[:4]
-        econ_prev = solver_state[4] if len(solver_state) > 4 else None
-        cold = torch.all((D_prev == 0).reshape(B, -1), dim=1)
-        D = _where(cold, D_cold, D_prev)
-        order = torch.where(cold, 1, order_prev.to(torch.int64))
-        h = torch.where(cold, h_init, h_prev)
-        n_equal = torch.where(cold, 0, nequal_prev.to(torch.int64))
-        if economy and econ_prev is not None:
-            econ = _where(cold, econ_cold, econ_prev)
+        econ = None
+        if economy:
+            econ = {"fac": factor_zeros(linsolve, B, n, dt, dev),
+                    "c0": torch.zeros(B, dtype=dt, device=dev),
+                    "ok": torch.zeros(B, dtype=torch.bool, device=dev),
+                    "age": torch.zeros(B, dtype=torch.int64, device=dev)}
+        D_cold = torch.zeros((B, _ROWS, n), dtype=dt, device=dev)
+        D_cold[:, 0] = y0
+        D_cold[:, 1] = h_init[:, None] * f0
+        if solver_state is None:
+            D = D_cold
+            order = torch.ones(B, dtype=torch.int64, device=dev)
+            h = h_init
+            n_equal = torch.zeros(B, dtype=torch.int64, device=dev)
+        else:
+            D_prev, order_prev, h_prev, nequal_prev = solver_state[:4]
+            econ_prev = solver_state[4] if len(solver_state) > 4 else None
+            cold = torch.all((D_prev == 0).reshape(B, -1), dim=1)
+            D = _where(cold, D_cold, D_prev)
+            order = torch.where(cold, 1, order_prev.to(torch.int64))
+            h = torch.where(cold, h_init, h_prev)
+            n_equal = torch.where(cold, 0, nequal_prev.to(torch.int64))
+            if economy and econ_prev is not None:
+                econ = _where(cold, econ, econ_prev)
 
-    if tangent is not None:
-        fdot, S0 = tangent
-        S0 = torch.as_tensor(S0, dtype=dt, device=dev)
-        if S0.ndim == 2:
-            S0 = S0.expand((B,) + tuple(S0.shape))
-        if S0.ndim != 3 or S0.shape[0] != B or S0.shape[2] != n:
-            raise ValueError(f"tangent S0 must be (B, P, {n}) or (P, {n}), "
-                             f"got {tuple(S0.shape)}")
-        nP = S0.shape[1]
-        DS = torch.zeros((B, _ROWS, nP * n), dtype=dt, device=dev)
-        DS[:, 0] = S0.reshape(B, -1)
-        DS[:, 1] = (h_init[:, None, None] * fdot(t0, y0, S0)).reshape(B, -1)
+        nsb = max(n_save, 1)
+        carry = {
+            "t": t0.clone(), "D": D, "order": order, "h": h,
+            "n_equal": n_equal,
+            "status": torch.full((B,), RUNNING, dtype=torch.int32,
+                                 device=dev),
+            "n_acc": torch.zeros(B, dtype=torch.int64, device=dev),
+            "n_rej": torch.zeros(B, dtype=torch.int64, device=dev),
+            "ts": torch.full((B, nsb), math.inf, dtype=dt, device=dev),
+            "ys": torch.zeros((B, nsb, n), dtype=dt, device=dev),
+            "n_saved": torch.zeros(B, dtype=torch.int64, device=dev),
+            "obs": (dict(observer_init) if observer is not None
+                    else {"_": torch.zeros(B, dtype=dt, device=dev)}),
+            "k": {"t1": t1, "span": span},
+        }
+        if economy:
+            carry["econ"] = econ
+        if fdot is not None:
+            S0 = torch.as_tensor(S0, dtype=dt, device=dev)
+            if S0.ndim == 2:
+                S0 = S0.expand((B,) + tuple(S0.shape))
+            if S0.ndim != 3 or S0.shape[0] != B or S0.shape[2] != n:
+                raise ValueError(f"tangent S0 must be (B, P, {n}) or (P, {n}),"
+                                 f" got {tuple(S0.shape)}")
+            nP = S0.shape[1]
+            DS = torch.zeros((B, _ROWS, nP * n), dtype=dt, device=dev)
+            DS[:, 0] = S0.reshape(B, -1)
+            DS[:, 1] = (h_init[:, None, None] * fdot(t0, y0, S0)).reshape(B,
+                                                                          -1)
+            carry["DS"] = DS
+        return carry
 
-    nsb = max(n_save, 1)
-    carry = {
-        "t": t0.clone(), "D": D, "order": order, "h": h, "n_equal": n_equal,
-        "status": torch.full((B,), RUNNING, dtype=torch.int32, device=dev),
-        "n_acc": torch.zeros(B, dtype=torch.int64, device=dev),
-        "n_rej": torch.zeros(B, dtype=torch.int64, device=dev),
-        "ts": torch.full((B, nsb), math.inf, dtype=dt, device=dev),
-        "ys": torch.zeros((B, nsb, n), dtype=dt, device=dev),
-        "n_saved": torch.zeros(B, dtype=torch.int64, device=dev),
-        "obs": (dict(observer_init) if observer is not None
-                else {"_": torch.zeros(B, dtype=dt, device=dev)}),
-    }
-    if tangent is not None:
-        carry["DS"] = DS
-
-    def newton(solve_m, t_new, y_pred, psi, c, scale, live):
+    def newton(solve_m, t_new, y_pred, psi, c, scale, live, fixed):
         """Solve c f(t_new, y_pred + d) = psi + d per lane; returns
         (d, converged).  A lane that converged or diverged keeps its d;
         lanes outside ``live`` (their attempt is discarded anyway) do not
-        iterate at all."""
+        iterate at all.  ``fixed`` runs all ``max_newton`` iterations."""
         d = torch.zeros_like(y_pred)
         ynew = y_pred
         dw_old = torch.full((B,), -1.0, dtype=dt, device=dev)
@@ -319,11 +369,12 @@ def solve(
         div = ~live
         for it in range(max_newton):
             active = ~conv & ~div
-            if not bool(active.any()):
+            if not fixed and not host_any(active):
                 break
+            count("newton_iters")
             res = c[:, None] * f(t_new, ynew) - psi - d
             dd = solve_m(res)
-            dw = rms(dd / scale, nlive)
+            dw = rms(dd / scale, nlive_of(cfg, dd))
             rate = torch.where(dw_old > 0, dw / dw_old, 0.0)
             slow = (dw_old > 0) & (
                 (rate >= 1.0)
@@ -342,11 +393,12 @@ def solve(
             div = torch.where(active, slow | bad, div)
         return d, conv
 
-    def step_once(c, J_stale, pre=None, stale_pre=None):
+    def step_once(c, k, J_stale, pre=None, stale_pre=None, fixed=False):
         """One step attempt for every lane (terminated lanes hold their
         carry).  ``J_stale=None`` evaluates a fresh Jacobian at this
         attempt's predictor; ``pre=(solve0, c0)`` solves with a frozen
         factorization and CVODE's cj-ratio rescale 2/(1 + c/c0)."""
+        t1, span = k["t1"], k["span"]
         t, D, order, h = c["t"], c["D"], c["order"], c["h"]
         n_equal, status = c["n_equal"], c["status"]
         running = status == RUNNING
@@ -359,9 +411,10 @@ def solve(
         factor_clip = torch.clamp(factor_clip, min=1e-14)
         clip = factor_clip < 1.0
         D = _where(clip, _change_D(D, order, factor_clip), D)
-        if tangent is not None:
+        if fdot is not None:
             DS = c["DS"]
             DS = _where(clip, _change_D(DS, order, factor_clip), DS)
+            nP = DS.shape[-1] // n
         h = h * factor_clip
         n_equal = torch.where(clip, 0, n_equal)
 
@@ -370,6 +423,8 @@ def solve(
         y_pred = _masked_row_sum(D, ones_rows, order)
         psi = _masked_row_sum(D, gamma_tab, order, lo=1) / gam[:, None]
         cc = h / gam
+        atol_scale = atol_scale_of(cfg, y_pred)
+        atol_vec = atol if atol_scale is None else atol * atol_scale
         scale = atol_vec + rtol * torch.abs(y_pred)
 
         J = J_at(t_new, y_pred) if J_stale is None else J_stale
@@ -382,10 +437,10 @@ def solve(
             def solve_m(b):
                 return solve0(b) * cj_fac.reshape((B,) + (1,) * (b.ndim - 1))
         d, conv = newton(solve_m, t_new, y_pred, psi, cc, scale,
-                         running & ~already)
+                         running & ~already, fixed)
 
         err = _norm(errc_tab[order][:, None] * d, y_pred)
-        if tangent is not None:
+        if fdot is not None:
             # the staggered tangent corrector through this attempt's factor
             S_pred = _masked_row_sum(DS, ones_rows, order).reshape(B, nP, n)
             psi_S = (_masked_row_sum(DS, gamma_tab, order, lo=1)
@@ -417,16 +472,14 @@ def solve(
             conv_fac)
 
         # accepted: D[q+2] = d - D[q+1]; D[q+1] = d; D[j] += D[j+1], j <= q
-        ridx = torch.arange(_ROWS, device=dev)[None, :, None]   # (1, 8, 1)
         o3 = order[:, None, None]
         Dq1 = _row(D, order + 1)
         D_acc = torch.where(ridx == o3 + 2, (d - Dq1)[:, None, :], D)
         D_acc = torch.where(ridx == o3 + 1, d[:, None, :], D_acc)
-        kidx = torch.arange(_ROWS, device=dev)[None, None, :]
         take = (kidx >= ridx) & (kidx <= o3 + 1) & (ridx <= o3)  # (B, 8, 8)
         D_summed = torch.matmul(take.to(dt), D_acc)
         D_acc = torch.where(ridx <= o3, D_summed, D_acc)
-        if tangent is not None:
+        if fdot is not None:
             DSq1 = _row(DS, order + 1)
             DS_acc = torch.where(ridx == o3 + 2, (dSf - DSq1)[:, None, :], DS)
             DS_acc = torch.where(ridx == o3 + 1, dSf[:, None, :], DS_acc)
@@ -466,7 +519,7 @@ def solve(
         D_base = _where(accept, D_acc, D)
         D_new = _where(factor != 1.0, _change_D(D_base, order_new, factor),
                        D_base)
-        if tangent is not None:
+        if fdot is not None:
             DS_base = _where(accept, DS_acc, DS)
             DS_new = _where(factor != 1.0,
                             _change_D(DS_base, order_new, factor), DS_base)
@@ -479,7 +532,7 @@ def solve(
         # freeze the carry of lanes that are terminated OR already at t1
         hold = ~running | already
         D_new = _where(hold, D, D_new)
-        if tangent is not None:
+        if fdot is not None:
             DS_new = _where(hold, DS, DS_new)
         h_new = torch.where(hold, h, h_new)
         order_new = torch.where(hold, order, order_new)
@@ -488,6 +541,7 @@ def solve(
         # trajectory row scatter (first n_save accepted rows)
         ts, ys, n_saved = c["ts"], c["ys"], c["n_saved"]
         if n_save > 0:
+            nsb = ts.shape[1]
             do_save = accept & (n_saved < nsb)
             idx = torch.clamp(n_saved, max=nsb - 1)[:, None]
             ts = ts.scatter(1, idx, torch.where(
@@ -517,14 +571,21 @@ def solve(
                "n_equal": n_equal_new, "status": status2, "n_acc": n_acc2,
                "n_rej": n_rej2, "ts": ts, "ys": ys, "n_saved": n_saved,
                "obs": obs}
-        if tangent is not None:
+        if fdot is not None:
             out["DS"] = DS_new
         return out, newton_failed
 
-    def window(c):
+    def window(c, fixed=False):
         """One jac window: one Jacobian (at the window-opening predictor)
-        serves up to ``jac_window`` attempts per lane."""
-        nonlocal econ
+        serves up to ``jac_window`` attempts per lane.  ``fixed`` runs
+        every attempt and every Newton iteration under the lanes' masks."""
+        c = dict(c)
+        k = c.pop("k")
+        econ = c.pop("econ", None)
+        if jac_window == 1:
+            c = step_once(c, k, None, fixed=fixed)[0]
+            c["k"] = k
+            return c
         t, D, order, h = c["t"], c["D"], c["order"], c["h"]
         y_pred = _masked_row_sum(D, ones_rows, order)
         J = J_at(t + h, y_pred)
@@ -550,35 +611,34 @@ def solve(
         nf = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(jac_window):
             active = ~nf & (c["status"] == RUNNING)
-            if not bool(active.any()):
+            if not fixed and not host_any(active):
                 break
             stale = None if reuse is None else (reuse | (i > 0))
-            c2, nf2 = step_once(c, J, pre, stale_pre=stale)
+            c2, nf2 = step_once(c, k, J, pre, stale_pre=stale, fixed=fixed)
             c = _where(active, c2, c)
             nf = torch.where(active, nf2, nf)
+        c["k"] = k
         if economy:
             # a clean window close validates the factorization for the next
             # window's test; a Newton failure invalidates it
-            econ = {"fac": _where(live0, fac, econ["fac"]),
-                    "c0": torch.where(live0, c0, econ["c0"]),
-                    "ok": torch.where(live0, ~nf, econ["ok"]),
-                    "age": torch.where(live0, age, econ["age"])}
+            c["econ"] = {"fac": _where(live0, fac, econ["fac"]),
+                         "c0": torch.where(live0, c0, econ["c0"]),
+                         "ok": torch.where(live0, ~nf, econ["ok"]),
+                         "age": torch.where(live0, age, econ["age"])}
         return c
 
-    while bool((carry["status"] == RUNNING).any()):
-        if jac_window == 1:
-            carry = step_once(carry, None)[0]
-        else:
-            carry = window(carry)
+    def result(c):
+        state_out = (c["D"], c["order"], c["h"], c["n_equal"])
+        if economy:
+            state_out = state_out + (c["econ"],)
+        tangents = None
+        if fdot is not None:
+            tangents = c["DS"][:, 0].reshape(B, -1, n)
+        return SolveResult(
+            t=c["t"], y=c["D"][:, 0], status=c["status"],
+            n_accepted=c["n_acc"], n_rejected=c["n_rej"],
+            ts=c["ts"], ys=c["ys"], n_saved=c["n_saved"],
+            h=c["h"], observed=c["obs"] if observer is not None else None,
+            solver_state=state_out, tangents=tangents)
 
-    state_out = (carry["D"], carry["order"], carry["h"], carry["n_equal"])
-    if economy:
-        state_out = state_out + (econ,)
-    return SolveResult(
-        t=carry["t"], y=carry["D"][:, 0], status=carry["status"],
-        n_accepted=carry["n_acc"], n_rejected=carry["n_rej"],
-        ts=carry["ts"], ys=carry["ys"], n_saved=carry["n_saved"],
-        h=carry["h"], observed=carry["obs"] if observer is not None else None,
-        solver_state=state_out,
-        tangents=(carry["DS"][:, 0].reshape(B, nP, n) if tangent is not None
-                  else None))
+    return Stepper(init, window, result)

@@ -10,6 +10,7 @@ solvers use on lane-batched tensors (the per-lane select and the
 """
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -122,3 +123,22 @@ def jacfwd_lanes(rhs):
         return vmap(jacfwd(one, argnums=1))(t, y, cfg)
 
     return jac
+
+
+class Stepper(NamedTuple):
+    """A solver split into its pure pieces, for the loops that drive it.
+
+    ``init(...) -> carry`` builds the per-lane carry of a solve (a dict of
+    tensors; every per-solve constant rides in it too), ``window(carry,
+    fixed=False) -> carry`` advances every lane by one Jacobian window of
+    attempts, and ``result(carry)`` is the :class:`SolveResult`.  With
+    ``fixed=False`` the window's loops stop once no lane needs them (host
+    syncs: the blocking gear); with ``fixed=True`` they run every trip
+    under the lanes' own masks and the window makes no host decision, so a
+    CUDA graph can capture it (``solver/graphs.py``).  The two give every
+    lane the same values bit for bit: each carried value goes through a
+    per-lane select."""
+
+    init: object
+    window: object
+    result: object

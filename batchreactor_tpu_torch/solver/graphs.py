@@ -1,0 +1,243 @@
+"""CUDA graphs of the step windows: capture once per shape, replay.
+
+The JAX package compiles one XLA program per segment and per bucket
+(``jax.jit`` of the vmapped solver); the port's counterpart is a
+``torch.cuda.CUDAGraph`` of each fixed-trip step function (a BDF or SDIRK
+window, a segment's opening and closing, the streaming driver's compaction),
+captured once over static buffers and replayed.  A :class:`Program` holds
+one dict of static buffers and the named steps that update it in place.
+
+* On the CPU a step runs eagerly, the same function on the same buffers,
+  with no graph.
+* On CUDA the first run of a step warms it up once on a side stream (the
+  PyTorch prescription: lazy initialisation, the kinetics' cached index
+  tensors, the ``lu32p`` library load happen there), captures it, then
+  replays it; every later run replays.  A failure to capture or to replay
+  raises.  There is no eager fallback on the card.
+
+The module keeps counters beside ``linalg_cuda.LAUNCHES``: graphs captured
+(:data:`CAPTURES`, also by step name), replays, host syncs (each point
+where the host reads a device value to decide what to launch next: a
+blocking wait on the card) and Newton iterations executed.  A count made
+by code inside a captured step (``lu32p`` launches by path, Newton
+iterations) is recorded once at capture and added on every replay, so a
+count means work the card did.
+"""
+
+import threading
+
+import torch
+
+#: graphs captured, by step name (``begin``, ``window``, ``end``,
+#: ``compact``) since the counts were last set to 0
+CAPTURES = {}
+#: the graph/poll layer's counters since they were last set to 0:
+#: ``replays`` (graph replays), ``host_syncs`` (blocking reads of a device
+#: value by the host), ``newton_iters`` (Newton iterations executed: a
+#: fixed-trip window counts every iteration it runs, masked or not)
+COUNTS = {"replays": 0, "host_syncs": 0, "newton_iters": 0}
+
+# the tally of the graph being captured (None outside a capture): counts
+# made by the captured code, replayed with the graph
+_tally = threading.local()
+
+
+def reset_counts():
+    """Set every counter of this module to 0."""
+    CAPTURES.clear()
+    for k in COUNTS:
+        COUNTS[k] = 0
+
+
+def captures():
+    """Graphs captured since the counts were last set to 0."""
+    return sum(CAPTURES.values())
+
+
+def count(name, k=1):
+    """Add ``k`` to counter ``name``; inside a capture the count goes to
+    the graph's tally instead, and every replay adds it."""
+    tally = getattr(_tally, "value", None)
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + k
+    else:
+        COUNTS[name] += k
+
+
+def host_any(mask):
+    """``bool(mask.any())``, counted as a host sync: the break points of
+    the blocking gear's loops."""
+    COUNTS["host_syncs"] += 1
+    return bool(mask.any())
+
+
+def fetch(*tensors):
+    """The tensors as numpy arrays on the host, counted as one host sync
+    (the first copy waits for the card; the rest find it idle)."""
+    COUNTS["host_syncs"] += 1
+    return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+def tree_leaves(tree):
+    """The tensors of a nest of dicts, tuples and lists, in order (a
+    ``None`` entry holds none)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in tree for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of one or more nests of the same structure
+    (dict entries matched by key; ``None`` stays ``None``)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _copy_into(dst, src):
+    """Copy the nest ``src`` into the buffers ``dst`` in place (same
+    structure; a missing entry raises).  A source that shares storage with
+    another destination is cloned first, so the order of the copies
+    cannot matter."""
+    pairs = []
+    tree_map(lambda d, s: pairs.append((d, s)), dst, src)
+    if len(tree_leaves(src)) != len(pairs):
+        raise ValueError("update does not match the buffers' structure")
+    ptrs = {d.untyped_storage().data_ptr() for d, _ in pairs}
+    pairs = [(d, s.clone() if s is not d and s.untyped_storage().data_ptr()
+              in ptrs else s) for d, s in pairs]
+    for d, s in pairs:
+        if d is not s:
+            d.copy_(s)
+
+
+class Program:
+    """Named steps over one dict of static buffers (``state``).
+
+    A step is ``fn(state) -> updates``: a dict of top-level entries of the
+    state and their new values (nests of tensors).  :meth:`run` applies
+    one step: on the CPU by calling it and rebinding the entries, on CUDA
+    by replaying its graph, which writes the new values into the buffers in
+    place (captured at the step's first run).  :meth:`set` loads values
+    into the state from outside (host data, a previous program's buffers).
+    A step must read device values only through tensor operations: no
+    ``.item()``, no Python branch on a tensor, no allocation sized by
+    data."""
+
+    def __init__(self, device, steps):
+        self.device = torch.device(device)
+        self.steps = dict(steps)
+        self.state = {}
+        self._graphs = {}
+        self._tallies = {}
+        self._pool = None
+
+    @property
+    def on_cuda(self):
+        return self.device.type == "cuda"
+
+    def set(self, **parts):
+        """Load each named entry: into its buffers on CUDA (allocated, as
+        copies, the first time), by rebinding on the CPU."""
+        for key, val in parts.items():
+            if not self.on_cuda:
+                self.state[key] = val
+            elif key in self.state:
+                _copy_into(self.state[key], val)
+            else:
+                self.state[key] = tree_map(
+                    lambda x: x.detach().clone(), val)
+
+    def run(self, name):
+        """Apply step ``name`` to the state."""
+        if not self.on_cuda:
+            self.state.update(self.steps[name](self.state))
+            return
+        graph = self._graphs.get(name)
+        if graph is None:
+            graph = self._capture(name)
+        graph.replay()
+        COUNTS["replays"] += 1
+        tally, launches = self._tallies[name]
+        for k, v in tally.items():
+            COUNTS[k] += v
+        if launches:
+            from . import linalg_cuda
+
+            linalg_cuda.add_launches(launches)
+
+    def _capture(self, name):
+        """Warm the step up once on a side stream (its output discarded:
+        the state does not change), allocate the buffers of entries it
+        creates, then capture it writing into the buffers.  Raises if the
+        step cannot be captured."""
+        from . import linalg_cuda
+
+        fn = self.steps[name]
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = fn(self.state)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        for key, val in warm.items():
+            if key not in self.state:
+                self.state[key] = tree_map(torch.empty_like, val)
+        del warm
+        graph = torch.cuda.CUDAGraph()
+        tally = {}
+        linalg_cuda.CAPTURED_BY_PATH.update(warp=0, cta=0)
+        _tally.value = tally
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                out = fn(self.state)
+                for key, val in out.items():
+                    _copy_into(self.state[key], val)
+                del out
+        finally:
+            _tally.value = None
+        if self._pool is None:
+            self._pool = graph.pool()
+        launches = {k: v for k, v in linalg_cuda.CAPTURED_BY_PATH.items()
+                    if v}
+        self._tallies[name] = (tally, launches)
+        self._graphs[name] = graph
+        CAPTURES[name] = CAPTURES.get(name, 0) + 1
+        return graph
+
+
+#: the programs kept for reuse, most recently used last
+_PROGRAMS = {}
+#: how many programs :func:`program` keeps
+MAX_PROGRAMS = 12
+
+
+def program(key, build):
+    """The cached :class:`Program` for ``key``, or ``build()``'s, kept
+    (the least recently used one is dropped past :data:`MAX_PROGRAMS`).
+    A program keeps references to what its steps call, so an identity in
+    ``key`` (``id(rhs)``) cannot be reused by another object while the
+    program lives."""
+    prog = _PROGRAMS.pop(key, None)
+    if prog is None:
+        prog = build()
+    _PROGRAMS[key] = prog
+    while len(_PROGRAMS) > MAX_PROGRAMS:
+        _PROGRAMS.pop(next(iter(_PROGRAMS)))
+    return prog
+
+
+def clear_programs():
+    """Drop every cached program (and its graphs)."""
+    _PROGRAMS.clear()

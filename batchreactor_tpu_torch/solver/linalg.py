@@ -4,8 +4,9 @@ Port of ``batchreactor_tpu/solver/linalg.py``, every mode:
 
 * ``"lu"``      exact float64 partially pivoted elimination (plain batched
                 torch) — the CPU / parity mode;
-* ``"inv32"``   float32 inverse of M (``torch.linalg.inv_ex``) applied in
-                float64 with one float64 refinement pass, x + Minv (b - M x)
+* ``"inv32"``   float32 inverse of M (:func:`inv32`: the ``lu32p`` factor
+                and a triangular solve of the identity) applied in float64
+                with one float64 refinement pass, x + Minv (b - M x)
                 (restores ~float64 accuracy while cond(M) stays below ~1e7);
 * ``"inv32nr"`` the float32 inverse, applied in float64, no refinement;
 * ``"inv32f"``  inv32nr with the matrix-vector product in float32;
@@ -15,8 +16,9 @@ Port of ``batchreactor_tpu/solver/linalg.py``, every mode:
 Every mode but ``"lu"`` is a float32 preconditioner for the quasi-Newton
 corrector, whose fixed point does not depend on the solve's accuracy.  The
 JAX package computes the ``inv32*`` modes with XLA's batched inverse and
-matmul, outside any Pallas kernel; here they are ``torch.linalg.inv_ex`` and
-batched matmul.
+matmul, outside any Pallas kernel; here the inverse goes through the
+``lu32p`` factor (:func:`inv32`, capturable into a CUDA graph where
+``torch.linalg.inv_ex`` is not) and the products are batched matmul.
 
 Two layers, as in the JAX package: :func:`factor_m` / :func:`apply_factor`
 hold the factorization as a plain dict of tensors (the BDF setup economy
@@ -38,7 +40,9 @@ LU32P_MIN_BN = 32768
 
 def lu_factor(A):
     """Partially pivoted LU of a lane batch A (B, n, n): returns (LU, piv)
-    with L unit-lower in place and piv (B, n) int32 LAPACK-style ipiv.
+    with L unit-lower in place and piv (B, n) int32 LAPACK-style ipiv.  It
+    runs in A's dtype, in plain tensor operations that a CUDA graph can
+    capture.
 
     Exactly-singular pivot guard: when the pivot column is identically zero
     at and below the diagonal, the elimination divides by 1.0 instead of
@@ -51,7 +55,8 @@ def lu_factor(A):
     piv = torch.zeros((B, n), dtype=torch.int32, device=A.device)
     idx = torch.arange(n, device=A.device)
     lanes = torch.arange(B, device=A.device)
-    neg_inf = torch.tensor(-float("inf"), dtype=A.dtype, device=A.device)
+    # a fill, not a host copy, so the factor can run inside a CUDA graph
+    neg_inf = torch.full((), -float("inf"), dtype=A.dtype, device=A.device)
     for k in range(n):
         cand = torch.where(idx >= k, torch.abs(LU[:, :, k]), neg_inf)
         p = torch.argmax(cand, dim=1)
@@ -67,6 +72,29 @@ def lu_factor(A):
         LU = LU - factor[:, :, None] * row_k_masked[:, None, :]
         LU[:, :, k] = torch.where(idx > k, factor, LU[:, :, k])
     return LU, piv
+
+
+def inv32(M):
+    """The float32 inverse of M (B, n, n) of the ``inv32*`` modes: the
+    ``lu32p`` factor of M (the Hopper kernel on CUDA, its plain version on
+    the CPU; past the kernel's npad 240 the float32 :func:`lu_factor`) and
+    ``torch.linalg.lu_solve`` against the identity.
+    ``torch.linalg.inv_ex`` cannot be captured into a CUDA graph on the
+    card (its batched getrf fails under stream capture), and the inverse
+    is rebuilt inside every captured SDIRK window; this form equals it to
+    float32 roundoff.  A singular M leaves a 0 on U's diagonal and a
+    non-finite inverse, which Newton's divergence gate turns into a
+    rejected step, as before."""
+    n = M.shape[-1]
+    if padded_n(n) <= CTA_NPAD_MAX:
+        LU, piv = lu32p_factor(M)
+    else:
+        LU, piv = lu_factor(M.to(torch.float32))
+    npad = LU.shape[-1]
+    eye = torch.eye(npad, dtype=torch.float32, device=M.device)
+    inv = torch.linalg.lu_solve(LU, piv + 1, eye.expand(M.shape[0], npad,
+                                                         npad))
+    return inv[:, :n, :n]
 
 
 def lu_solve(lu_piv, b):
@@ -160,10 +188,10 @@ def factor_m(M, linsolve):
         return {"lu": LU, "piv": piv}
     if linsolve not in MODES:
         raise ValueError(f"unknown linsolve {linsolve!r}")
-    # inv_ex: no host sync on the info flag; a singular M gives a
-    # non-finite inverse, which Newton's divergence gate turns into a
-    # rejected step (as XLA's inverse does in the JAX package)
-    Minv32 = torch.linalg.inv_ex(M.to(torch.float32))[0]
+    # a singular M gives a non-finite inverse, which Newton's divergence
+    # gate turns into a rejected step (as XLA's inverse does in the JAX
+    # package)
+    Minv32 = inv32(M)
     if linsolve == "inv32f":
         return {"minv": Minv32}
     Minv = Minv32.to(M.dtype)

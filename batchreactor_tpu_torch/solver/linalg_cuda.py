@@ -66,6 +66,10 @@ PANEL_WARP_NPAD_MAX = 128
 LAUNCHES = 0
 #: the same launches by kernel: ``warp`` (npad <= 64) and ``cta``
 LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
+#: launches recorded into the CUDA graph being captured, by path; the
+#: graph adds them to the counts above on every replay
+#: (``solver/graphs.py``), so a count is a launch the card ran
+CAPTURED_BY_PATH = {"warp": 0, "cta": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -279,9 +283,10 @@ def lu32p_factor(A):
     lib = load_library()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        global LAUNCHES
-        LAUNCHES += 1
-        LAUNCHES_BY_PATH[cfg["path"]] += 1
+        if torch.cuda.is_current_stream_capturing():
+            CAPTURED_BY_PATH[cfg["path"]] += 1
+        else:
+            add_launches({cfg["path"]: 1})
         err = lib.lu32p_factor(A.data_ptr(), LU.data_ptr(), piv.data_ptr(),
                                B, n, npad, cfg["grid"], cfg["block"],
                                cfg["smem"], stream)
@@ -289,6 +294,15 @@ def lu32p_factor(A):
         raise RuntimeError("lu32p kernel launch failed: "
                            + lib.lu32p_error_string(err).decode())
     return LU, piv
+
+
+def add_launches(by_path):
+    """Count kernel launches, ``{path: launches}``: one where the wrapper
+    launches, a captured graph's tally where the graph is replayed."""
+    global LAUNCHES
+    for path, k in by_path.items():
+        LAUNCHES += k
+        LAUNCHES_BY_PATH[path] += k
 
 
 def lu32p_solve(lu_piv, b):

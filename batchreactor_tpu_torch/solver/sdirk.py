@@ -17,8 +17,11 @@ out, as in :mod:`.bdf`:
   nor diverged, and lanes whose attempt is discarded anyway (terminated
   ones) do not iterate at all.
 
-The any-lane tests are host syncs.  ``stats`` and ``timeline`` are not
-ported yet (ROADMAP A14) and raise ``NotImplementedError``.
+The any-lane tests are host syncs (:func:`solve`, the blocking gear);
+:func:`make_stepper`'s ``window(carry, fixed=True)`` runs every trip under
+the masks instead, for a captured graph (``solver/graphs.py``).  ``stats``
+and ``timeline`` are not ported yet (ROADMAP A14) and raise
+``NotImplementedError``.
 """
 
 import math
@@ -26,8 +29,9 @@ import math
 import torch
 
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
-                     SolveResult, atol_scale_of, check_deferred,
+                     SolveResult, Stepper, atol_scale_of, check_deferred,
                      jacfwd_lanes, nlive_of, scaled_norm, where_lanes)
+from .graphs import count, host_any
 from .linalg import make_solve_m, resolve_linsolve
 
 # --- SDIRK4 tableau (Hairer & Wanner II, Table 6.5; gamma = 1/4) ---
@@ -103,23 +107,41 @@ def solve(
     if y0.ndim != 2:
         raise ValueError(f"y0 must be (B, n), got {tuple(y0.shape)}")
 
-    dt, dev = y0.dtype, y0.device
     B, n = y0.shape
-    linsolve = resolve_linsolve(linsolve, method="sdirk", device=dev,
+    linsolve = resolve_linsolve(linsolve, method="sdirk", device=y0.device,
                                 batch=B, n=n)
+    st = make_stepper(rhs, cfg, B, n, y0.dtype, y0.device, rtol=rtol,
+                      atol=atol, max_steps=max_steps, n_save=n_save,
+                      max_newton=max_newton, newton_tol=newton_tol,
+                      dt_min_factor=dt_min_factor, linsolve=linsolve,
+                      jac=jac, observer=observer, jac_window=jac_window)
+    carry = st.init(y0, t0, t1, dt0=dt0, err0=err0,
+                    observer_init=observer_init)
+    while host_any(carry["status"] == RUNNING):
+        carry = st.window(carry)
+    return st.result(carry)
 
-    def lanes(x):
-        return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
 
-    t0 = lanes(t0)
-    t1 = lanes(t1)
-    span = t1 - t0
+def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
+                 max_steps=100_000, n_save=0, max_newton=8, newton_tol=0.03,
+                 dt_min_factor=1e-22, linsolve="lu", jac=None, observer=None,
+                 jac_window=1):
+    """The SDIRK4 of :func:`solve` as a :class:`~.common.Stepper` over B
+    lanes of n components (``linsolve`` resolved by the caller).
+
+    ``init(y0, t0, t1, dt0=None, err0=None, observer_init=None)`` takes
+    :func:`solve`'s arguments; with tensors for ``t0``, ``t1``, ``dt0`` and
+    ``err0`` it reads no device value, so it can run inside a captured
+    graph.  ``window(carry, fixed=False)`` is one Jacobian and its
+    ``jac_window`` attempts; ``fixed=True`` runs every attempt and every
+    stage Newton iteration under the lanes' masks."""
+    dt, dev = dtype, device
     eye = torch.eye(n, dtype=dt, device=dev)
-    atol_scale = atol_scale_of(cfg, y0)
-    nlive = nlive_of(cfg, y0)
-
+    # the cfg operands are read at each use: a pipelined program refreshes
+    # cfg's entries from its buffers before every step
     def _norm(e, y):
-        return scaled_norm(e, y, rtol, atol, atol_scale, nlive)
+        return scaled_norm(e, y, rtol, atol, atol_scale_of(cfg, e),
+                           nlive_of(cfg, e))
 
     def f(t, y):
         return rhs(t, y, cfg)
@@ -127,32 +149,60 @@ def solve(
     if jac is None:
         jac = jacfwd_lanes(rhs)
 
-    if dt0 is None or not isinstance(dt0, (int, float)):
-        # first-step heuristic (Hairer & Wanner II.4), clipped into the span
-        f0 = f(t0, y0)
-        d0 = _norm(y0, y0)
-        d1 = _norm(f0, y0)
-        h_heur = torch.minimum(
-            torch.maximum(0.01 * d0 / torch.clamp(d1, min=1e-30),
-                          span * 1e-24), span)
-        if dt0 is None:
-            h_init = h_heur
+    def init(y0, t0, t1, dt0=None, err0=None, observer_init=None):
+        def lanes(x):
+            return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
+
+        t0 = lanes(t0)
+        t1 = lanes(t1)
+        span = t1 - t0
+        if dt0 is None or not isinstance(dt0, (int, float)):
+            # first-step heuristic (Hairer & Wanner II.4), clipped into the
+            # span
+            f0 = f(t0, y0)
+            d0 = _norm(y0, y0)
+            d1 = _norm(f0, y0)
+            h_heur = torch.minimum(
+                torch.maximum(0.01 * d0 / torch.clamp(d1, min=1e-30),
+                              span * 1e-24), span)
+            if dt0 is None:
+                h_init = h_heur
+            else:
+                dt0 = torch.as_tensor(dt0, dtype=dt, device=dev)
+                h_init = torch.where(dt0 > 0, dt0, h_heur)
         else:
-            dt0 = torch.as_tensor(dt0, dtype=dt, device=dev)
-            h_init = torch.where(dt0 > 0, dt0, h_heur)
-    else:
-        h_init = lanes(dt0)
+            h_init = lanes(dt0)
 
-    if err0 is None:
-        err_init = torch.ones(B, dtype=dt, device=dev)
-    else:
-        err0 = torch.as_tensor(err0, dtype=dt, device=dev)
-        err_init = torch.where(err0 > 0, err0, 1.0).expand(B).clone()
+        if err0 is None:
+            err_init = torch.ones(B, dtype=dt, device=dev)
+        else:
+            err0 = torch.as_tensor(err0, dtype=dt, device=dev)
+            err_init = torch.where(err0 > 0, err0, 1.0).expand(B).clone()
 
-    def newton_stage(solve_m, base, t_stage, h, z_init, y_scale, live):
+        # zero-span guard: a lane already at t1 (one that
+        # ensemble_solve_segmented parked) succeeds at once, touching
+        # nothing.  The JAX solver has no such guard: there the lane rejects
+        # its h = 0 attempts until max_steps, and its carry stays as it was.
+        already = t0 >= t1 - torch.abs(span) * 1e-14
+        nsb = max(n_save, 1)
+        return {
+            "t": t0.clone(), "y": y0, "h": h_init, "err": err_init,
+            "status": torch.where(already, SUCCESS, RUNNING).to(torch.int32),
+            "n_acc": torch.zeros(B, dtype=torch.int64, device=dev),
+            "n_rej": torch.zeros(B, dtype=torch.int64, device=dev),
+            "ts": torch.full((B, nsb), math.inf, dtype=dt, device=dev),
+            "ys": torch.zeros((B, nsb, n), dtype=dt, device=dev),
+            "n_saved": torch.zeros(B, dtype=torch.int64, device=dev),
+            "obs": (dict(observer_init) if observer is not None
+                    else {"_": torch.zeros(B, dtype=dt, device=dev)}),
+            "k": {"t1": t1, "span": span},
+        }
+
+    def newton_stage(solve_m, base, t_stage, h, z_init, y_scale, live,
+                     fixed):
         """Solve z = base + h gamma f(t_stage, z) by modified Newton per
         lane; returns (z, converged).  Lanes outside ``live`` do not
-        iterate."""
+        iterate; ``fixed`` runs all ``max_newton`` iterations."""
         z = z_init
         dnorm = torch.full((B,), math.inf, dtype=dt, device=dev)
         conv = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -160,8 +210,9 @@ def solve(
         hg = (h * _GAMMA)[:, None]
         for it in range(max_newton):
             active = ~conv & ~div
-            if not bool(active.any()):
+            if not fixed and not host_any(active):
                 break
+            count("newton_iters")
             g = z - base - hg * f(t_stage, z)
             dz = solve_m(-g)
             dn = _norm(dz, y_scale)
@@ -175,7 +226,7 @@ def solve(
             div = torch.where(active, growing | bad, div)
         return z, conv & torch.isfinite(dnorm)
 
-    def attempt_step(t, y, h, J, live):
+    def attempt_step(t, y, h, J, live, fixed):
         """One SDIRK4 step attempt per lane: (y_new, err, newton_ok)."""
         solve_m = make_solve_m(eye - (h * _GAMMA)[:, None, None] * J,
                                linsolve, dt)
@@ -188,7 +239,7 @@ def solve(
                 base = base + (h * a_row[j])[:, None] * ks[j]
             t_stage = t + _C[i] * h
             z, conv = newton_stage(solve_m, base, t_stage, h, z_pred, y,
-                                   live)
+                                   live, fixed)
             ok = ok & conv
             ks.append((z - base) / (h * _GAMMA)[:, None])
             z_pred = z  # next stage's predictor
@@ -199,32 +250,15 @@ def solve(
               & torch.isfinite(err))
         return y_new, err, ok
 
-    # zero-span guard: a lane already at t1 (one that
-    # ensemble_solve_segmented parked) succeeds at once, touching nothing.
-    # The JAX solver has no such guard: there the lane rejects its h = 0
-    # attempts until max_steps, and its carry stays as it was.
-    already = t0 >= t1 - torch.abs(span) * 1e-14
-    nsb = max(n_save, 1)
-    carry = {
-        "t": t0.clone(), "y": y0, "h": h_init, "err": err_init,
-        "status": torch.where(already, SUCCESS, RUNNING).to(torch.int32),
-        "n_acc": torch.zeros(B, dtype=torch.int64, device=dev),
-        "n_rej": torch.zeros(B, dtype=torch.int64, device=dev),
-        "ts": torch.full((B, nsb), math.inf, dtype=dt, device=dev),
-        "ys": torch.zeros((B, nsb, n), dtype=dt, device=dev),
-        "n_saved": torch.zeros(B, dtype=torch.int64, device=dev),
-        "obs": (dict(observer_init) if observer is not None
-                else {"_": torch.zeros(B, dtype=dt, device=dev)}),
-    }
-
-    def step_once(c, J):
+    def step_once(c, J, fixed):
         """One attempt for every lane; a lane that is not RUNNING keeps
         its carry (every write is gated by ``running``)."""
+        t1, span = c["k"]["t1"], c["k"]["span"]
         t, y, h, err_prev, status = (c["t"], c["y"], c["h"], c["err"],
                                      c["status"])
         running = status == RUNNING
         h_eff = torch.minimum(h, t1 - t)
-        y_new, err, ok = attempt_step(t, y, h_eff, J, running)
+        y_new, err, ok = attempt_step(t, y, h_eff, J, running, fixed)
         accept = ok & (err <= 1.0) & running
 
         # PI step-size controller (embedded order 3 -> exponent base 1/4)
@@ -245,6 +279,7 @@ def solve(
 
         ts, ys, n_saved = c["ts"], c["ys"], c["n_saved"]
         if n_save > 0:
+            nsb = ts.shape[1]
             do_save = accept & (n_saved < nsb)
             idx = torch.clamp(n_saved, max=nsb - 1)[:, None]
             ts = ts.scatter(1, idx, torch.where(
@@ -273,20 +308,27 @@ def solve(
         status2 = torch.where(running, status2, status)
         return {"t": t_new, "y": y_out, "h": h_next, "err": err_new,
                 "status": status2, "n_acc": n_acc2, "n_rej": n_rej2,
-                "ts": ts, "ys": ys, "n_saved": n_saved, "obs": obs}
+                "ts": ts, "ys": ys, "n_saved": n_saved, "obs": obs,
+                "k": c["k"]}
 
-    while bool((carry["status"] == RUNNING).any()):
-        # one Jacobian per window of attempts (a window of 1: per attempt)
-        J = jac(carry["t"], carry["y"], cfg)
-        for _ in range(jac_window):
-            carry = step_once(carry, J)
-            if not bool((carry["status"] == RUNNING).any()):
+    def window(c, fixed=False):
+        """One Jacobian per window of attempts (a window of 1: per
+        attempt)."""
+        J = jac(c["t"], c["y"], cfg)
+        for i in range(jac_window):
+            c = step_once(c, J, fixed)
+            if (not fixed and i + 1 < jac_window
+                    and not host_any(c["status"] == RUNNING)):
                 break
+        return c
 
-    return SolveResult(
-        t=carry["t"], y=carry["y"], status=carry["status"],
-        n_accepted=carry["n_acc"], n_rejected=carry["n_rej"],
-        ts=carry["ts"], ys=carry["ys"], n_saved=carry["n_saved"],
-        h=carry["h"],
-        observed=carry["obs"] if observer is not None else None,
-        err_prev=carry["err"])
+    def result(c):
+        return SolveResult(
+            t=c["t"], y=c["y"], status=c["status"],
+            n_accepted=c["n_acc"], n_rejected=c["n_rej"],
+            ts=c["ts"], ys=c["ys"], n_saved=c["n_saved"],
+            h=c["h"],
+            observed=c["obs"] if observer is not None else None,
+            err_prev=c["err"])
+
+    return Stepper(init, window, result)

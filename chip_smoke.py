@@ -3,6 +3,7 @@
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # add --profile for the time breakdown
+    python3 chip_smoke.py --profile-only   # only the breakdown, both gears
 
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
@@ -41,15 +42,26 @@ paths through its own entry points:
   lanes over ln A of the 18 ``*CH4*`` reactions (every tangent solve
   through the warp kernel's factor) against a plain twin and a float64
   ``lu`` run, with the peak device memory (phase 16);
-- the adjoint ranking of all 325 reactions by d ln tau / d ln A on 16
+- the adjoint ranking of all 325 reactions by d ln tau / d ln A on 8
   lanes (``inv32``), lane 0 against the JAX package on the CPU
   (``scripts/sens_reference.py``), and on 4 lanes at rtol 1e-8 the
-  adjoint gradient against the forward tangents (phase 17).
+  adjoint gradient against the forward tangents (phase 17);
+- the two gears of the segmented driver on the main path (phase 18): the
+  blocking gear and the pipelined gear (CUDA graphs of fixed-trip step
+  windows, the default of every segmented phase above) at poll_every 1
+  and 4, cold and warm, every lane equal to the bit, with host syncs,
+  graph replays and Newton iterations; then the gears against each other
+  on 64 lanes each of the coupled, energy and SDIRK4 paths;
+- continuous batching (phase 19): 4096 main-path temperatures streamed
+  through 1024 resident slots on the ladder (256, 512, 1024) against the
+  admission-off sweep, then 1024 of them from 256 slots climbing the
+  ladder.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after.  ``--profile`` adds a phase that runs the gas main path
-once more under ``torch.profiler`` and prints where its time goes (per
-layer and per kernel).  Each phase prints one JSON line; any failure
+read just after; a CUDA graph adds its captured launches on every replay.
+``--profile`` adds a phase that runs the gas main path once more in each
+gear under ``torch.profiler`` and prints where its time goes (per layer
+and per kernel); ``--profile-only`` runs only that.  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
@@ -116,6 +128,26 @@ SDIRK_STRIDE = 4
 # the padded gas path (phase 15): GRI-3.0 padded to 96 species (the CTA
 # path of lu32p, npad 96) and the pow2 rung of its 325 reactions
 S_PAD, R_PAD = 96, 512
+# the gear comparison (phase 18): the 64-lane checks take every 16th lane
+# of the coupled, energy and main-path grids, over a shorter horizon
+GEAR_STRIDE = 16
+T1_E_GEARS, T1_SDIRK_GEARS = 1e-3, T1 / 4
+# continuous batching (phase 19): 4096 main-path temperatures streamed
+# through 1024 resident slots on a three-rung ladder; then the first 1024
+# of them from 256 slots, free to climb to 1024.  Every main-path lane
+# takes 247-305 attempts (the CPU run of the driver's configuration), so
+# in segments of 256 every lane of a resident generation parks in the
+# same segment and the drain tail never holds live lanes beside parked
+# ones: a down-shift cannot fire.  In segments of 16, with the lanes in
+# the order of a 4 x 1024 map (each generation spans the T range, as the
+# rows of a phi x T map do), the tail is ragged.
+B_STREAM, STREAM_RESIDENT, STREAM_REFILL = 4096, 1024, 0.25
+STREAM_BUCKETS = (256, 512, 1024)
+STREAM_SEGMENT = 16
+# the streams poll the status every segment, so slots refill and the drain
+# tail shifts down as soon as lanes park
+STREAM_POLL = 1
+CLIMB_LANES, CLIMB_RESIDENT, CLIMB_CEILING = 1024, 256, 1024
 # the adjoint ranking (phase 17): every 128th main-path temperature (8
 # lanes; the Python loop of stage solves, not the lanes, sets its wall);
 # the forward-against-adjoint check runs every 16th of the 64 coolest
@@ -524,13 +556,13 @@ def time_kernel(M, same_pivots=True):
             "flops": flops, **witness}
 
 
-def sweep(bt, gm, th, T, device, **kw):
+def sweep(bt, gm, th, T, device, t1=T1, **kw):
     """The main path's sweep of the temperatures T; ``kw`` overrides its
     solver configuration."""
     cfg = dict(method="bdf", jac_window=8, setup_economy=True)
     cfg.update(kw)
     return bt.batch_reactor_sweep(
-        COMP, T, 1e5, T1, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
+        COMP, T, 1e5, t1, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
         md=gm, rtol=RTOL, atol=ATOL, ignition_marker="CH4",
         segment_steps=256, device=device, **cfg)
 
@@ -686,12 +718,13 @@ def energy_jacobians(gm, th, device):
     return eqns.make_energy_jac(gm, th, "adiabatic_v")(0.0, y0, {})
 
 
-def energy_sweep(bt, gm, th, x, T, device, energy="adiabatic_v", **kw):
+def energy_sweep(bt, gm, th, x, T, device, energy="adiabatic_v", t1=T1_E,
+                 **kw):
     """An adiabatic GRI-3.0 sweep of the lanes (x, T) with the main path's
     solver configuration."""
     comp = {s: x[:, k] for k, s in enumerate(gm.species) if x[:, k].any()}
     return bt.batch_reactor_sweep(
-        comp, T, 1e5, T1_E, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
+        comp, T, 1e5, t1, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
         md=gm, rtol=RTOL, atol=ATOL, energy=energy, jac_window=8,
         setup_economy=True, segment_steps=256, device=device, **kw)
 
@@ -849,7 +882,7 @@ def main_path_lanes(gm, th, Ts, device):
             obs0)
 
 
-def phase_sdirk(bt, gm, th, Ts, tau_bdf, rep_bdf, device, smi):
+def phase_sdirk(bt, gm, th, Ts, tau_bdf, rep_bdf, device, smi, by_phase):
     """Phase 13: SDIRK4 (``auto`` -> ``inv32``) on the main path's
     conditions at the temperatures Ts against phase 3's BDF delays there,
     and one ``temperature_sweep``."""
@@ -859,7 +892,9 @@ def phase_sdirk(bt, gm, th, Ts, tau_bdf, rep_bdf, device, smi):
     out_sd, _, by_sd, wall_sd = timed(
         lambda: sweep(bt, gm, th, Ts, device, method="sdirk",
                       jac_window=None, setup_economy=False))
-    check_sweep("sdirk", out_sd, B_S, by_sd, None, want_ls="inv32")
+    # inv32 inverts through the lu32p factor: the warp path at n = 53
+    check_sweep("sdirk", out_sd, B_S, by_sd, "warp", want_ls="inv32")
+    by_phase["sdirk"] = by_sd
     rel_sd = np.abs(out_sd["tau"] / tau_bdf - 1.0)
     if out_sd["jac_window"] != 1 or not rel_sd.max() <= 1e-3:
         raise AssertionError(f"sdirk: tau max rel {rel_sd.max()} against "
@@ -876,9 +911,11 @@ def phase_sdirk(bt, gm, th, Ts, tau_bdf, rep_bdf, device, smi):
                                   observer=obs, observer_init=obs0))
     tau_ts = res_ts.observed["tau"].cpu().numpy()
     if not (bool((res_ts.status == 1).all()) and np.all(np.isfinite(tau_ts))
-            and np.all(np.diff(tau_ts) < 0) and not any(by_ts.values())):
+            and np.all(np.diff(tau_ts) < 0) and by_ts["warp"] > 0
+            and by_ts["cta"] == 0):
         raise AssertionError(f"temperature_sweep sdirk: status "
                              f"{res_ts.status.tolist()}, tau {tau_ts}")
+    by_phase["temperature_sweep"] = by_ts
     emit({"phase": "sdirk", "gpu": smi, "B": B_S, "t1": T1,
           "linsolve": out_sd["linsolve"], "jac_window": out_sd["jac_window"],
           "wall_s": wall_sd, "cond_per_s": B_S / wall_sd,
@@ -936,8 +973,7 @@ def phase_linsolve_ab(gm, th, Ts, device, smi, by_phase):
                     "lu32p_launches_by_path": by_ab,
                     "tau_max_rel_vs_lu": float(
                         np.abs(taus[name] / taus["lu"] - 1.0).max())}
-        if name.startswith("lu32p"):
-            by_phase["linsolve_ab_" + name] = by_ab
+        by_phase["linsolve_ab_" + name] = by_ab
     bad = {k: v for k, v in ab.items() if v["success"] != B_S
            or not v["tau_max_rel_vs_lu"] <= 1e-3}
     if bad:
@@ -1211,25 +1247,230 @@ def phase_adjoint(gm, th, T, device, smi):
                           "adjoint_vs_forward_max_rel": cross}})
 
 
-def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
-    """Where the main path's time goes: the sweep under torch.profiler,
-    with the port's layers labelled by ``record_function`` ranges (RHS,
-    Jacobian, lu32p factor, Newton solve, whole segment), the device's busy
-    share, and the kernels that take the most device time.
+def lane_fields(res):
+    """A SolveResult's per-lane values as host arrays (state, t, status,
+    steps, step size, the ignition delay)."""
+    out = {f: getattr(res, f).detach().cpu().numpy()
+           for f in ("t", "y", "status", "n_accepted", "n_rejected", "h")}
+    out["tau"] = res.observed["tau"].detach().cpu().numpy()
+    return out
 
-    A layer's ``host_ms`` is the host time inside its ranges and its
-    ``device_ms`` the kernel time launched from them.  The profiler links a
-    kernel launched through ctypes to no PyTorch op, so the ``lu32p``
-    kernels (launched only by the factor layer) are added to that layer by
-    name, and their profiled time is set beside ``factor_event_ms``, the
-    same launches timed with CUDA events (launches x hot time).  The idle
-    share is given against the profiled wall and against ``warm_wall``, the
-    same sweep's wall without the profiler (its tracing slows the host)."""
+
+def lanes_equal(a, b):
+    """Per lane: every field of ``lane_fields`` equal to the bit."""
+    eq = np.ones(a["t"].shape[0], dtype=bool)
+    for k in a:
+        x, y = a[k], b[k]
+        same = (x == y) | (np.isnan(x) & np.isnan(y)) if x.dtype.kind == \
+            "f" else x == y
+        eq &= same.reshape(x.shape[0], -1).all(axis=1)
+    return eq
+
+
+def gear_run(fn):
+    """``timed(fn)`` with the graph layer's counts set to 0 before it."""
+    from batchreactor_tpu_torch.solver import graphs
+
+    graphs.reset_counts()
+    res, launches, by_path, wall = timed(fn)
+    return {"res": res, "wall_s": wall, "lu32p_launches_by_path": by_path,
+            "graphs_captured": dict(graphs.CAPTURES),
+            **{k: v for k, v in graphs.COUNTS.items()}}
+
+
+def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
+    """Phase 18: the main path's sweep in both gears, blocking (cold, then
+    warm) and pipelined at poll_every 1 and 4 (each cold, its graphs
+    dropped first, then warm), every lane equal to the bit; then blocking
+    against pipelined on 64 lanes each of the coupled (f64 ``lu``), energy
+    (the jvp T column) and SDIRK4 (``inv32``) paths."""
+    from batchreactor_tpu_torch.parallel import ensemble_solve_segmented
+    from batchreactor_tpu_torch.solver import graphs
+
+    y0s, cfg, rhs, jac, obs, obs0 = main_path_lanes(gm, th, T, device)
+    kw = dict(segment_steps=256, rtol=RTOL, atol=ATOL, jac=jac,
+              observer=obs, observer_init=obs0, method="bdf", jac_window=8,
+              setup_economy=True)
+
+    def main(**gear):
+        return gear_run(lambda: ensemble_solve_segmented(
+            rhs, y0s, 0.0, T1, cfg, **kw, **gear))
+
+    runs = {"blocking_cold": main(pipeline=False),
+            "blocking_warm": main(pipeline=False)}
+    for pe in (1, 4):
+        graphs.clear_programs()
+        runs[f"pipelined_poll{pe}_cold"] = main(pipeline=True, poll_every=pe)
+        runs[f"pipelined_poll{pe}_warm"] = main(pipeline=True, poll_every=pe)
+    ref = lane_fields(runs["blocking_warm"]["res"])
+    needed = runs["blocking_warm"]["newton_iters"]
+    blk_warp = runs["blocking_warm"]["lu32p_launches_by_path"]["warp"]
+    report = {}
+    for name, r in runs.items():
+        got = lane_fields(r.pop("res"))
+        equal = int(lanes_equal(ref, got).sum())
+        lp = r["lu32p_launches_by_path"]
+        if equal != B_MAIN:
+            raise AssertionError(f"gears: {name} equals the blocking gear on "
+                                 f"{equal} of {B_MAIN} lanes")
+        if not (lp["warp"] > 0 and lp["cta"] == 0):
+            raise AssertionError(f"gears: {name} lu32p launches {lp}")
+        if name.startswith("pipelined"):
+            if lp["warp"] < blk_warp:
+                raise AssertionError(f"gears: {name} launched the kernel "
+                                     f"{lp['warp']} times, the blocking "
+                                     f"gear {blk_warp}")
+            if name.endswith("warm") and sum(
+                    r["graphs_captured"].values()):
+                raise AssertionError(f"gears: the warm sweep {name} "
+                                     f"captured {r['graphs_captured']}")
+        report[name] = {**r, "cond_per_s": B_MAIN / r["wall_s"],
+                        "lanes_equal": equal,
+                        "newton_iters_over_blocking": r["newton_iters"]
+                        / needed}
+    by_phase["gears"] = runs["pipelined_poll4_warm"][
+        "lu32p_launches_by_path"]
+
+    # the 64-lane checks, blocking against pipelined through the API
+    def both(name, fn, keys):
+        b = gear_run(lambda: fn(pipeline=False))
+        p = gear_run(lambda: fn())
+        ob, op = b.pop("res"), p.pop("res")
+        if ob["report"]["counts"] != op["report"]["counts"] or any(
+                not np.array_equal(ob[k], op[k], equal_nan=True)
+                for k in keys) or any(
+                not np.array_equal(ob["x"][k], op["x"][k])
+                for k in ob["x"]) or ob["report"]["n_accepted"] != op[
+                "report"]["n_accepted"] or ob["report"]["n_rejected"] != op[
+                "report"]["n_rejected"]:
+            raise AssertionError(f"gears: {name} differs between the gears")
+        if set(ob["report"]["counts"]) != {"success"}:
+            raise AssertionError(f"gears: {name} {ob['report']['counts']}")
+        return {"lanes": len(ob["t"]), "linsolve": op["linsolve"],
+                "equal_fields": ["x", "report"] + list(keys),
+                "mean_accepted": op["report"]["n_accepted"]["mean"],
+                "blocking": b, "pipelined": p}
+
+    Tc, Asv = coupled_conditions()
+    s = slice(None, None, GEAR_STRIDE)
+    checks = {"coupled": both(
+        "coupled", lambda **g: coupled_sweep(bt, gm, th, sm, Tc[s], Asv[s],
+                                             T1_C_LU32P, device, **g),
+        ("t", "status", "covg"))}
+    _, T_e, x_e = energy_conditions(gm, device)
+    checks["energy"] = both(
+        "energy", lambda **g: energy_sweep(bt, gm, th, x_e[s], T_e[s],
+                                           device, t1=T1_E_GEARS, **g),
+        ("t", "status", "T", "ignition_delay"))
+    checks["sdirk"] = both(
+        "sdirk", lambda **g: sweep(bt, gm, th, T[s], device,
+                                   t1=T1_SDIRK_GEARS, method="sdirk",
+                                   jac_window=None, setup_economy=False, **g),
+        ("t", "status", "tau"))
+    emit({"phase": "gears", "gpu": smi, "B": B_MAIN, "segment_steps": 256,
+          "bit_exact_fields": list(ref), "main_path": report,
+          "newton_iters_blocking": needed, "checks_64": checks})
+
+
+def phase_stream(gm, th, device, smi, by_phase):
+    """Phase 19: B_STREAM main-path temperatures (in 4 x 1024 map order)
+    streamed through STREAM_RESIDENT slots on the STREAM_BUCKETS ladder,
+    against the admission-off sweep of the same lanes in one program; then
+    the first CLIMB_LANES of them from CLIMB_RESIDENT slots, free to climb
+    to CLIMB_CEILING."""
+    from batchreactor_tpu_torch.parallel import ensemble_solve_segmented
+    from batchreactor_tpu_torch.parallel import sweep as sw
+
+    T4 = np.linspace(T_LO, T_HI, B_STREAM).reshape(-1, 4).T.reshape(-1)
+    y0s, cfg, rhs, jac, obs, obs0 = main_path_lanes(gm, th, T4, device)
+    kw = dict(segment_steps=STREAM_SEGMENT, rtol=RTOL, atol=ATOL, jac=jac,
+              observer=obs, observer_init=obs0, method="bdf", jac_window=8,
+              setup_economy=True)
+
+    def run(y, c, **opts):
+        sw.reset_stream_counts()
+        r = gear_run(lambda: ensemble_solve_segmented(rhs, y, 0.0, T1, c,
+                                                      **kw, **opts))
+        r["stream"] = dict(sw.STREAM_COUNTS)
+        return r
+
+    ref = run(y0s, cfg)
+    by_phase["stream_reference"] = ref["lu32p_launches_by_path"]
+    st = run(y0s, cfg, admission=STREAM_RESIDENT, refill=STREAM_REFILL,
+             buckets=STREAM_BUCKETS, poll_every=STREAM_POLL)
+    by_phase["stream"] = st["lu32p_launches_by_path"]
+    a, b = lane_fields(ref.pop("res")), lane_fields(st.pop("res"))
+    c = st["stream"]
+    rel = np.abs(b["tau"] / a["tau"] - 1.0)
+    steps_differ = int(((a["n_accepted"] != b["n_accepted"])
+                        | (a["n_rejected"] != b["n_rejected"])).sum())
+    if not (np.array_equal(a["status"], b["status"])
+            and np.all(a["status"] == 1) and rel.max() <= 1e-3):
+        raise AssertionError(f"stream: status or tau (max rel {rel.max()}) "
+                             f"off the admission-off sweep")
+    if not (c["compactions"] >= 1 and c["bucket_downshifts"] >= 1
+            and c["harvested_lanes"] == B_STREAM
+            and c["admitted_lanes"] == B_STREAM - STREAM_RESIDENT):
+        raise AssertionError(f"stream: counters {c}")
+    if not st["lu32p_launches_by_path"]["warp"] > 0:
+        raise AssertionError(f"stream: {st['lu32p_launches_by_path']}")
+    idx = np.arange(CLIMB_LANES)
+    climb = run(y0s[idx], {k: v[idx] for k, v in cfg.items()},
+                admission=CLIMB_RESIDENT, refill=STREAM_REFILL,
+                buckets=STREAM_BUCKETS, upshift=CLIMB_CEILING,
+                poll_every=STREAM_POLL)
+    cl = lane_fields(climb.pop("res"))
+    if not (climb["stream"]["bucket_upshifts"] >= 1
+            and np.all(cl["status"] == 1)
+            and np.array_equal(cl["status"], a["status"][idx])):
+        raise AssertionError(f"stream climb: {climb['stream']}, status "
+                             f"{np.unique(cl['status'])}")
+    rel_c = np.abs(cl["tau"] / a["tau"][idx] - 1.0)
+    for r, n in ((ref, B_STREAM), (st, B_STREAM), (climb, len(idx))):
+        r["cond_per_s"] = n / r["wall_s"]
+        r["occupancy"] = (r["stream"]["lane_attempts"]
+                          / r["stream"]["lane_capacity"]
+                          if r["stream"]["lane_capacity"] else None)
+    emit({"phase": "stream", "gpu": smi, "lanes": B_STREAM,
+          "resident": STREAM_RESIDENT, "buckets": list(STREAM_BUCKETS),
+          "refill": STREAM_REFILL, "poll_every": STREAM_POLL,
+          "segment_steps": STREAM_SEGMENT, "order": "4 x 1024 map",
+          "reference": ref, "stream": st,
+          "lanes_bit_equal": int(lanes_equal(a, b).sum()),
+          "lanes_steps_differ": steps_differ,
+          "tau_max_rel": float(rel.max()),
+          "tau_mean_rel": float(rel.mean()),
+          "climb": {"lanes": len(idx), "resident": CLIMB_RESIDENT,
+                    "upshift": CLIMB_CEILING, **climb,
+                    "lanes_bit_equal": int(lanes_equal(
+                        {k: v[idx] for k, v in a.items()}, cl).sum()),
+                    "tau_max_rel": float(rel_c.max())}})
+
+
+def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms,
+                      pipeline):
+    """Where the main path's time goes in one gear: the sweep under
+    torch.profiler, the device's busy share, the host syncs of the sweep
+    and the kernels that take the most device time.
+
+    In the blocking gear the port's layers are labelled by
+    ``record_function`` ranges (RHS, Jacobian, lu32p factor, Newton solve,
+    whole segment): a layer's ``host_ms`` is the host time inside its
+    ranges and its ``device_ms`` the kernel time launched from them.  The
+    profiler links a kernel launched through ctypes to no PyTorch op, so
+    the ``lu32p`` kernels (launched only by the factor layer) are added to
+    that layer by name, and their profiled time is set beside
+    ``factor_event_ms``, the same launches timed with CUDA events
+    (launches x hot time).  The pipelined gear replays the graphs phase 3
+    captured, which no Python layer runs through, so it has no layers.
+    The idle share is given against the profiled wall and against
+    ``warm_wall``, the same sweep's wall without the profiler (its tracing
+    slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from batchreactor_tpu_torch import api
-    from batchreactor_tpu_torch.solver import bdf
+    from batchreactor_tpu_torch.solver import bdf, graphs
 
     def labelled(name, fn):
         def wrap(*a, **k):
@@ -1240,28 +1481,35 @@ def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
     def labelled_builder(name, build):
         return lambda *a, **k: labelled(name, build(*a, **k))
 
-    patches = [(api, "make_gas_rhs", labelled_builder("layer:rhs",
-                                                      api.make_gas_rhs)),
-               (api, "make_gas_jac", labelled_builder("layer:jacobian",
-                                                      api.make_gas_jac)),
-               (bdf, "factor_m", labelled("layer:factor", bdf.factor_m)),
-               (bdf, "apply_factor", labelled("layer:solve",
-                                              bdf.apply_factor)),
-               (bdf, "solve", labelled("layer:segment", bdf.solve))]
+    patches = [] if pipeline else [
+        (api, "make_gas_rhs", labelled_builder("layer:rhs",
+                                               api.make_gas_rhs)),
+        (api, "make_gas_jac", labelled_builder("layer:jacobian",
+                                               api.make_gas_jac)),
+        (bdf, "factor_m", labelled("layer:factor", bdf.factor_m)),
+        (bdf, "apply_factor", labelled("layer:solve", bdf.apply_factor)),
+        (bdf, "solve", labelled("layer:segment", bdf.solve))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
             setattr(mod, name, fn)
+        if patches:
+            # the labelled builders make new callables: drop cached ones
+            api._SWEEP_FNS.clear()
         torch.cuda.synchronize()
+        graphs.reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            sweep(bt, gm, th, T, device)
+            sweep(bt, gm, th, T, device, pipeline=pipeline)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        counts = dict(graphs.COUNTS)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+        if patches:
+            api._SWEEP_FNS.clear()
     events = prof.key_averages()
     layers = {}
     kernels = []
@@ -1285,17 +1533,47 @@ def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms):
         layers["factor"]["device_ms"] += lu_ms
     busy_s = sum(k[0] for k in kernels) / 1e3
     if busy_s <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return {"wall_s": wall, "warm_wall_s": warm_wall,
-            "device_busy_ms": busy_s * 1e3,
+        raise RuntimeError(f"torch.profiler recorded no device time "
+                           f"(pipeline={pipeline})")
+    return {"gear": "pipelined" if pipeline else "blocking", "wall_s": wall,
+            "warm_wall_s": warm_wall, "device_busy_ms": busy_s * 1e3,
             "idle_share": 1.0 - busy_s / wall,
             "idle_share_unprofiled": 1.0 - busy_s / warm_wall,
+            "host_syncs": counts["host_syncs"],
+            "graph_replays": counts["replays"],
+            "newton_iters": counts["newton_iters"],
             "kernel_launches": sum(k[1] for k in kernels), "layers": layers,
             "lu32p_profiled_ms": lu_ms, "lu32p_profiled_calls": lu_calls,
             "lu32p_event_ms": factor_event_ms,
             "lu32p_profiled_over_event": lu_ms / factor_event_ms,
             "top_kernels": [{"ms": m, "calls": c, "name": n}
                             for m, c, n in kernels[:12]]}
+
+
+def profile_gears(bt, gm, th, device, smi):
+    """``--profile-only``: the main path's sweep (cold, then warm) in each
+    gear, then each under torch.profiler (``profile_main_path``), with the
+    kernel's hot time on the main path's matrices for the factor layer.
+    Prints no contract line."""
+    import torch
+
+    T = np.linspace(T_LO, T_HI, B_MAIN)
+    hot_ms = time_kernel(main_path_matrices(gm, th, device))["hot_ms"]
+    warm = {}
+    for pipe in (True, False):
+        for _ in range(2):      # cold, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, launches, _ = counted(
+                lambda: sweep(bt, gm, th, T, device, pipeline=pipe))
+            torch.cuda.synchronize()
+            warm[pipe] = (time.perf_counter() - t0, launches)
+    for pipe in (True, False):
+        emit({"phase": "profile", "gpu": smi,
+              **profile_main_path(bt, gm, th, T, device, warm[pipe][0],
+                                  warm[pipe][1] * hot_ms, pipe)})
+    print(smi, flush=True)
+    return 0
 
 
 def main():
@@ -1307,6 +1585,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     import batchreactor_tpu_torch as bt
+    from batchreactor_tpu_torch.solver import graphs
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
     t_start = time.perf_counter()
@@ -1330,11 +1609,14 @@ def main():
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     # ---- phase 2: the kernel against its plain version ------------------
+    profile_only = "--profile-only" in sys.argv[1:]
     t0 = time.perf_counter()
-    check_kernel(device)
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
                           os.path.join(FIXTURES, "therm.dat"))
+    if profile_only:
+        return profile_gears(bt, gm, th, device, smi)
+    check_kernel(device)
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
     gen = torch.Generator().manual_seed(1)
@@ -1387,12 +1669,14 @@ def main():
     cold_s = time.perf_counter() - t0
     lc.LAUNCHES = 0
     lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    graphs.reset_counts()
     t0 = time.perf_counter()
     out = sweep(bt, gm, th, T, device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lc.LAUNCHES
     by_path = dict(lc.LAUNCHES_BY_PATH)
+    counts3 = dict(graphs.COUNTS)
     tau = out["tau"]
     rep = rep_main = out["report"]
     if out["linsolve"] != "lu32p":
@@ -1414,12 +1698,25 @@ def main():
           "max_accepted": rep["n_accepted"]["max"],
           "tau_min": float(tau.min()), "tau_max": float(tau.max()),
           "lu32p_launches": launches, "lu32p_launches_by_path": by_path,
-          "kernel_share": launches * hot_ms / 1e3 / wall})
+          "kernel_share": launches * hot_ms / 1e3 / wall,
+          "gear": "pipelined", "graph_replays": counts3["replays"],
+          "host_syncs": counts3["host_syncs"],
+          "graphs_captured_warm": graphs.captures()})
 
     if "--profile" in sys.argv[1:]:
-        emit({"phase": "profile", "gpu": smi,
-              **profile_main_path(bt, gm, th, T, device, wall,
-                                  launches * hot_ms)})
+        # both gears: the blocking one's warm wall first, unprofiled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, blk_launches, _ = counted(
+            lambda: sweep(bt, gm, th, T, device, pipeline=False))
+        torch.cuda.synchronize()
+        blk_wall = time.perf_counter() - t0
+        # the pipelined gear first: it replays the graphs phase 3 captured
+        for pipe, warm, n_launch in ((True, wall, launches),
+                                     (False, blk_wall, blk_launches)):
+            emit({"phase": "profile", "gpu": smi,
+                  **profile_main_path(bt, gm, th, T, device, warm,
+                                      n_launch * hot_ms, pipe)})
 
     # ---- phase 4: cross-check against the float64 lu mode ---------------
     t0 = time.perf_counter()
@@ -1594,7 +1891,8 @@ def main():
     # ---- phases 11-14: the energy path, SDIRK4, the Newton-mode A/B ------
     phase_energy(bt, gm, th, device, smi, timing, by_phase)
     Ts = T[::SDIRK_STRIDE]
-    phase_sdirk(bt, gm, th, Ts, tau[::SDIRK_STRIDE], rep_main, device, smi)
+    phase_sdirk(bt, gm, th, Ts, tau[::SDIRK_STRIDE], rep_main, device, smi,
+                by_phase)
     phase_linsolve_ab(gm, th, Ts, device, smi, by_phase)
 
     # ---- phases 15-17: padding, forward and adjoint sensitivities --------
@@ -1604,7 +1902,11 @@ def main():
                                                 device, smi, by_phase)),
             ("sens_forward", lambda: phase_sens_forward(gm, th, T, device,
                                                         smi, by_phase)),
-            ("adjoint", lambda: phase_adjoint(gm, th, T, device, smi))):
+            ("adjoint", lambda: phase_adjoint(gm, th, T, device, smi)),
+            ("gears", lambda: phase_gears(bt, gm, th, sm, T, device, smi,
+                                          by_phase)),
+            ("stream", lambda: phase_stream(gm, th, device, smi,
+                                            by_phase))):
         t0 = time.perf_counter()
         run()
         walls[name] = time.perf_counter() - t0
@@ -1613,20 +1915,16 @@ def main():
 
     print(smi, flush=True)
     kernels = []
-    for path, case, paths in (
-            ("warp", "main", ("gas_main", "udf", "energy",
-                              "linsolve_ab_lu32p",
-                              "linsolve_ab_lu32p_freeze_precond",
-                              "sens_forward")),
-            ("cta", "coupled_n66", ("coupled_lu32p", "padded_gas"))):
+    for path, case in (("warp", "main"), ("cta", "coupled_n66")):
         kt = timing[case]
         kernels.append({
             "name": f"lu32p_{path}", "route": "cuda",
             "source": "batchreactor_tpu_torch/csrc/lu32p.cu",
             "replaces": "batchreactor_tpu/solver/linalg_pallas.py:69",
-            "launches": sum(by_phase[p][path] for p in paths),
+            "launches": sum(c[path] for c in by_phase.values()),
             "launches_by_phase": {p: c[path] for p, c in by_phase.items()},
-            "on_paths": list(paths), "timing_case": case,
+            "on_paths": [p for p, c in by_phase.items() if c[path]],
+            "timing_case": case,
             "pass": True, "shape": kt["shape"],
             "max_abs_err": kt["max_abs_err"], "ms": kt["ms"],
             "hot_ms": kt["hot_ms"], "plain_ms": kt["plain_ms"],

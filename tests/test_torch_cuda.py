@@ -190,3 +190,68 @@ def test_tangent_solves_go_through_the_kernel(cuda):
     S, S_ref = res.tangents[:8], ref.tangents
     scale = S_ref.abs().amax(dim=(1, 2), keepdim=True)
     assert float(((S - S_ref).abs() / scale).max()) <= 1e-3
+
+
+def _gas_sweep_fns(cuda, B):
+    """GRI-3.0 at B lanes on the card: (y0, cfg, rhs, jac, observer,
+    observer_init)."""
+    import os
+
+    import batchreactor_tpu_torch as bt
+    from batchreactor_tpu_torch.ops.rhs import make_gas_jac, make_gas_rhs
+    from batchreactor_tpu_torch.parallel import (ignition_observer,
+                                                 sweep_solution_vectors)
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures")
+    gm = bt.compile_gaschemistry(os.path.join(fix, "grimech.dat"))
+    th = bt.create_thermo(list(gm.species), os.path.join(fix, "therm.dat"))
+    sp = list(gm.species)
+    x0 = np.zeros(len(sp))
+    x0[sp.index("CH4")], x0[sp.index("O2")], x0[sp.index("N2")] = .25, .5, .25
+    T = torch.linspace(1500.0, 2000.0, B, dtype=torch.float64, device=cuda)
+    y0 = sweep_solution_vectors(np.broadcast_to(x0, (B, len(sp))), th.molwt,
+                                T, 1e5)
+    obs, obs0 = ignition_observer(sp.index("CH4"), mode="half")
+    return y0, {"T": T}, make_gas_rhs(gm, th), make_gas_jac(gm, th), obs, obs0
+
+
+def test_pipelined_gear_one_graph_per_step_and_replays_equal(cuda):
+    """The pipelined gear captures each step once per shape, captures
+    nothing on a second sweep of that shape, counts the kernel's launches
+    per replay, and equals the blocking gear bit for bit."""
+    from batchreactor_tpu_torch.parallel import ensemble_solve_segmented
+    from batchreactor_tpu_torch.solver import graphs
+
+    y0, cfg, rhs, jac, obs, obs0 = _gas_sweep_fns(cuda, 1024)
+    kw = dict(segment_steps=64, jac=jac, observer=obs, observer_init=obs0,
+              jac_window=8, setup_economy=True)
+    ref = ensemble_solve_segmented(rhs, y0, 0.0, 2e-4, cfg, pipeline=False,
+                                   **kw)
+    graphs.reset_counts()
+    before = lc.LAUNCHES_BY_PATH["warp"]
+    got = ensemble_solve_segmented(rhs, y0, 0.0, 2e-4, cfg, **kw)
+    assert graphs.CAPTURES == {"begin": 1, "window": 1, "end": 1}
+    assert lc.LAUNCHES_BY_PATH["warp"] > before
+    graphs.reset_counts()
+    again = ensemble_solve_segmented(rhs, y0, 0.0, 2e-4, cfg, **kw)
+    assert graphs.captures() == 0 and graphs.COUNTS["replays"] > 0
+    for res in (got, again):
+        for f in ("t", "y", "status", "n_accepted", "n_rejected", "h"):
+            assert torch.equal(getattr(res, f).cpu(),
+                               getattr(ref, f).cpu()), f
+        assert torch.equal(res.observed["tau"].cpu(),
+                           ref.observed["tau"].cpu())
+
+
+def test_graph_capture_failure_raises(cuda):
+    """A step that reads a device value on the host cannot be captured,
+    and the program raises instead of running it eagerly."""
+    from batchreactor_tpu_torch.solver import graphs
+
+    def bad(s):
+        return {"x": s["x"] * float(s["x"].sum())}
+
+    prog = graphs.Program(cuda, {"bad": bad})
+    prog.set(x=torch.ones(4, device=cuda))
+    with pytest.raises(RuntimeError):
+        prog.run("bad")

@@ -79,12 +79,21 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
     kw = dict(chem=bt.Chemistry(gaschem=True), thermo_obj=th, md=gm,
               device="cpu")
     for opt, item in (({"telemetry": True}, "A14"),
-                      ({"admission": 4}, "A13"),
+                      ({"quarantine": True}, "A12"),
                       ({"mesh": object()}, "A12"),
-                      ({"analytic_jac": False}, "A13")):
+                      ({"live_metrics": 0}, "A14"),
+                      ({"fetch_deadline": 5.0, "segment_steps": 16}, "A12")):
         with pytest.raises(NotImplementedError, match=item):
             bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
                                    **opt)
+    # what the seventh slice ported runs: the gears, buckets, admission
+    # and the jacfwd fallback
+    for opt in ({"pipeline": False, "segment_steps": 16},
+                {"admission": 1, "segment_steps": 16},
+                {"buckets": "pow2"}, {"analytic_jac": False}):
+        out = bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.2, "N2": 0.5},
+                                     1200.0, 1e5, 1e-7, **kw, **opt)
+        assert out["report"]["counts"] == {"success": 1}, opt
     # what the fifth slice ported runs: the energy path, SDIRK and the
     # float32-inverse Newton modes
     for opt in ({"energy": "adiabatic_v"}, {"method": "sdirk"},
@@ -117,8 +126,9 @@ def test_c5_reference_options_raise_not_implemented_naming_their_item():
         with pytest.raises(NotImplementedError, match=item):
             bdf.solve(rhs, y0, 0.0, 1.0, {}, linsolve="lu", **opt)
     for opt, item in (({"axis": "lanes"}, "A12"),
-                      ({"upshift_patience": 4}, "A13"),
-                      ({"_feed": object()}, "A13")):
+                      ({"mesh_resident": 1}, "A12"),
+                      ({"_on_harvest": object()}, "A15"),
+                      ({"_feed": object()}, "A15")):
         with pytest.raises(NotImplementedError, match=item):
             ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
                                      **opt)
