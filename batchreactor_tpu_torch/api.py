@@ -55,7 +55,8 @@ from .models.padding import (nlive_cfg, pad_gas_mechanism, pad_states,
 from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
                       make_surface_rhs, make_udf_rhs)
 from .parallel.sweep import (ensemble_solve_segmented, ignition_observer,
-                             resolve_admission, sweep_report)
+                             pad_to_bucket, resolve_admission, sweep_report,
+                             unpad_result)
 from .solver.common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING,
                             SUCCESS, check_deferred)
 from .solver.linalg import resolve_linsolve
@@ -217,9 +218,8 @@ def _host(x):
 
 
 _SWEEP_DEFERRED = (
-    ("mesh", None, "A12"), ("telemetry", False, "A14"),
-    ("fetch_deadline", None, "A12"), ("quarantine", None, "A12"),
-    ("timeline", None, "A14"), ("live_metrics", None, "A14"),
+    ("telemetry", False, "A14"), ("timeline", None, "A14"),
+    ("live_metrics", None, "A14"),
 )
 
 # the sweep's (rhs, jac, observer, observer_init) per (chemistry, mechanism
@@ -263,6 +263,29 @@ def _sweep_fns(mode, udf, gm, sm, thermo, kc_compat, asv_quirk, exp32,
         _SWEEP_FNS.pop(next(iter(_SWEEP_FNS)))
     _SWEEP_FNS[key] = (gm, sm, thermo, udf, rhs, jac, observer, obs0)
     return rhs, jac, observer, obs0
+
+# mechanisms and thermo tables copied to another device, per (source id,
+# device): a mesh's shards reuse their callables from sweep to sweep
+_DEVICE_COPIES = {}
+
+
+def _on_device(obj, dev):
+    """``obj`` (a mechanism or thermo table, or None) on ``dev``: itself
+    when it is there already, else a cached copy."""
+    if obj is None:
+        return None
+    moved = obj.to(dev)
+    if moved is obj:
+        return obj
+    key = (id(obj), str(dev))
+    hit = _DEVICE_COPIES.get(key)
+    if hit is not None and hit[0] is obj:
+        return hit[1]
+    if len(_DEVICE_COPIES) >= 32:
+        _DEVICE_COPIES.pop(next(iter(_DEVICE_COPIES)))
+    _DEVICE_COPIES[key] = (obj, moved)
+    return moved
+
 
 # padded (mechanism, thermo) pairs per (source ids, shape): the same
 # padded bundle for repeated sweeps of one mechanism; strong references to
@@ -345,7 +368,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                         analytic_jac=True, pipeline=None, poll_every=None,
                         buckets=None, admission=None, refill=None,
                         species_buckets=None, reaction_buckets=None,
-                        mech_operands=False, device=None, **deferred):
+                        mech_operands=False, mesh=None, fetch_deadline=None,
+                        quarantine=None, device=None, **deferred):
     """Ensemble form: one lane per condition, all lanes solved together.
 
     Chemistry modes: gas (``md=`` or ``gmd=``), surface (``md=`` or
@@ -415,10 +439,28 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     the JAX package it also shares one compiled executable between
     mechanisms of one rung, which the port, compiling no program per
     mechanism, has no counterpart of; its results are the padded run's.
+
+    ``mesh`` (a ``parallel.Mesh``; not with ``admission``) splits the
+    conditions over its devices, one host thread per device and no
+    collective (``parallel/sweep.py``), the callables built on each
+    device; outputs come back in the caller's order.  ``fetch_deadline``
+    (segmented runs only; seconds, ``None`` resolves from
+    ``BR_FETCH_DEADLINE_S``) bounds every blocking host read of the
+    driver and raises ``resilience.WedgeError`` past it.  ``quarantine``
+    (None/True/dict/``resilience.QuarantinePolicy``) re-solves
+    non-success lanes: the same call again (bit for bit for a transient
+    fault), then the failed lanes alone at tighter tolerances
+    (``resilience/quarantine.py``); ``out["provenance"]`` holds each
+    lane's recovery code and ``out["report"]["quarantine"]`` the counts.
+    Its ``oracle=True`` rung waits for ROADMAP A16.
     """
+    from .parallel.sweep import _check_mesh, _mesh_devices, _mesh_map
+    from .resilience import quarantine as _quarantine
+    from .resilience.policy import fallback_kwargs, normalize_quarantine
+
     if segment_steps <= 0 and (pipeline is not None
                                or poll_every is not None
-                               or deferred.get("fetch_deadline") is not None
+                               or fetch_deadline is not None
                                or admission not in (None, False)
                                or refill is not None):
         # these knobs shape the segmented driver only: ignoring them on the
@@ -449,11 +491,11 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
             raise ValueError(
                 "mech_operands=True runs the segmented driver's bundle "
                 "mode; set segment_steps > 0 or drop the knob")
-        if deferred.get("mesh") is not None:
+        if mesh is not None:
             raise ValueError(
                 "mech_operands=True is single-mesh-free (the operand "
                 "bundle is not sharded); drop mesh= or the knob")
-        if deferred.get("quarantine") is not None:
+        if quarantine is not None:
             raise ValueError(
                 "mech_operands=True is incompatible with quarantine= "
                 "(the recovery ladder re-solves through closure-mode "
@@ -464,6 +506,14 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                 "bundle builder; analytic_jac is not configurable there — "
                 "drop the argument")
     check_deferred(deferred, _SWEEP_DEFERRED)
+    if admission not in (None, False) and mesh is not None:
+        raise ValueError(
+            "admission= is incompatible with mesh= (parallel/sweep.py "
+            "admission contract); drop one of them")
+    if mesh is not None:
+        _check_mesh(mesh, "batch")
+    qpol = normalize_quarantine(quarantine)
+    _quarantine.check_oracle(qpol)
     energy = resolve_energy(energy)
     if energy is None and atol_T is not None:
         raise ValueError(
@@ -538,30 +588,73 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
             raise KeyError(f"ignition_marker {ignition_marker!r} not in "
                            f"species list")
         marker_idx = idx[key]
-    rhs, jac, observer, obs0 = _sweep_fns(
-        mode, chem.udf, gm_k, sm, th_k, kc_compat, asv_quirk, exp32,
-        marker_idx, ignition_mode, jac_mode, energy)
-    jac_window = resolve_jac_window(jac_window, method, device)
-    # "auto" resolves with the lane count the device runs: the padded
-    # bucket, or the streaming driver's first resident rung
+
+    def fns(dev):
+        return _sweep_fns(mode, chem.udf, _on_device(gm_k, dev),
+                          _on_device(sm, dev), _on_device(th_k, dev),
+                          kc_compat, asv_quirk, exp32, marker_idx,
+                          ignition_mode, jac_mode, energy)
+
+    rhs, jac, observer, obs0 = fns(device)
+    run_dev = device if mesh is None else _mesh_devices(mesh)[0]
+    jac_window = resolve_jac_window(jac_window, method, run_dev)
+    # "auto" resolves with the lane count the devices run: the padded
+    # bucket (split over a mesh), or the streaming driver's first resident
+    # rung
     resident, _ = resolve_admission(admission, refill, n_lanes=B)
+    bucket = resolve_bucket(min(resident or B, B), buckets,
+                            mesh_size=1 if mesh is None else mesh.size)
     linsolve = resolve_linsolve(
-        linsolve, method=method, device=device,
-        batch=resolve_bucket(min(resident or B, B), buckets),
+        linsolve, method=method, device=run_dev, batch=bucket,
         n=y0s.shape[1],
         n_surface=sm.n_surface_species if sm is not None else 0)
+    solve_kw = dict(rtol=rtol, atol=atol, method=method,
+                    jac_window=jac_window, linsolve=linsolve,
+                    newton_tol=newton_tol, setup_economy=setup_economy,
+                    stale_tol=stale_tol)
     if segment_steps > 0:
         seg = dict(segment_steps=segment_steps, pipeline=pipeline,
                    poll_every=poll_every, admission=admission,
-                   refill=refill)
+                   refill=refill, fetch_deadline=fetch_deadline)
     else:
         seg = dict(segment_steps=int(max_steps), max_segments=1)
-    res = ensemble_solve_segmented(
-        rhs, y0s, 0.0, float(time), cfgs, rtol=rtol, atol=atol, jac=jac,
-        observer=observer, observer_init=obs0, method=method,
-        jac_window=jac_window, linsolve=linsolve, newton_tol=newton_tol,
-        setup_economy=setup_economy, stale_tol=stale_tol, buckets=buckets,
-        **seg)
+
+    def primary():
+        if mesh is None:
+            return ensemble_solve_segmented(
+                rhs, y0s, 0.0, float(time), cfgs, jac=jac,
+                observer=observer, observer_init=obs0, buckets=buckets,
+                **solve_kw, **seg)
+
+        def shard(dev, y, c):
+            r, j, o, o0 = fns(dev)
+            return ensemble_solve_segmented(
+                r, y, 0.0, float(time), c, jac=j, observer=o,
+                observer_init=o0, **solve_kw, **seg)
+
+        y_m, c_m, _ = pad_to_bucket(y0s, cfgs, bucket)
+        return unpad_result(_mesh_map(mesh, y_m, c_m, shard), B)
+
+    res = primary()
+    prov = None
+    if qpol is not None:
+        def subset(y_sub, c_sub, pass_name):
+            if pass_name == "retry":
+                # the identical call: same program, same batch shape
+                return primary()
+            kw = fallback_kwargs(qpol, {"rtol": rtol, "atol": atol,
+                                        "max_steps": max_steps})
+            ms = kw["max_steps"]
+            steps = segment_steps if segment_steps > 0 else ms
+            return ensemble_solve_segmented(
+                rhs, y_sub, 0.0, float(time), c_sub, jac=jac,
+                observer=observer, observer_init=obs0,
+                **{**solve_kw, "rtol": kw["rtol"], "atol": kw["atol"]},
+                segment_steps=steps, max_segments=max(1, -(-ms // steps)),
+                max_attempts=ms)
+
+        res, prov = _quarantine.resolve(res, y0s, cfgs, subset,
+                                        policy=qpol)
 
     ng = len(species)
     y_end = res.y.cpu().numpy()
@@ -579,6 +672,9 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         "linsolve": linsolve,
         "jac_window": jac_window,
     }
+    if prov is not None:
+        out["provenance"] = prov
+        out["report"]["quarantine"] = _quarantine.provenance_counts(prov)
     if chem.surfchem:
         out["covg"] = y_end[:, ng:]
     if energy is not None:

@@ -50,13 +50,26 @@ the freed slots from the backlog, and the resident program shifts down
 (or, with ``upshift=``, up) the bucket ladder.  Results come back in the
 caller's lane order.
 
+``mesh=`` (a :class:`Mesh`) splits the lanes over the mesh's devices: the
+batch is padded to a multiple of the device count with copies of the last
+lane, each device solves its contiguous shard on a host thread of its own
+(shards that share a device run one after another on that device's
+thread), with no collective, and the results come back in the caller's
+lane order.  The callables run on every shard's device as given: on a mesh
+of several CUDA devices they must not close over tensors of another device
+(``batch_reactor_sweep(mesh=)`` builds them per device).
+``mesh_resident=`` splits a streaming sweep the same way, one stream per
+device.  ``fetch_deadline=`` bounds every blocking host read of the
+segmented drivers (the choke point in ``solver/graphs.py``) and raises
+``resilience.WedgeError`` past it.
+
 Functions take the device of the tensors they are given.  Not ported yet
-(``NotImplementedError``): ``mesh``/``axis``/``mesh_resident`` and
-``fetch_deadline`` (ROADMAP A12), ``stats``/``recorder``/``watch``/
-``timeline``/``live`` (A14), and the serving hooks ``_on_harvest`` and
+(``NotImplementedError``): ``stats``/``recorder``/``watch``/``timeline``/
+``live`` (ROADMAP A14), and the serving hooks ``_on_harvest`` and
 ``_feed`` (A15).
 """
 
+import contextlib
 import os
 import queue
 import threading
@@ -77,18 +90,15 @@ _SOLVERS = {"sdirk": sdirk.solve, "bdf": bdf.solve}
 # (keyword, default, ROADMAP item) of the JAX sweep's options that wait
 # for a later slice
 _DEFERRED = (
-    ("mesh", None, "A12"), ("stats", False, "A14"),
-    ("recorder", None, "A14"), ("watch", None, "A14"),
-    ("fetch_deadline", None, "A12"), ("mesh_resident", None, "A12"),
-    ("timeline", None, "A14"), ("live", None, "A14"),
-    ("axis", "batch", "A12"), ("_on_harvest", None, "A15"),
-    ("_feed", None, "A15"), ("_live_source", "sweep", "A14"),
+    ("stats", False, "A14"), ("recorder", None, "A14"),
+    ("watch", None, "A14"), ("timeline", None, "A14"),
+    ("live", None, "A14"), ("_feed", None, "A15"),
+    ("_live_source", "sweep", "A14"),
 )
 
 
 # (keyword, default, ROADMAP item) of the monolithic solve's deferred options
-_MONO_DEFERRED = (("mesh", None, "A12"), ("axis", "batch", "A12"),
-                  ("stats", False, "A14"), ("timeline", None, "A14"))
+_MONO_DEFERRED = (("stats", False, "A14"), ("timeline", None, "A14"))
 
 #: the streaming driver's counters since they were last set to 0 (the
 #: JAX package's recorder counters of the same names): ``compactions``,
@@ -101,6 +111,8 @@ STREAM_COUNTS = {"compactions": 0, "admitted_lanes": 0,
                  "harvested_lanes": 0, "bucket_downshifts": 0,
                  "bucket_upshifts": 0, "lane_attempts": 0,
                  "lane_capacity": 0}
+# streams of mesh_resident= add their counts from one thread each
+_STREAM_LOCK = threading.Lock()
 
 
 def reset_stream_counts():
@@ -189,11 +201,128 @@ def _refill_slots(refill_spec, B):
     return max(1, min(B, int(np.ceil(refill_spec * B))))
 
 
-def pad_batch(batch_size, n_devices):
-    """Smallest multiple of ``n_devices`` >= ``batch_size`` (the lane count
-    an even split over devices needs; the padding lanes are copies)."""
-    n = int(n_devices)
+class Mesh:
+    """A 1-D device mesh (the port of ``jax.sharding.Mesh`` as the sweeps
+    use it): ``devices``, the torch devices the lanes split over in order
+    (a device may appear more than once), and ``axis_names``, the name of
+    the lane axis (``("batch",)``)."""
+
+    def __init__(self, devices, axis_names=("batch",)):
+        self.devices = tuple(torch.device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        if isinstance(axis_names, str):
+            axis_names = (axis_names,)
+        self.axis_names = tuple(axis_names)
+
+    @property
+    def size(self):
+        return len(self.devices)
+
+    def __repr__(self):
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"{self.axis_names})")
+
+
+def make_mesh(devices=None, axis="batch"):
+    """1-D mesh over the given devices, or every CUDA device (raises
+    without a GPU: the port never falls back to the CPU)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass devices=['cpu', ...] "
+                "for a CPU mesh")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return Mesh(devices, (axis,))
+
+
+def pad_batch(batch_size, mesh):
+    """Smallest multiple of the device count (a :class:`Mesh` or an int)
+    >= ``batch_size`` (the lane count an even split needs; the padding
+    lanes are copies)."""
+    n = mesh.size if isinstance(mesh, Mesh) else int(mesh)
     return ((int(batch_size) + n - 1) // n) * n
+
+
+def _check_mesh(mesh, axis):
+    """A mesh whose axis is ``axis`` and whose CUDA devices exist here."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if axis not in mesh.axis_names:
+        raise ValueError(f"axis {axis!r} is not an axis of {mesh}")
+    for d in mesh.devices:
+        if d.type == "cuda" and not (torch.cuda.is_available() and (
+                d.index or 0) < torch.cuda.device_count()):
+            raise RuntimeError(f"{mesh} lists {d}, which does not exist "
+                               f"here")
+
+
+def _mesh_devices(mesh):
+    """The mesh's devices, a CUDA device without an index taken as the
+    current one."""
+    return [torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d
+            for d in mesh.devices]
+
+
+def _cat_results(parts):
+    """SolveResults of consecutive lane blocks as one, every per-lane
+    field concatenated on the first block's device."""
+    out = {}
+    for f in SolveResult.__dataclass_fields__:
+        vals = [getattr(p, f) for p in parts]
+        out[f] = None if vals[0] is None else graphs.tree_map(
+            lambda x, *rest: torch.cat([x] + [r.to(x.device)
+                                              for r in rest]), *vals)
+    return SolveResult(**out)
+
+
+def _mesh_map(mesh, y0s, cfgs, solve):
+    """Split the lanes of ``y0s``/``cfgs`` over ``mesh`` and solve them
+    (module doc): ``solve(device, y0_shard, cfg_shard)`` per shard, on one
+    host thread per distinct device (inline with one device), and the
+    shards' results concatenated in lane order, the padding stripped."""
+    B = y0s.shape[0]
+    devices = _mesh_devices(mesh)
+    y0p, cfgp = _pad_lanes(y0s, cfgs, pad_batch(B, mesh) - B)
+    per = y0p.shape[0] // len(devices)
+    results = [None] * len(devices)
+    by_dev = {}
+    for i, d in enumerate(devices):
+        by_dev.setdefault(d, []).append(i)
+
+    def work(dev, idx):
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx:
+            for i in idx:
+                sl = slice(i * per, (i + 1) * per)
+                results[i] = solve(dev, y0p[sl].to(dev),
+                                   {k: v[sl].to(dev)
+                                    for k, v in cfgp.items()})
+
+    if len(by_dev) == 1:
+        work(*next(iter(by_dev.items())))
+    else:
+        errors = []
+
+        def run(dev, idx):
+            try:
+                work(dev, idx)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=item, daemon=True,
+                                    name=f"br-mesh-{item[0]}")
+                   for item in by_dev.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+    return unpad_result(_cat_results(results), B)
 
 
 def _pad_lanes(y0s, cfgs, n_pad):
@@ -206,6 +335,15 @@ def _pad_lanes(y0s, cfgs, n_pad):
     cfgs = {k: torch.cat([v, v[-1:].expand((n_pad,) + v.shape[1:])])
             for k, v in cfgs.items()}
     return y0s, cfgs
+
+
+def pad_to_mesh(y0s, cfgs, mesh):
+    """Pad the lane axis to a multiple of the mesh's device count with
+    copies of the last lane.  Returns (y0s, cfgs, original_B); slice
+    results back with :func:`unpad_result`."""
+    B = y0s.shape[0]
+    y0s, cfgs = _pad_lanes(y0s, cfgs, pad_batch(B, mesh) - B)
+    return y0s, cfgs, B
 
 
 def pad_to_bucket(y0s, cfgs, bucket):
@@ -272,7 +410,8 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
                    linsolve="auto", jac=None, observer=None,
                    observer_init=None, jac_window=1, newton_tol=0.03,
                    method="bdf", freeze_precond=False, setup_economy=False,
-                   stale_tol=0.3, buckets=None, **deferred):
+                   stale_tol=0.3, buckets=None, mesh=None, axis="batch",
+                   **deferred):
     """Solve every lane of ``y0s`` (B, n) over [t0, t1] in one solver call
     of at most ``max_steps`` attempts per lane.  ``cfgs`` is a dict of
     per-lane tensors; ``t0``/``t1`` are shared.  Returns the solver's
@@ -286,7 +425,9 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
     LU32P_MIN_BN.  ``observer_init`` may hold Python floats; they are
     broadcast to (B,) lanes.  ``buckets`` pads B onto a ladder rung
     (``aot/buckets.py``) with dead copies of the last lane, stripped from
-    the result."""
+    the result.  ``mesh`` (a :class:`Mesh` whose axis is ``axis``) splits
+    the lanes over its devices (module doc); ``"auto"`` then resolves with
+    the whole padded batch, so every shard runs the same linear algebra."""
     check_deferred(deferred, _MONO_DEFERRED)
     _check_method(method, newton_tol)
     if freeze_precond and method != "bdf":
@@ -295,6 +436,24 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
     if setup_economy and method != "bdf":
         raise ValueError(
             f"setup_economy is a bdf-only knob; method={method!r}")
+    if mesh is not None:
+        _check_mesh(mesh, axis)
+        B_live = y0s.shape[0]
+        y0s, cfgs, _ = pad_to_bucket(y0s, cfgs, resolve_bucket(
+            B_live, buckets, mesh_size=mesh.size))
+        kw = dict(rtol=rtol, atol=atol, max_steps=max_steps, n_save=n_save,
+                  dt0=dt0, dt_min_factor=dt_min_factor, jac=jac,
+                  observer=observer, observer_init=observer_init,
+                  jac_window=jac_window, newton_tol=newton_tol,
+                  method=method, freeze_precond=freeze_precond,
+                  setup_economy=setup_economy, stale_tol=stale_tol,
+                  linsolve=resolve_linsolve(
+                      linsolve, method=method,
+                      device=_mesh_devices(mesh)[0],
+                      batch=pad_batch(y0s.shape[0], mesh), n=y0s.shape[1]))
+        return unpad_result(_mesh_map(
+            mesh, y0s, cfgs, lambda dev, y, c: ensemble_solve(
+                rhs, y, t0, t1, c, **kw)), B_live)
     B_live = y0s.shape[0]
     y0s, cfgs, _ = pad_to_bucket(y0s, cfgs, resolve_bucket(B_live, buckets))
     B, n = y0s.shape
@@ -312,14 +471,14 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
 
 
 # (keyword, default, ROADMAP item) of the forward sweep's deferred options
-_FWD_DEFERRED = (("mesh", None, "A12"), ("axis", "batch", "A12"),
-                 ("stats", False, "A14"))
+_FWD_DEFERRED = (("stats", False, "A14"),)
 
 
 def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
-                           rtol=1e-6, atol=1e-10, max_steps=200_000,
-                           jac=None, jac_window=1, linsolve="auto",
-                           sens_iters=2, S0=None, **deferred):
+                           mesh=None, axis="batch", rtol=1e-6, atol=1e-10,
+                           max_steps=200_000, jac=None, jac_window=1,
+                           linsolve="auto", sens_iters=2, S0=None,
+                           **deferred):
     """Forward-sensitivity ensemble sweep: one theta, per-lane conditions.
 
     The sensitivity twin of :func:`ensemble_solve`: every lane integrates
@@ -334,11 +493,35 @@ def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
     that theta.  ``S0`` defaults to zeros.  ``linsolve="auto"`` resolves
     with the sweep's B and n (``solver.linalg.resolve_linsolve``), so a
     GRI-3.0 sweep at B = 1024 takes ``"lu32p"`` on the GPU and every
-    tangent solve goes through the kernel's factor."""
+    tangent solve goes through the kernel's factor.  ``mesh`` splits the
+    lanes (and ``S0``) over its devices as :func:`ensemble_solve` does,
+    ``theta`` copied to each."""
     from ..sensitivity.forward import solve_forward
 
     check_deferred(deferred, _FWD_DEFERRED)
     B, n = y0s.shape
+    if mesh is not None:
+        _check_mesh(mesh, axis)
+        ls = resolve_linsolve(linsolve, method="bdf",
+                              device=_mesh_devices(mesh)[0],
+                              batch=pad_batch(B, mesh), n=n)
+        lanes = dict(cfgs)
+        per_lane_s0 = S0 is not None and S0.ndim == 3
+        if per_lane_s0:
+            lanes["__S0"] = S0
+
+        def shard(dev, y, c):
+            c = dict(c)
+            s0 = (c.pop("__S0") if per_lane_s0 else
+                  None if S0 is None else S0.to(dev))
+            return ensemble_solve_forward(
+                rhs_theta, y, t0, t1, {k: v.to(dev)
+                                       for k, v in theta.items()}, c,
+                rtol=rtol, atol=atol, max_steps=max_steps, jac=jac,
+                jac_window=jac_window, linsolve=ls, sens_iters=sens_iters,
+                S0=s0)
+
+        return _mesh_map(mesh, y0s, lanes, shard)
     linsolve = resolve_linsolve(linsolve, method="bdf", device=y0s.device,
                                 batch=B, n=n)
     return solve_forward(rhs_theta, y0s, float(t0), float(t1), theta, cfgs,
@@ -371,7 +554,9 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                              setup_economy=False, stale_tol=0.3,
                              pipeline=None, poll_every=None, buckets=None,
                              admission=None, refill=None, upshift=None,
-                             upshift_patience=2, **deferred):
+                             upshift_patience=2, mesh=None, axis="batch",
+                             fetch_deadline=None, mesh_resident=None,
+                             _on_harvest=None, **deferred):
     """Solve every lane of ``y0s`` (B, n) over [t0, t1] with the device
     work bounded to ``segment_steps`` step attempts per lane per segment;
     segments repeat until every lane terminates.
@@ -419,7 +604,28 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     (``solver.linalg.resolve_linsolve``), so ``"lu32p"`` self-selects on
     the GPU at B * n >= LU32P_MIN_BN.  ``observer_init`` may hold Python
     floats; they are broadcast to (B,) lanes.
+
+    ``mesh`` (a :class:`Mesh` whose axis is ``axis``; not with
+    ``admission``) splits the lanes over its devices (module doc; the
+    bundle of ``rhs_bundle`` is copied to each), with ``"auto"`` resolved
+    for the whole padded batch.  ``mesh_resident`` (with ``admission``:
+    ``True`` for every device of the lanes' kind, an int for the first
+    that many, or a :class:`Mesh`) runs one stream per device, each with
+    ``admission / devices`` resident slots over its share of the lanes.
+    ``fetch_deadline`` (seconds; ``None`` resolves from
+    ``BR_FETCH_DEADLINE_S``, unset = off) bounds every blocking host read
+    of the segmented driver (the gears' flag reads, the drain thread's
+    copies, the blocking gear's loop breaks) and raises
+    ``resilience.WedgeError`` past it; off, a read adds nothing.
+
+    ``_on_harvest(gids, payload)`` (streaming driver only: the
+    ``checkpointed_sweep`` backlog mode) is called at each harvest with
+    the caller's lane indices and their host rows (``t``, ``y``,
+    ``status``, ``h``, ``n_accepted``, ``n_rejected`` and, with an
+    observer, ``observed``).
     """
+    from ..resilience.watchdog import resolve_fetch_deadline
+
     check_deferred(deferred, _DEFERRED)
     if max_segments < 1:
         raise ValueError(f"max_segments must be >= 1, got {max_segments}")
@@ -430,8 +636,35 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     if setup_economy and method != "bdf":
         raise ValueError(
             f"setup_economy is a bdf-only knob; method={method!r}")
+    fetch_deadline = resolve_fetch_deadline(fetch_deadline)
     resident, refill_spec = resolve_admission(admission, refill,
                                               n_lanes=y0s.shape[0])
+    if mesh is not None:
+        _check_mesh(mesh, axis)
+        if resident is not None or _on_harvest is not None:
+            raise ValueError(
+                "admission= is incompatible with mesh= (each device would "
+                "need the whole backlog); use mesh_resident= to stream "
+                "over several devices")
+        B_live = y0s.shape[0]
+        y0s, cfgs, _ = pad_to_bucket(y0s, cfgs, resolve_bucket(
+            B_live, buckets, mesh_size=mesh.size))
+        seg_kw = dict(
+            segment_steps=segment_steps, max_segments=max_segments,
+            max_attempts=max_attempts, progress=progress, rtol=rtol,
+            atol=atol, jac=jac, observer=observer,
+            observer_init=observer_init, dt_min_factor=dt_min_factor,
+            n_save=n_save, jac_window=jac_window, newton_tol=newton_tol,
+            method=method, setup_economy=setup_economy, stale_tol=stale_tol,
+            pipeline=pipeline, poll_every=poll_every,
+            fetch_deadline=fetch_deadline, upshift=upshift,
+            linsolve=resolve_linsolve(
+                linsolve, method=method, device=_mesh_devices(mesh)[0],
+                batch=pad_batch(y0s.shape[0], mesh), n=y0s.shape[1]))
+        return unpad_result(_mesh_map(
+            mesh, y0s, cfgs, lambda dev, y, c: ensemble_solve_segmented(
+                rhs, y, t0, t1, c, rhs_bundle=_to_device(rhs_bundle, dev),
+                **seg_kw)), B_live)
     kw = dict(segment_steps=int(segment_steps),
               max_segments=int(max_segments), max_attempts=max_attempts,
               rtol=rtol, atol=atol, linsolve=linsolve,
@@ -467,11 +700,44 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
         if int(upshift_patience) < 1:
             raise ValueError(
                 f"upshift_patience must be >= 1, got {upshift_patience}")
-        return _run_segmented_streaming(
-            rhs, y0s, float(t0), float(t1), cfgs, observer_init,
-            resident=resident, refill_spec=refill_spec, buckets=buckets,
-            upshift=None if upshift is None else int(upshift),
-            upshift_patience=int(upshift_patience), **kw)
+        devs = _resolve_mesh_resident(mesh_resident, y0s.device)
+        if devs is not None and len(devs) > 1:
+            if _on_harvest is not None:
+                raise ValueError("_on_harvest reports one stream's lane "
+                                 "indices; drop mesh_resident=")
+            n_dev = len(devs)
+            if resident % n_dev:
+                raise ValueError(
+                    f"admission={resident} resident slots do not divide "
+                    f"over the {n_dev} devices of mesh_resident")
+            kw.pop("jac")
+            kw.pop("rhs_bundle")
+            kw.update(max_attempts=max_attempts, observer_init=observer_init,
+                      buckets=buckets, refill=refill,
+                      upshift=None if upshift is None else upshift // n_dev,
+                      upshift_patience=upshift_patience, pipeline=True,
+                      fetch_deadline=fetch_deadline)
+            return _mesh_map(
+                Mesh(devs), y0s, cfgs,
+                lambda dev, y, c: ensemble_solve_segmented(
+                    rhs, y, t0, t1, c, jac=jac,
+                    rhs_bundle=_to_device(rhs_bundle, dev),
+                    admission=resident // n_dev, **kw))
+        with graphs.fetch_deadline(fetch_deadline):
+            return _run_segmented_streaming(
+                rhs, y0s, float(t0), float(t1), cfgs, observer_init,
+                resident=resident, refill_spec=refill_spec, buckets=buckets,
+                upshift=None if upshift is None else int(upshift),
+                upshift_patience=int(upshift_patience),
+                on_harvest=_on_harvest, **kw)
+    if _on_harvest is not None:
+        raise ValueError("_on_harvest is a streaming-driver hook; pass "
+                         "admission= (continuous batching) or drop it")
+    if mesh_resident:
+        raise ValueError(
+            "mesh_resident= splits the streaming admission driver over "
+            "devices; pass admission= (continuous batching) or use mesh= "
+            "for static sweeps")
     if upshift is not None:
         raise ValueError(
             "upshift= autoscales the streaming admission driver's "
@@ -485,8 +751,54 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                                       batch=B, n=n)
     obs0 = _lane_obs(observer, observer_init, B, dt, dev)
     run = _run_segmented_pipelined if pipeline else _run_segmented_blocking
-    return unpad_result(run(rhs, y0s, float(t0), float(t1), cfgs, obs0,
-                            n_save=int(n_save), **kw), B_live)
+    with graphs.fetch_deadline(fetch_deadline):
+        return unpad_result(run(rhs, y0s, float(t0), float(t1), cfgs, obs0,
+                                n_save=int(n_save), **kw), B_live)
+
+
+def _resolve_mesh_resident(mesh_resident, device):
+    """The devices of ``mesh_resident=``: ``None``/``False`` -> None (one
+    stream); ``True`` -> every device of ``device``'s kind (the CUDA
+    devices, or the CPU); an int ``n`` -> the first ``n`` of them; a
+    :class:`Mesh` -> its devices (a device may repeat, as on ``mesh=``)."""
+    if mesh_resident is None or mesh_resident is False:
+        return None
+    if isinstance(mesh_resident, Mesh):
+        _check_mesh(mesh_resident, mesh_resident.axis_names[0])
+        return _mesh_devices(mesh_resident)
+    local = ([torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())]
+             if device.type == "cuda" else [torch.device("cpu")])
+    if mesh_resident is True:
+        return local
+    if isinstance(mesh_resident, bool) or not isinstance(
+            mesh_resident, (int, np.integer)):
+        raise ValueError(
+            f"mesh_resident must be None/False (off), True (every local "
+            f"device), or a positive int device count; got "
+            f"{mesh_resident!r}")
+    n = int(mesh_resident)
+    if n < 1 or n > len(local):
+        raise ValueError(f"mesh_resident={n} outside the 1..{len(local)} "
+                         f"local device range")
+    return local[:n]
+
+
+def _to_device(x, dev):
+    """``x`` (a bundle: dataclasses, tuples and tensors) with every tensor
+    on ``dev``."""
+    import dataclasses
+
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _to_device(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x)
+            if torch.is_tensor(getattr(x, f.name))})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_device(v, dev) for v in x)
+    return x
 
 
 def _economy(method, setup_economy, jac_window):
@@ -915,7 +1227,7 @@ class _Flags:
             return bool(flag[0])
         self.pin.copy_(flag, non_blocking=True)
         self.event.record()
-        self.event.synchronize()
+        graphs.wait_event(self.event, "flag")
         return bool(self.pin[0])
 
     def poll(self):
@@ -970,7 +1282,8 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
                                               economy, linsolve),
                     cfgs, t1, max_attempts, rhs_bundle)
     flags = _Flags(prog)
-    drainer = (_TrajectoryDrainer(B, int(n_save), n, prog.on_cuda)
+    drainer = (_TrajectoryDrainer(B, int(n_save), n, prog.on_cuda,
+                                  graphs.current_deadline())
                if n_save else None)
     emitted = 0
 
@@ -1007,9 +1320,16 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
             if not live:
                 done = True
                 break
-    finally:
+    except BaseException:
+        # a fault mid-window (a watchdog breach) leaves the program's state
+        # in flight: it is never replayed, and the drain thread is joined
+        # without letting its own error mask this one
+        graphs.discard(prog)
         if drainer is not None:
-            drainer.close()
+            drainer.close(raise_error=False)
+        raise
+    if drainer is not None:
+        drainer.close()
 
     seg = prog.state["seg"]
     ctrl = seg["ctrl"]
@@ -1057,8 +1377,11 @@ class _TrajectoryDrainer:
     failures are re-raised by :meth:`close` and the next :meth:`submit`.
     On the CPU the drain runs inline."""
 
-    def __init__(self, B, n_save, n, threaded):
+    def __init__(self, B, n_save, n, threaded, deadline=None):
         self.all_ts = np.full((B, n_save), np.inf)
+        # the watchdog deadline of the sweep's thread, which the worker
+        # applies to its own waits
+        self._deadline = deadline
         self.all_ys = np.zeros((B, n_save, n))
         self.saved = np.zeros((B,), dtype=np.int64)
         self._drained = {}
@@ -1093,12 +1416,13 @@ class _TrajectoryDrainer:
                     out.append((s, self._drained.pop(s)))
         return out
 
-    def close(self):
-        """Drain the queue, join the worker, re-raise any failure."""
+    def close(self, raise_error=True):
+        """Drain the queue, join the worker, re-raise any failure (unless
+        ``raise_error`` is False: the caller is unwinding from its own)."""
         if self._thread is not None:
             self._q.put(None)
             self._thread.join()
-        if self._exc is not None:
+        if self._exc is not None and raise_error:
             raise self._exc
 
     def _run(self):
@@ -1110,7 +1434,8 @@ class _TrajectoryDrainer:
                 continue   # keep consuming so submit cannot deadlock
             seg, snap, event = item
             try:
-                with torch.cuda.stream(self._stream):
+                with torch.cuda.stream(self._stream), \
+                        graphs.fetch_deadline(self._deadline):
                     self._stream.wait_event(event)
                     self._drain(seg, snap)
             except BaseException as e:  # noqa: BLE001 — re-raised by close
@@ -1121,7 +1446,9 @@ class _TrajectoryDrainer:
         if self._thread is None:
             return tuple(t.numpy() for t in tensors)
         out = tuple(t.to("cpu", non_blocking=True) for t in tensors)
-        self._stream.synchronize()
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        graphs.wait_event(done, "drain")
         return tuple(t.numpy() for t in out)
 
     def _drain(self, seg, drain):
@@ -1161,7 +1488,7 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                              max_attempts, rtol, atol, linsolve, jac,
                              observer, dt_min_factor, jac_window, newton_tol,
                              method, setup_economy, stale_tol, rhs_bundle,
-                             progress, poll_every):
+                             progress, poll_every, on_harvest=None):
     """Continuous batching: one resident program of B slots streams
     through N lanes.  Its loop is the pipelined gear's, and at each status
     poll (every ``poll_every`` segments, and whenever every resident lane
@@ -1278,6 +1605,14 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                 out_obs[k][gids] = v[rows]
         slot_gid[rows] = -1
         counts["harvested_lanes"] += rows.size
+        if on_harvest is not None:
+            payload = {"t": out_t[gids], "y": y_f[rows],
+                       "status": out_status[gids], "h": h_f[rows],
+                       "n_accepted": na_f[rows], "n_rejected": nr_f[rows]}
+            if observer is not None:
+                payload["observed"] = {k: v[rows] for k, v in
+                                       zip(seg["obs"], got[6:])}
+            on_harvest(gids, payload)
 
     def compact(status_np, n_new):
         """Run the ``compact`` step and mirror its permutation on the
@@ -1369,56 +1704,62 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
 
     done = False
     launched = 0
-    for seg_i in range(max_segments):
-        _run_segment(prog, flags)
-        launched += 1
-        capacity_lane_segs += B
-        # the status vector is copied without a wait after every segment
-        # and read at poll points: every poll_every segments, and as soon
-        # as every resident lane has parked (rather than run all-parked
-        # segments until the stride comes round)
-        flags.poll()
-        live = flags.read()
-        status_np, acc_np = flags.take_poll()
-        if live and launched % poll_every and launched != max_segments:
-            continue
-        emit_progress(seg_i, status_np, acc_np)
-        running = status_np == RUNNING
-        n_parked = int(B - running.sum())
-        if shift_cooldown:
-            shift_cooldown -= 1
-        if upshift_cap is not None:
-            backlog = N - next_gid
-            B_up = (upshift_bucket(int(running.sum()) + backlog, buckets,
-                                   B, cap=upshift_cap) if backlog else None)
-            up_streak = (up_streak + 1
-                         if B_up is not None and backlog >= B_up - B else 0)
-            if up_streak >= upshift_patience and not shift_cooldown:
-                harvest(status_np)
-                if upshift_now(status_np):
-                    up_streak = down_streak = 0
-                    shift_cooldown = upshift_patience
-                    continue
-        if next_gid < N:
-            down_streak = 0
-            if n_parked >= refill_n or not running.any():
-                harvest(status_np)
-                compact(status_np, min(n_parked, N - next_gid))
-        elif not running.any():
-            harvest(status_np)
-            done = True
-            break
-        elif buckets is not None and n_parked and upshift_cap is None:
-            # the drain tail: the backlog can never refill
-            harvest(status_np)
-            downshift(status_np)
-        elif upshift_cap is not None and n_parked:
-            down_streak += 1
-            if down_streak >= upshift_patience and not shift_cooldown:
-                harvest(status_np)
-                if downshift(status_np):
-                    shift_cooldown = upshift_patience
+    try:
+        for seg_i in range(max_segments):
+            _run_segment(prog, flags)
+            launched += 1
+            capacity_lane_segs += B
+            # the status vector is copied without a wait after every segment
+            # and read at poll points: every poll_every segments, and as soon
+            # as every resident lane has parked (rather than run all-parked
+            # segments until the stride comes round)
+            flags.poll()
+            live = flags.read()
+            status_np, acc_np = flags.take_poll()
+            if live and launched % poll_every and launched != max_segments:
+                continue
+            emit_progress(seg_i, status_np, acc_np)
+            running = status_np == RUNNING
+            n_parked = int(B - running.sum())
+            if shift_cooldown:
+                shift_cooldown -= 1
+            if upshift_cap is not None:
+                backlog = N - next_gid
+                B_up = (upshift_bucket(int(running.sum()) + backlog,
+                                       buckets, B, cap=upshift_cap)
+                        if backlog else None)
+                up_streak = (up_streak + 1 if B_up is not None
+                             and backlog >= B_up - B else 0)
+                if up_streak >= upshift_patience and not shift_cooldown:
+                    harvest(status_np)
+                    if upshift_now(status_np):
+                        up_streak = down_streak = 0
+                        shift_cooldown = upshift_patience
+                        continue
+            if next_gid < N:
                 down_streak = 0
+                if n_parked >= refill_n or not running.any():
+                    harvest(status_np)
+                    compact(status_np, min(n_parked, N - next_gid))
+            elif not running.any():
+                harvest(status_np)
+                done = True
+                break
+            elif buckets is not None and n_parked and upshift_cap is None:
+                # the drain tail: the backlog can never refill
+                harvest(status_np)
+                downshift(status_np)
+            elif upshift_cap is not None and n_parked:
+                down_streak += 1
+                if down_streak >= upshift_patience and not shift_cooldown:
+                    harvest(status_np)
+                    if downshift(status_np):
+                        shift_cooldown = upshift_patience
+                    down_streak = 0
+    except BaseException:
+        # a fault mid-window leaves the rung's program state in flight
+        graphs.discard(prog)
+        raise
     if not done:
         # max_segments exhausted: still-running lanes are MaxSteps at their
         # current t; backlog lanes never admitted did no work at all
@@ -1437,8 +1778,9 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         out_t[never] = t0
     counts["lane_attempts"] = int(out_acc.sum() + out_rej.sum())
     counts["lane_capacity"] = capacity_lane_segs * int(segment_steps)
-    for k, v in counts.items():
-        STREAM_COUNTS[k] += v
+    with _STREAM_LOCK:
+        for k, v in counts.items():
+            STREAM_COUNTS[k] += v
     return SolveResult(
         t=torch.as_tensor(out_t, dtype=dtype),
         y=torch.as_tensor(out_y, dtype=dtype),

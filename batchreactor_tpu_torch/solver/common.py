@@ -51,6 +51,7 @@ class SolveResult:
     err_prev: torch.Tensor = None  # (B,) SDIRK's PI memory (resume)
     solver_state: object = None  # opaque multistep carry (BDF resume)
     tangents: torch.Tensor = None  # (B, P, n) forward sensitivities (BDF)
+    provenance: torch.Tensor = None  # (B,) int8 quarantine provenance codes
 
 
 def check_deferred(kwargs, table):

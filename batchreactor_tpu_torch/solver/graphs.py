@@ -22,8 +22,16 @@ blocking wait on the card) and Newton iterations executed.  A count made
 by code inside a captured step (``lu32p`` launches by path, Newton
 iterations) is recorded once at capture and added on every replay, so a
 count means work the card did.
+
+Every blocking host read of the segmented drivers goes through this module
+(:func:`host_any`, :func:`fetch`, :func:`wait_event`), which makes it the
+one choke point of the wedge watchdog: inside :func:`fetch_deadline`
+(thread-local) each read waits through
+``resilience.watchdog.block_with_deadline`` and raises ``WedgeError`` past
+its deadline; outside it a read adds no event, poll or thread.
 """
 
+import contextlib
 import threading
 
 import torch
@@ -64,10 +72,40 @@ def count(name, k=1):
         COUNTS[name] += k
 
 
+# the watchdog deadline of this thread's host reads (None: off)
+_deadline = threading.local()
+
+
+@contextlib.contextmanager
+def fetch_deadline(seconds):
+    """Bound every host read of this thread by ``seconds`` for the block
+    (``None``: unbounded, the default)."""
+    prev = getattr(_deadline, "value", None)
+    _deadline.value = seconds
+    try:
+        yield
+    finally:
+        _deadline.value = prev
+
+
+def current_deadline():
+    """The deadline :func:`fetch_deadline` set for this thread, or None."""
+    return getattr(_deadline, "value", None)
+
+
+def _guard(x, label):
+    seconds = current_deadline()
+    if seconds is not None:
+        from ..resilience.watchdog import block_with_deadline
+
+        block_with_deadline(x, seconds, label=label)
+
+
 def host_any(mask):
     """``bool(mask.any())``, counted as a host sync: the break points of
     the blocking gear's loops."""
     COUNTS["host_syncs"] += 1
+    _guard(mask, "host_any")
     return bool(mask.any())
 
 
@@ -75,7 +113,17 @@ def fetch(*tensors):
     """The tensors as numpy arrays on the host, counted as one host sync
     (the first copy waits for the card; the rest find it idle)."""
     COUNTS["host_syncs"] += 1
+    _guard(tensors, "fetch")
     return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+def wait_event(event, label="event"):
+    """Wait for a recorded CUDA event (not counted: the caller counts the
+    read it serves), bounded by this thread's deadline."""
+    if current_deadline() is None:
+        event.synchronize()
+    else:
+        _guard(event, label)
 
 
 def tree_leaves(tree):
@@ -219,6 +267,9 @@ class Program:
 
 #: the programs kept for reuse, most recently used last
 _PROGRAMS = {}
+# the mesh runs shards on host threads, one per device, which share the
+# cache
+_PROGRAMS_LOCK = threading.Lock()
 #: how many programs :func:`program` keeps
 MAX_PROGRAMS = 12
 
@@ -229,15 +280,26 @@ def program(key, build):
     A program keeps references to what its steps call, so an identity in
     ``key`` (``id(rhs)``) cannot be reused by another object while the
     program lives."""
-    prog = _PROGRAMS.pop(key, None)
-    if prog is None:
-        prog = build()
-    _PROGRAMS[key] = prog
-    while len(_PROGRAMS) > MAX_PROGRAMS:
-        _PROGRAMS.pop(next(iter(_PROGRAMS)))
-    return prog
+    with _PROGRAMS_LOCK:
+        prog = _PROGRAMS.pop(key, None)
+        if prog is None:
+            prog = build()
+        _PROGRAMS[key] = prog
+        while len(_PROGRAMS) > MAX_PROGRAMS:
+            _PROGRAMS.pop(next(iter(_PROGRAMS)))
+        return prog
+
+
+def discard(prog):
+    """Drop ``prog`` from the cache: a run that raised mid-window leaves
+    its state in flight, and the next run builds and captures afresh
+    instead of replaying it."""
+    with _PROGRAMS_LOCK:
+        for key in [k for k, v in _PROGRAMS.items() if v is prog]:
+            del _PROGRAMS[key]
 
 
 def clear_programs():
     """Drop every cached program (and its graphs)."""
-    _PROGRAMS.clear()
+    with _PROGRAMS_LOCK:
+        _PROGRAMS.clear()

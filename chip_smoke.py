@@ -38,10 +38,11 @@ paths through its own entry points:
 - the gas main path with GRI-3.0 padded to 96 species and 512 reactions
   (``species_buckets``/``reaction_buckets``: the kernel's CTA path, npad
   96) against phase 3's delays (phase 15);
-- forward sensitivities, ``ensemble_solve_forward`` on phase 3's 1024
-  lanes over ln A of the 18 ``*CH4*`` reactions (every tangent solve
-  through the warp kernel's factor) against a plain twin and a float64
-  ``lu`` run, with the peak device memory (phase 16);
+- forward sensitivities, ``ensemble_solve_forward`` on 640 lanes of
+  phase 3's temperature range over ln A of the 18 ``*CH4*`` reactions
+  (every tangent solve through the warp kernel's factor) against a
+  plain twin and a float64 ``lu`` run, with the peak device memory
+  (phase 16);
 - the adjoint ranking of all 325 reactions by d ln tau / d ln A on 8
   lanes (``inv32``), lane 0 against the JAX package on the CPU
   (``scripts/sens_reference.py``), and on 4 lanes at rtol 1e-8 the
@@ -55,10 +56,24 @@ paths through its own entry points:
 - continuous batching (phase 19): 4096 main-path temperatures streamed
   through 1024 resident slots on the ladder (256, 512, 1024) against the
   admission-off sweep, then 1024 of them from 256 slots climbing the
-  ladder.
+  ladder;
+- checkpointing and resilience (phase 20): ``checkpointed_sweep`` over
+  phase 3's lanes in chunks of 256 (fresh, cold and warm, against phase
+  3), a child process killed before saving chunk 2 and the resume here, a
+  torn chunk, a hung wait under ``fetch_deadline`` with one retry, three
+  NaN lanes under ``quarantine=True`` (each recovery equal to the fresh
+  run bit for bit, the quarantine within 1e-3), and
+  ``batch_reactor_sweep`` on a one-device mesh against ``mesh=None``;
+- the multi-process tiers (phase 21): two child processes on the one card
+  in a gloo group, ``ensemble_solve_multihost`` over phase 3's lanes
+  against phase 3, then ``elastic_checkpointed_sweep`` with one process
+  killed before its second chunk: the survivor takes it over and every
+  chunk equals phase 20's bit for bit.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a CUDA graph adds its captured launches on every replay.
+The child processes of phases 20-21 (``chip_smoke.py --child ARGS``) do
+the same in their own process and report their counts.
 ``--profile`` adds a phase that runs the gas main path once more in each
 gear under ``torch.profiler`` and prints where its time goes (per layer
 and per kernel); ``--profile-only`` runs only that.  Each phase prints one JSON line; any failure
@@ -148,6 +163,14 @@ STREAM_SEGMENT = 16
 # tail shifts down as soon as lanes park
 STREAM_POLL = 1
 CLIMB_LANES, CLIMB_RESIDENT, CLIMB_CEILING = 1024, 256, 1024
+# the forward sensitivities (phase 16): 640 temperatures across the main
+# path's range, cut from 1024 to keep the script under 1000 s;
+# B * n stays above the lu32p gate (640 x 53 >= 32768)
+B_SENS = 640
+# the checkpointed main path (phases 20-21): chunks of 256 lanes; the hung
+# wait of phase 20 (d) is held HANG_S s against a DEADLINE_S s deadline
+CKPT_CHUNK = 256
+DEADLINE_S, HANG_S = 5.0, 30.0
 # the adjoint ranking (phase 17): every 128th main-path temperature (8
 # lanes; the Python loop of stage solves, not the lanes, sets its wall);
 # the forward-against-adjoint check runs every 16th of the 64 coolest
@@ -1070,8 +1093,9 @@ def max_rel_to_lane(a, ref):
     return float((diff / scale).max())
 
 
-def phase_sens_forward(gm, th, T, device, smi, by_phase):
-    """Phase 16: ``ensemble_solve_forward`` on phase 3's conditions with
+def phase_sens_forward(gm, th, device, smi, by_phase):
+    """Phase 16: ``ensemble_solve_forward`` on B_SENS of phase 3's
+    temperatures (its range at a smaller depth) with
     theta = ln A of the 18 reactions matching ``*CH4*`` (P = 18),
     ``jac_window=1``, ``auto`` -> ``lu32p`` (warp path, npad 56): every
     lane successful, the steps and final states of a plain
@@ -1085,13 +1109,14 @@ def phase_sens_forward(gm, th, T, device, smi, by_phase):
                                                  ensemble_solve_forward)
     from batchreactor_tpu_torch.solver.linalg import resolve_linsolve
 
+    T = np.linspace(T_LO, T_HI, B_SENS)
     y0s, cfg, _, _, _, _ = main_path_lanes(gm, th, T, device)
     spec, theta, rt, jt = ch4_theta(gm, th, "*CH4*")
 
     def jac(t, y, c):
         return jt(t, y, theta, c)
 
-    def fwd(n_lanes=B_MAIN, **kw):
+    def fwd(n_lanes=B_SENS, **kw):
         return ensemble_solve_forward(
             rt, y0s[:n_lanes], 0.0, T1, theta,
             {k: v[:n_lanes] for k, v in cfg.items()}, rtol=RTOL, atol=ATOL,
@@ -1121,11 +1146,11 @@ def phase_sens_forward(gm, th, T, device, smi, by_phase):
             f"sens_forward: success {ok}, steps equal to the plain twin "
             f"{same_steps}, finite {finite}, final y rel {y_rel}, tangents "
             f"vs lu {s_rel}")
-    emit({"phase": "sens_forward", "gpu": smi, "B": B_MAIN, "P": S.shape[1],
+    emit({"phase": "sens_forward", "gpu": smi, "B": B_SENS, "P": S.shape[1],
           "reactions": "*CH4*", "t1": T1,
-          "linsolve": resolve_linsolve("auto", device=device, batch=B_MAIN,
+          "linsolve": resolve_linsolve("auto", device=device, batch=B_SENS,
                                        n=y0s.shape[1]),
-          "jac_window": 1, "wall_s": wall, "cond_per_s": B_MAIN / wall,
+          "jac_window": 1, "wall_s": wall, "cond_per_s": B_SENS / wall,
           "plain_twin_wall_s": wall_plain,
           "mean_accepted": float(res.n_accepted.double().mean()),
           "max_accepted": int(res.n_accepted.max()),
@@ -1447,6 +1472,298 @@ def phase_stream(gm, th, device, smi, by_phase):
                     "tau_max_rel": float(rel_c.max())}})
 
 
+def ckpt_setup(gm, th, T, device):
+    """Phases 20-21's checkpointed sweep of the main path's conditions at
+    the temperatures T: (rhs, y0s, cfg, solver keywords), the segmented
+    pipelined gear with ``linsolve="auto"`` (resolved with the whole
+    sweep: ``lu32p``, warp path)."""
+    y0s, cfg, rhs, jac, obs, obs0 = main_path_lanes(gm, th, T, device)
+    kw = dict(segment_steps=256, rtol=RTOL, atol=ATOL, jac=jac, observer=obs,
+              observer_init=obs0, method="bdf", jac_window=8,
+              setup_economy=True, linsolve="auto")
+    return rhs, y0s, cfg, kw
+
+
+def ckpt_fields(res):
+    """A checkpointed result's per-lane values as host arrays."""
+    out = {f: getattr(res, f).numpy()
+           for f in ("t", "y", "status", "n_accepted", "n_rejected", "h")}
+    out["tau"] = res.observed["tau"].numpy()
+    return out
+
+
+def copy_ckpt(src, dst, chunks):
+    """A checkpoint directory with only the manifest and ``chunks``."""
+    import shutil
+
+    os.makedirs(dst)
+    shutil.copy(os.path.join(src, "manifest.json"), dst)
+    for i in chunks:
+        name = f"chunk_{i:05d}.npz"
+        shutil.copy(os.path.join(src, name), os.path.join(dst, name))
+
+
+def run_children(argss, timeout):
+    """Run ``chip_smoke.py --child ARGS`` once per entry of ``argss``, all
+    at once, each under ``resilience.run_guarded`` (SIGTERM past
+    ``timeout``, SIGKILL after a grace); returns their GuardedResults."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from batchreactor_tpu_torch.resilience import run_guarded
+
+    cmds = [[sys.executable, os.path.join(HERE, "chip_smoke.py"), "--child",
+             json.dumps(a)] for a in argss]
+    with ThreadPoolExecutor(len(cmds)) as ex:
+        return list(ex.map(lambda c: run_guarded(
+            c, timeout, grace_s=20.0, merge_stderr=True), cmds))
+
+
+def child_result(guarded, name, rc=0):
+    """The child's last ``RESULT`` line, or raise with its output tail
+    unless it exited ``rc`` (137: killed by the fault injector)."""
+    lines = [ln for ln in guarded.stdout.splitlines()
+             if ln.startswith("RESULT ")]
+    if guarded.timed_out or guarded.rc != rc or not lines:
+        raise AssertionError(
+            f"{name}: child rc {guarded.rc} (want {rc}), timed out "
+            f"{guarded.timed_out}:\n{guarded.stdout[-3000:]}")
+    return json.loads(lines[-1][7:])
+
+
+def child_main(args):
+    """A child process of phases 20-21 (``--child ARGS``): ``kind`` "ckpt"
+    runs phase 20's checkpointed sweep with a fault armed; "multihost"
+    joins a gloo group on cuda:0 and runs ``ensemble_solve_multihost``,
+    then ``elastic_checkpointed_sweep`` with its own fault armed."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    import batchreactor_tpu_torch as bt
+    from batchreactor_tpu_torch.parallel import checkpointed_sweep
+    from batchreactor_tpu_torch.parallel import multihost as mh
+    from batchreactor_tpu_torch.resilience import inject
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    device = torch.device("cuda:0")
+    gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"),
+                                 device=device)
+    th = bt.create_thermo(list(gm.species),
+                          os.path.join(FIXTURES, "therm.dat"), device=device)
+    T = np.linspace(T_LO, T_HI, B_MAIN)
+    rhs, y0s, cfg, kw = ckpt_setup(gm, th, T, device)
+    if args["kind"] == "ckpt":
+        inject.arm(args["inject"])
+        checkpointed_sweep(rhs, y0s, 0.0, T1, cfg, args["dir"],
+                           chunk_size=CKPT_CHUNK, **kw)
+        print("RESULT " + json.dumps({"died": False}), flush=True)
+        return 0
+    rank, world = args["rank"], args["world"]
+    mh.initialize(f"localhost:{args['port']}", num_processes=world,
+                  process_id=rank, timeout_s=300)
+    res, _, by_a, wall_a = timed(lambda: mh.ensemble_solve_multihost(
+        rhs, y0s, 0.0, T1, cfg, device=device, **kw))
+    if rank == 0:
+        np.savez(os.path.join(args["dir"], "multihost.npz"),
+                 status=res.status.numpy(), tau=res.observed["tau"].numpy())
+    part = {"rank": rank, "multihost_wall_s": wall_a,
+            "multihost_lu32p_launches_by_path": by_a}
+    print("RESULT " + json.dumps(part), flush=True)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    if args.get("inject"):
+        inject.arm(args["inject"])
+    mh.reset_counts()
+    _, _, by_b, wall_b = timed(lambda: mh.elastic_checkpointed_sweep(
+        rhs, y0s, 0.0, T1, cfg, os.path.join(args["dir"], "elastic"),
+        process_id=rank, num_processes=world, chunk_size=CKPT_CHUNK,
+        heartbeat_s=0.5, **kw))
+    print("RESULT " + json.dumps({
+        **part, "elastic_wall_s": wall_b,
+        "elastic_lu32p_launches_by_path": by_b,
+        "elastic_counts": dict(mh.COUNTS)}), flush=True)
+    return 0
+
+
+def phase_resilience(bt, gm, th, T, out3, wall3, device, smi, by_phase):
+    """Phase 20: ``checkpointed_sweep`` over phase 3's lanes in chunks of
+    CKPT_CHUNK: (a) fresh, cold then warm, against phase 3; (b) a child
+    killed before saving chunk 2, then the resume here; (c) a torn chunk
+    1; (d) a hung wait under ``fetch_deadline`` with one retry; (e) three
+    NaN lanes under ``quarantine=True``; (f) ``batch_reactor_sweep`` on a
+    one-device mesh against ``mesh=None``.  Returns phase 20 (a)'s
+    checkpoint directory's chunks (loaded) for phase 21."""
+    from batchreactor_tpu_torch.parallel import checkpoint as ck
+    from batchreactor_tpu_torch.parallel import checkpointed_sweep
+    from batchreactor_tpu_torch.resilience import inject
+
+    rhs, y0s, cfg, kw = ckpt_setup(gm, th, T, device)
+    tmp = tempfile.mkdtemp(prefix="br_resilience_")
+    d = {k: os.path.join(tmp, k) for k in "abcdef"}
+    walls, by_step = {}, {}
+
+    def run(name, path, **extra):
+        ck.reset_counts()
+        res, _, by_step[name], walls[name] = timed(
+            lambda: checkpointed_sweep(rhs, y0s, 0.0, T1, cfg, path,
+                                       chunk_size=CKPT_CHUNK, **kw, **extra))
+        return ckpt_fields(res), dict(ck.COUNTS), res
+
+    def same(name, got, ref):
+        eq = lanes_equal(ref, got)
+        if not eq.all():
+            raise AssertionError(f"resilience: {name} equals (a) on "
+                                 f"{int(eq.sum())} of {len(eq)} lanes")
+
+    # (a) fresh, cold (its chunk shape captures), then warm
+    a, _, _ = run("a_cold", d["a"])
+    a2, _, _ = run("a_warm", os.path.join(tmp, "a2"))
+    same("the warm run", a2, a)
+    by_phase["resilience"] = by_step["a_warm"]
+    check_launches("resilience", by_step["a_warm"], "warp")
+    rel = np.abs(a["tau"] / out3["tau"] - 1.0)
+    if not (np.array_equal(a["status"], out3["status"])
+            and rel.max() <= 1e-3):
+        raise AssertionError(f"resilience: (a) status or tau (max rel "
+                             f"{rel.max()}) off phase 3")
+    tau_bit = int((a["tau"] == out3["tau"]).sum())
+    # (b) a child killed before saving chunk 2; the resume solves 2 and 3
+    t0 = time.perf_counter()
+    kid, = run_children([{"kind": "ckpt", "dir": d["b"],
+                          "inject": "kill:chunk=2"}], timeout=300)
+    walls["b_child"] = time.perf_counter() - t0
+    if kid.timed_out or kid.rc != 137:
+        raise AssertionError(f"resilience: the killed child exited "
+                             f"{kid.rc}:\n{kid.stdout[-3000:]}")
+    on_disk = sorted(n for n in os.listdir(d["b"]) if n.endswith(".npz"))
+    b, cb, _ = run("b_resume", d["b"])
+    if on_disk != ["chunk_00000.npz", "chunk_00001.npz"] or cb[
+            "chunks_solved"] != 2:
+        raise AssertionError(f"resilience: (b) {on_disk}, {cb}")
+    same("(b)", b, a)
+    # (c) chunk 1 torn after its save, then the resume
+    copy_ckpt(d["a"], d["c"], (0, 2, 3))
+    inject.arm("corrupt_chunk:chunk=1")
+    run("c_tear", d["c"])
+    c, cc, _ = run("c_resume", d["c"])
+    if not (cc == {"chunks_solved": 1, "chunks_corrupt": 1}
+            and os.path.exists(os.path.join(d["c"],
+                                            "chunk_00001.npz.corrupt"))):
+        raise AssertionError(f"resilience: (c) {cc}")
+    same("(c)", c, a)
+    # (d) the wait of chunk 3 held past fetch_deadline: a WedgeError, one
+    # retry after reset_backend()
+    copy_ckpt(d["a"], d["d"], (0, 1, 2))
+    inject.arm(f"hang_fetch:delay={HANG_S}")
+    dd, _, _ = run("d_wedge", d["d"], fetch_deadline=DEADLINE_S,
+                   retry={"max_retries": 1, "backoff_s": 0.0})
+    with open(os.path.join(d["d"], "manifest.json")) as f:
+        ledger = json.load(f)["attempts"]
+    # chunk 3's rows of this run (the copied manifest holds (a)'s)
+    rows = ledger.get("3", [])[-2:]
+    if [(r["attempt"], r["outcome"]) for r in rows] != [
+            (0, "error"), (1, "ok")] or rows[0].get("kind") != "WedgeError":
+        raise AssertionError(f"resilience: (d) ledger {ledger}")
+    same("(d)", dd, a)
+    # (e) three NaN lanes, re-solved by the quarantine
+    # one lane in each of chunks 0, 1 and 3 (85, 341 and 853)
+    lanes = tuple(c * CKPT_CHUNK + CKPT_CHUNK // 3 for c in (0, 1, 3))
+    copy_ckpt(d["a"], d["e"], (2,))
+    inject.arm(";".join(f"nan_lane:lane={i}" for i in lanes))
+    e, _, res_e = run("e_quarantine", d["e"], quarantine=True)
+    prov = res_e.provenance.numpy()
+    rel_e = np.abs(e["tau"] / a["tau"] - 1.0)
+    if not (np.all(prov[list(lanes)] != 0) and np.all(e["status"] == 1)
+            and rel_e.max() <= 1e-3 and int((prov != 0).sum()) == 3):
+        raise AssertionError(f"resilience: (e) provenance "
+                             f"{prov[list(lanes)]}, tau rel {rel_e.max()}")
+    # (f) a one-device mesh against mesh=None
+    mesh = bt.Mesh([device])
+    f0, _, by_step["f_none"], walls["f_none"] = timed(
+        lambda: sweep(bt, gm, th, T, device))
+    f1, _, by_step["f_mesh"], walls["f_mesh"] = timed(
+        lambda: sweep(bt, gm, th, T, device, mesh=mesh))
+    if not (all(np.array_equal(f0["x"][k], f1["x"][k]) for k in f0["x"])
+            and np.array_equal(f0["tau"], f1["tau"], equal_nan=True)
+            and f0["report"] == f1["report"]):
+        raise AssertionError("resilience: (f) mesh run differs")
+    emit({"phase": "resilience", "gpu": smi, "B": B_MAIN,
+          "chunk_size": CKPT_CHUNK, "walls_s": walls,
+          "cond_per_s_checkpointed_warm": B_MAIN / walls["a_warm"],
+          "cond_per_s_phase3": B_MAIN / wall3,
+          "a_tau_max_rel_vs_phase3": float(rel.max()),
+          "a_tau_lanes_bit_equal_phase3": tau_bit,
+          "b_child_rc": kid.rc, "b_chunks_on_disk": on_disk,
+          "d_deadline_s": DEADLINE_S, "d_ledger": rows,
+          "e_lanes": list(lanes),
+          "e_provenance": prov[list(lanes)].tolist(),
+          "e_lanes_bit_equal": int(lanes_equal(a, e).sum()),
+          "e_tau_max_rel": float(rel_e.max()),
+          "f_mesh": repr(mesh), "lanes_bit_equal_to_a": B_MAIN,
+          "lu32p_launches_by_path": by_step["a_warm"],
+          "lu32p_launches_by_step": by_step})
+    return d["a"]
+
+
+def phase_multihost(dir_a, out3, smi, by_phase):
+    """Phase 21: two child processes on cuda:0 in one gloo group,
+    ``ensemble_solve_multihost`` over phase 3's lanes against phase 3,
+    then ``elastic_checkpointed_sweep`` with rank 1 killed before it saves
+    its second chunk: the survivor takes it over and every chunk equals
+    phase 20 (a)'s bit for bit."""
+    import socket
+
+    from batchreactor_tpu_torch.parallel import checkpoint as ck
+
+    tmp = tempfile.mkdtemp(prefix="br_multihost_")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    kids = run_children(
+        [{"kind": "multihost", "rank": r, "world": 2, "port": port,
+          "dir": tmp, "inject": "kill:chunk=3" if r == 1 else None}
+         for r in range(2)], timeout=400)
+    wall = time.perf_counter() - t0
+    r1 = child_result(kids[1], "multihost rank 1", rc=137)
+    r0 = child_result(kids[0], "multihost rank 0")
+    with np.load(os.path.join(tmp, "multihost.npz")) as z:
+        status, tau = z["status"], z["tau"]
+    rel = np.abs(tau / out3["tau"] - 1.0)
+    if not (np.array_equal(status, out3["status"]) and rel.max() <= 1e-3):
+        raise AssertionError(f"multihost: status or tau (max rel "
+                             f"{rel.max()}) off phase 3")
+    el = os.path.join(tmp, "elastic")
+    n_chunks = B_MAIN // CKPT_CHUNK
+    names = sorted(n for n in os.listdir(el) if n.endswith(".npz"))
+    if names != [f"chunk_{i:05d}.npz" for i in range(n_chunks)]:
+        raise AssertionError(f"multihost: elastic chunks {names}")
+    for i in range(n_chunks):
+        got, _ = ck.load_result(os.path.join(el, names[i]))
+        want, _ = ck.load_result(os.path.join(dir_a, names[i]))
+        eq = lanes_equal(ckpt_fields(want), ckpt_fields(got))
+        if not eq.all():
+            raise AssertionError(f"multihost: elastic chunk {i} equals "
+                                 f"phase 20 (a) on {int(eq.sum())} lanes")
+    if r0["elastic_counts"]["chunks_reassigned"] < 1:
+        raise AssertionError(f"multihost: {r0['elastic_counts']}")
+    # the launches of both ranks: rank 1's elastic run died before its
+    # report, so its count is the collective solve's alone
+    by = {p: r0["multihost_lu32p_launches_by_path"][p]
+          + r0["elastic_lu32p_launches_by_path"][p]
+          + r1["multihost_lu32p_launches_by_path"][p]
+          for p in ("warp", "cta")}
+    check_launches("multihost", by, "warp")
+    by_phase["multihost"] = by
+    emit({"phase": "multihost", "gpu": smi, "B": B_MAIN, "processes": 2,
+          "backend": "gloo", "device": "cuda:0 in both", "wall_s": wall,
+          "rank0": r0, "rank1": r1, "rank1_rc": kids[1].rc,
+          "tau_max_rel_vs_phase3": float(rel.max()),
+          "tau_lanes_bit_equal_phase3": int((tau == out3["tau"]).sum()),
+          "elastic_chunks_bit_equal_phase20a": n_chunks,
+          "lu32p_launches_by_path": by})
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms,
                       pipeline):
     """Where the main path's time goes in one gear: the sweep under
@@ -1579,6 +1896,9 @@ def profile_gears(bt, gm, th, device, smi):
 def main():
     import torch
 
+    if "--child" in sys.argv[1:]:
+        return child_main(json.loads(sys.argv[sys.argv.index("--child")
+                                              + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -1895,18 +2215,25 @@ def main():
                 by_phase)
     phase_linsolve_ab(gm, th, Ts, device, smi, by_phase)
 
-    # ---- phases 15-17: padding, forward and adjoint sensitivities --------
+    # ---- phases 15-21: padding, sensitivities, the gears, the stream, ---
+    # ---- checkpointing and resilience, the multi-process tiers -----------
     walls = {}
+    ckpt_dir = []
+    out3 = {"status": out["status"], "tau": tau}
     for name, run in (
             ("padded_gas", lambda: phase_padded(bt, gm, th, T, tau, rep_main,
                                                 device, smi, by_phase)),
-            ("sens_forward", lambda: phase_sens_forward(gm, th, T, device,
+            ("sens_forward", lambda: phase_sens_forward(gm, th, device,
                                                         smi, by_phase)),
             ("adjoint", lambda: phase_adjoint(gm, th, T, device, smi)),
             ("gears", lambda: phase_gears(bt, gm, th, sm, T, device, smi,
                                           by_phase)),
             ("stream", lambda: phase_stream(gm, th, device, smi,
-                                            by_phase))):
+                                            by_phase)),
+            ("resilience", lambda: ckpt_dir.append(phase_resilience(
+                bt, gm, th, T, out3, wall, device, smi, by_phase))),
+            ("multihost", lambda: phase_multihost(ckpt_dir[0], out3, smi,
+                                                  by_phase))):
         t0 = time.perf_counter()
         run()
         walls[name] = time.perf_counter() - t0

@@ -47,7 +47,11 @@ def test_port_files_found():
             "parallel/sweep.py", "aot/buckets.py", "models/padding.py",
             "sensitivity/params.py", "sensitivity/forward.py",
             "sensitivity/adjoint.py", "sensitivity/rank.py",
-            "tools/sens_rank.py"} <= names
+            "tools/sens_rank.py", "parallel/checkpoint.py",
+            "parallel/multihost.py", "resilience/watchdog.py",
+            "resilience/policy.py", "resilience/inject.py",
+            "resilience/quarantine.py", "resilience/heartbeat.py",
+            "resilience/guard.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
 
 
@@ -79,13 +83,19 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
     kw = dict(chem=bt.Chemistry(gaschem=True), thermo_obj=th, md=gm,
               device="cpu")
     for opt, item in (({"telemetry": True}, "A14"),
-                      ({"quarantine": True}, "A12"),
-                      ({"mesh": object()}, "A12"),
-                      ({"live_metrics": 0}, "A14"),
-                      ({"fetch_deadline": 5.0, "segment_steps": 16}, "A12")):
+                      ({"timeline": 8}, "A14"),
+                      ({"quarantine": {"oracle": True}}, "A16"),
+                      ({"live_metrics": 0}, "A14")):
         with pytest.raises(NotImplementedError, match=item):
             bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
                                    **opt)
+    # what the eighth slice ported runs: the quarantine, a mesh and the
+    # watchdog deadline
+    for opt in ({"quarantine": True}, {"mesh": bt.Mesh(["cpu"])},
+                {"fetch_deadline": 60.0, "segment_steps": 16}):
+        out = bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.2, "N2": 0.5},
+                                     1200.0, 1e5, 1e-7, **kw, **opt)
+        assert out["report"]["counts"] == {"success": 1}, opt
     # what the seventh slice ported runs: the gears, buckets, admission
     # and the jacfwd fallback
     for opt in ({"pipeline": False, "segment_steps": 16},
@@ -125,11 +135,20 @@ def test_c5_reference_options_raise_not_implemented_naming_their_item():
                       ({"step_audit": True}, "A14")):
         with pytest.raises(NotImplementedError, match=item):
             bdf.solve(rhs, y0, 0.0, 1.0, {}, linsolve="lu", **opt)
-    for opt, item in (({"axis": "lanes"}, "A12"),
-                      ({"mesh_resident": 1}, "A12"),
-                      ({"_on_harvest": object()}, "A15"),
+    for opt, item in (({"stats": True}, "A14"),
+                      ({"recorder": object()}, "A14"),
                       ({"_feed": object()}, "A15")):
         with pytest.raises(NotImplementedError, match=item):
+            ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                                     **opt)
+    # the eighth slice's options run, or raise the JAX package's
+    # ValueError outside the streaming driver
+    res = ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                                   axis="lanes", fetch_deadline=60.0,
+                                   mesh=bt.Mesh(["cpu"], ("lanes",)))
+    assert int(res.status[0]) == 1
+    for opt in ({"mesh_resident": 1}, {"_on_harvest": print}):
+        with pytest.raises(ValueError, match="admission"):
             ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
                                      **opt)
     # err0 is accepted and ignored by the BDF, as the JAX package does
@@ -142,5 +161,6 @@ def test_c5_reference_options_raise_not_implemented_naming_their_item():
     assert bt.InputData is not None and callable(bt.input_data)
     for name in ("InputData", "input_data", "SensitivityProblem",
                  "SensitivitySolution", "sensitivity", "mech_shape_class",
-                 "pad_gas_mechanism", "pad_states", "pad_thermo"):
+                 "pad_gas_mechanism", "pad_states", "pad_thermo", "Mesh",
+                 "checkpointed_sweep", "resilience"):
         assert name in bt.__all__, name

@@ -203,7 +203,8 @@ def test_ensemble_solve_knob_errors(h2o2):
     with pytest.raises(ValueError, match="unknown method"):
         par.ensemble_solve(rhs, y0, 0.0, 1e-6, cfg, method="rk45")
     for solve in (par.ensemble_solve, par.ensemble_solve_segmented):
-        with pytest.raises(NotImplementedError, match="A12"):
+        # mesh= is ported (ROADMAP A12): it takes a parallel.Mesh
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             solve(rhs, y0, 0.0, 1e-6, cfg, mesh=object())
 
 
