@@ -34,6 +34,7 @@ that the port does not have yet raise ``NotImplementedError`` naming their
 ROADMAP item.
 """
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -217,11 +218,6 @@ def _host(x):
     return np.asarray(x, dtype=np.float64)
 
 
-_SWEEP_DEFERRED = (
-    ("telemetry", False, "A14"), ("timeline", None, "A14"),
-    ("live_metrics", None, "A14"),
-)
-
 # the sweep's (rhs, jac, observer, observer_init) per (chemistry, mechanism
 # identities, options): repeated sweeps of one mechanism get the same
 # callables, so the pipelined gear replays the graphs it captured for them
@@ -369,7 +365,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                         buckets=None, admission=None, refill=None,
                         species_buckets=None, reaction_buckets=None,
                         mech_operands=False, mesh=None, fetch_deadline=None,
-                        quarantine=None, device=None, **deferred):
+                        quarantine=None, telemetry=False, timeline=None,
+                        live_metrics=None, device=None):
     """Ensemble form: one lane per condition, all lanes solved together.
 
     Chemistry modes: gas (``md=`` or ``gmd=``), surface (``md=`` or
@@ -453,7 +450,26 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     (``resilience/quarantine.py``); ``out["provenance"]`` holds each
     lane's recovery code and ``out["report"]["quarantine"]`` the counts.
     Its ``oracle=True`` rung waits for ROADMAP A16.
+
+    ``telemetry=True`` adds ``out["telemetry"]``, the ``br-obs-v1``
+    report (``obs/``): the ``solve`` span with the driver's ``segment``/
+    ``poll``/``compact`` spans under it, the recorder counters (host syncs
+    as ``blocking_syncs``, graph replays, occupancy), each lane's solver
+    counters (``solver_stats``: totals and ``per_lane``) and the compile
+    watch (graphs captured, programs built).  ``timeline=N`` (with
+    ``telemetry``) adds each lane's last N step attempts to the per-lane
+    block (``obs/timeline.py``; ``tools/obs_report.py --timeline``).
+    ``live_metrics`` serves ``/metrics`` and ``/healthz`` for the duration
+    of the sweep from a background thread (``True``: an ephemeral port,
+    an int: that port; ``None`` resolves from ``BR_METRICS_PORT``), fed at
+    the driver's status polls; the bound port is the report's
+    ``meta["live_port"]``.  With telemetry off the solver carry and the
+    return shape are unchanged.
     """
+    from .obs import (CompileWatch, LiveRegistry, MetricsServer, Recorder,
+                      build_report)
+    from .obs.live import resolve_live_metrics
+    from .obs.timeline import validate as validate_timeline
     from .parallel.sweep import _check_mesh, _mesh_devices, _mesh_map
     from .resilience import quarantine as _quarantine
     from .resilience.policy import fallback_kwargs, normalize_quarantine
@@ -505,7 +521,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                 "mech_operands=True builds its analytic Jacobian inside the "
                 "bundle builder; analytic_jac is not configurable there — "
                 "drop the argument")
-    check_deferred(deferred, _SWEEP_DEFERRED)
+    timeline = validate_timeline(timeline, telemetry)
+    live_port = resolve_live_metrics(live_metrics)
     if admission not in (None, False) and mesh is not None:
         raise ValueError(
             "admission= is incompatible with mesh= (parallel/sweep.py "
@@ -611,7 +628,18 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     solve_kw = dict(rtol=rtol, atol=atol, method=method,
                     jac_window=jac_window, linsolve=linsolve,
                     newton_tol=newton_tol, setup_economy=setup_economy,
-                    stale_tol=stale_tol)
+                    stale_tol=stale_tol, stats=telemetry, timeline=timeline)
+    # a live endpoint needs a recorder for its counters even with the
+    # solver counters off: host bookkeeping, no change to the carry
+    rec = Recorder() if (telemetry or live_port is not None) else None
+    watch = CompileWatch(recorder=rec, default_label="sweep")
+    registry = server = None
+    if live_port is not None:
+        registry = LiveRegistry(recorder=rec, meta={
+            "entry": "batch_reactor_sweep", "mode": mode, "lanes": B})
+        server = MetricsServer(registry, port=live_port)
+    obs_kw = dict(recorder=rec, live=registry,
+                  watch=watch if telemetry else None)
     if segment_steps > 0:
         seg = dict(segment_steps=segment_steps, pipeline=pipeline,
                    poll_every=poll_every, admission=admission,
@@ -619,28 +647,38 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     else:
         seg = dict(segment_steps=int(max_steps), max_segments=1)
 
-    def primary():
+    def primary(obs_kw=None):
+        obs_kw = obs_kw or {}
         if mesh is None:
             return ensemble_solve_segmented(
                 rhs, y0s, 0.0, float(time), cfgs, jac=jac,
                 observer=observer, observer_init=obs0, buckets=buckets,
-                **solve_kw, **seg)
+                **solve_kw, **seg, **obs_kw)
 
         def shard(dev, y, c):
             r, j, o, o0 = fns(dev)
             return ensemble_solve_segmented(
                 r, y, 0.0, float(time), c, jac=j, observer=o,
-                observer_init=o0, **solve_kw, **seg)
+                observer_init=o0, _live_source=f"sweep-{dev}", **solve_kw,
+                **seg, **obs_kw)
 
         y_m, c_m, _ = pad_to_bucket(y0s, cfgs, bucket)
         return unpad_result(_mesh_map(mesh, y_m, c_m, shard), B)
 
-    res = primary()
+    with contextlib.ExitStack() as stack:
+        if server is not None:
+            stack.enter_context(server)
+        if telemetry:
+            stack.enter_context(watch)
+            stack.enter_context(rec.span("solve", lanes=B))
+        bound_port = server.port if server is not None else None
+        res = primary(obs_kw)
     prov = None
     if qpol is not None:
         def subset(y_sub, c_sub, pass_name):
             if pass_name == "retry":
-                # the identical call: same program, same batch shape
+                # the identical call: same program, same batch shape (no
+                # recorder: the re-solve's spans would count twice)
                 return primary()
             kw = fallback_kwargs(qpol, {"rtol": rtol, "atol": atol,
                                         "max_steps": max_steps})
@@ -654,7 +692,7 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                 max_attempts=ms)
 
         res, prov = _quarantine.resolve(res, y0s, cfgs, subset,
-                                        policy=qpol)
+                                        policy=qpol, recorder=rec)
 
     ng = len(species)
     y_end = res.y.cpu().numpy()
@@ -683,10 +721,22 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
         out["ignition_delay"] = extract_delay(res.observed)
     if ignition_marker is not None:
         out["tau"] = res.observed["tau"].cpu().numpy()
+    if telemetry:
+        out["telemetry"] = build_report(
+            recorder=rec, solver_stats=res.stats, watch=watch,
+            meta={"entry": "batch_reactor_sweep", "mode": mode,
+                  "method": method, "lanes": B, "bucket": bucket,
+                  "segmented": bool(segment_steps > 0),
+                  "admission": admission not in (None, False),
+                  "mech_shape": None if s_pad is None else [
+                      int(s_pad), int(gm_k.n_reactions)],
+                  "mech_operands": bool(mech_operands), "energy": energy,
+                  "linsolve": linsolve, "jac_window": jac_window,
+                  "timeline": timeline, "live_port": bound_port})
     return out
 
 
-_RUN_DEFERRED = (("backend", None, "A16"), ("telemetry", False, "A14"))
+_RUN_DEFERRED = (("backend", None, "A16"),)
 
 
 @functools.lru_cache(maxsize=32)
@@ -708,11 +758,13 @@ def _segmented_builder(mode, udf, kc_compat, asv_quirk, exp32):
 
 
 def _run_solve(builder, bundle, y0, T, Asv, t1, *, rtol, atol, n_save,
-               max_steps, method, jac_window, segmented):
+               max_steps, method, jac_window, segmented, stats=False,
+               recorder=None, watch=None):
     """One condition through the sweep driver (B = 1), its RHS and
     Jacobian built by ``builder`` from the mechanism ``bundle``; returns
-    (status, t_end, y_end, ts, ys, truncated, n_acc, n_rej) with ts/ys
-    including the initial row."""
+    (status, t_end, y_end, ts, ys, truncated, n_acc, n_rej, stats) with
+    ts/ys including the initial row and ``stats`` the lane's counter block
+    (None unless ``stats``)."""
     dev = y0.device
     jac_window = resolve_jac_window(jac_window, method, dev)
     seg_steps = (min(512, int(max_steps)) if segmented in (None, True)
@@ -725,20 +777,26 @@ def _run_solve(builder, bundle, y0, T, Asv, t1, *, rtol, atol, n_save,
         rtol=rtol, atol=atol, n_save=n_save, segment_steps=seg_steps,
         max_segments=max(1, -(-int(max_steps) // seg_steps)),
         max_attempts=int(max_steps), rhs_bundle=bundle, method=method,
-        jac_window=jac_window)
+        jac_window=jac_window, stats=stats, recorder=recorder, watch=watch)
     y_end = res.y[0].cpu().numpy()
     ts, ys, truncated = trim_trajectory(
         0.0, y0.cpu().numpy(), res.ts[0].numpy(), res.ys[0].numpy(),
         res.n_saved[0], res.n_accepted[0], res.t[0], y_end)
     return (_status_str(res.status[0]), float(res.t[0]), y_end, ts, ys,
-            truncated, int(res.n_accepted[0]), int(res.n_rejected[0]))
+            truncated, int(res.n_accepted[0]), int(res.n_rejected[0]),
+            None if res.stats is None else {k: v[0] for k, v in
+                                            res.stats.items()})
 
 
 def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
-                      kc_compat, asv_quirk, exp32, device, solve_kw):
-    """Dict-in/dict-out form: ``(accepted_times, {species: final x})``.
-    Gas (``md`` a GasMechanism) or surface (``md`` a SurfaceMechanism),
-    never both, as in the reference."""
+                      kc_compat, asv_quirk, exp32, device, solve_kw,
+                      telemetry=False):
+    """Dict-in/dict-out form: ``(accepted_times, {species: final x})``, or
+    with ``telemetry`` ``(accepted_times, fractions, report)``.  Gas
+    (``md`` a GasMechanism) or surface (``md`` a SurfaceMechanism), never
+    both, as in the reference."""
+    from .obs import CompileWatch, Recorder, build_report
+
     if chem.surfchem and chem.gaschem:
         # the reference's programmatic method overwrites the surface
         # parameters with the gas ones when both flags are set
@@ -759,9 +817,16 @@ def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
     x0 = parse_composition_text(comp_text, species)
     y0 = get_solution_vector(x0, thermo_obj.molwt, float(T), float(p),
                              ini_covg=sm.ini_covg if sm is not None else None)
-    status, t_end, y_end, ts, _, _, _, _ = _run_solve(
-        _segmented_builder(mode, None, kc_compat, asv_quirk, exp32),
-        (gm, sm, thermo_obj), y0, T, Asv, time, **solve_kw)
+    rec = Recorder() if telemetry else None
+    watch = CompileWatch(recorder=rec, default_label="solve")
+    with contextlib.ExitStack() as stack:
+        if telemetry:
+            stack.enter_context(watch)
+            stack.enter_context(rec.span("solve"))
+        status, t_end, y_end, ts, _, _, _, _, run_stats = _run_solve(
+            _segmented_builder(mode, None, kc_compat, asv_quirk, exp32),
+            (gm, sm, thermo_obj), y0, T, Asv, time, stats=telemetry,
+            recorder=rec, watch=watch if telemetry else None, **solve_kw)
     if status != "Success":
         raise RuntimeError(
             f"batch_reactor integration failed with {status} at "
@@ -769,7 +834,13 @@ def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
     ng = len(species)
     moles = y_end[:ng] / thermo_obj.molwt.cpu().numpy()
     x_end = moles / moles.sum()
-    return ts, dict(zip(species, x_end.tolist()))
+    x_out = dict(zip(species, x_end.tolist()))
+    if telemetry:
+        return ts, x_out, build_report(
+            recorder=rec, solver_stats=run_stats, watch=watch,
+            meta={"entry": "batch_reactor", "mode": mode,
+                  "backend": "torch", "method": solve_kw["method"]})
+    return ts, x_out
 
 
 def _default_theta(gm, sm):
@@ -792,10 +863,13 @@ def _host_tree(d):
 def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
                      sens_params, sens_qoi, sens_grid, rtol, atol,
                      max_steps, kc_compat, asv_quirk, exp32, method,
-                     jac_window, segmented):
+                     jac_window, segmented, telemetry=False, recorder=None):
     """Solve with sensitivities (``sens="forward"|"adjoint"``), one lane;
-    returns a :class:`SensitivitySolution`.  ``y0`` (n,) and ``cfg`` come
-    from the plain solve's construction in :func:`_file_driven_run`."""
+    returns a :class:`SensitivitySolution`, or with ``telemetry`` the
+    triple ``(solution, solver_stats, watch)`` the file-driven caller
+    folds into its report.  ``y0`` (n,) and ``cfg`` come from the plain
+    solve's construction in :func:`_file_driven_run`."""
+    from .obs import CompileWatch
     from .sensitivity import adjoint as adj_mod
     from .sensitivity import forward as fwd_mod
     from .sensitivity import params as sp_mod
@@ -884,16 +958,23 @@ def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
                 f"[, frac]); got {sens_qoi!r}")
 
     y0b = y0[None]
+    watch = CompileWatch(recorder=recorder, default_label=f"sens-{sens}")
+    tel = dict(stats=telemetry, recorder=recorder if telemetry else None)
+
+    def lane0(st):
+        return None if st is None else {k: v[0] for k, v in st.items()}
+
     if sens == "forward":
         def jac_fixed(t, y, cfg):
             return jac_theta(t, y, theta, cfg)
 
         # tangent error control on: the caller never sees the controller,
         # and a few more steps buy tighter tangents
-        res = fwd_mod.solve_forward(
-            rhs_theta, y0b, 0.0, id_.tf, theta, cfg, rtol=rtol, atol=atol,
-            max_steps=max_steps, jac=jac_fixed, jac_window=jac_window,
-            sens_errcon=True)
+        with (watch if telemetry else contextlib.nullcontext()):
+            res = fwd_mod.solve_forward(
+                rhs_theta, y0b, 0.0, id_.tf, theta, cfg, rtol=rtol,
+                atol=atol, max_steps=max_steps, jac=jac_fixed,
+                jac_window=jac_window, sens_errcon=True, **tel)
         S = res.tangents[0]
         qoi = qoi_grad = None
         if qoi_idx is not None:
@@ -901,13 +982,14 @@ def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
             qoi = float(res.y[0, qoi_idx])
             _, unflat = sp_mod.flatten(theta)
             qoi_grad = _host_tree(unflat(S[:, qoi_idx]))
-        return SensitivitySolution(
+        sol = SensitivitySolution(
             status=_status_str(res.status[0]), t=float(res.t[0]),
             y=res.y[0].cpu().numpy(), species=id_.species,
             surface_species=surf_species, spec=spec, theta=theta,
             names=names, tangents=S.cpu().numpy(), qoi=qoi,
             qoi_grad=qoi_grad, n_accepted=int(res.n_accepted[0]),
             n_rejected=int(res.n_rejected[0]))
+        return (sol, lane0(res.stats), watch) if telemetry else sol
 
     # ---- adjoint -----------------------------------------------------------
     if qoi_fn is None:
@@ -918,10 +1000,11 @@ def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
     # segments is not an API knob: round the grid up to the adjoint's
     # segment count (the buffer size is a capacity, not a semantic)
     sens_grid = max(8, -(-int(sens_grid) // 8) * 8)
-    qoi, grad, aux = adj_mod.solve_adjoint(
-        rhs_theta, qoi_fn, y0b, 0.0, id_.tf, theta, cfg,
-        jac_theta=jac_theta, rtol=rtol, atol=atol, grid_size=sens_grid,
-        segments=8, max_steps=max_steps, jac_window=jac_window)
+    with (watch if telemetry else contextlib.nullcontext()):
+        qoi, grad, aux = adj_mod.solve_adjoint(
+            rhs_theta, qoi_fn, y0b, 0.0, id_.tf, theta, cfg,
+            jac_theta=jac_theta, rtol=rtol, atol=atol, grid_size=sens_grid,
+            segments=8, max_steps=max_steps, jac_window=jac_window, **tel)
     truncated = bool(aux["truncated"][0])
     if truncated:
         # unconditional: a truncated grid means the re-solve stopped short
@@ -930,28 +1013,42 @@ def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
               f"accepted {int(aux['n_accepted'][0])} steps > sens_grid="
               f"{sens_grid}); the fixed-grid re-solve lost resolution — "
               f"raise sens_grid", file=sys.stderr)
-    return SensitivitySolution(
+    sol = SensitivitySolution(
         status=_status_str(aux["status"][0]), t=float(aux["t"][0]),
         y=aux["y"][0].cpu().numpy(), species=id_.species,
         surface_species=surf_species, spec=spec, theta=theta, names=names,
         qoi=float(qoi[0]), qoi_grad=_host_tree(grad),
         n_accepted=int(aux["n_accepted"][0]),
         n_rejected=int(aux["n_rejected"][0]), truncated=truncated)
+    return (sol, lane0(aux["stats"]), watch) if telemetry else sol
 
 
 def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
                      kc_compat, asv_quirk, exp32, verbose, device, solve_kw,
-                     sens_kw=None):
+                     sens_kw=None, telemetry=False):
     """Parse the XML, solve, write the profile files next to it and
     return the status string; with ``sens`` (normalized by
     :func:`_normalize_sens`) return the :class:`SensitivityProblem` or the
-    :class:`SensitivitySolution` instead, writing no files."""
+    :class:`SensitivitySolution` instead, writing no files.
+    ``telemetry=True`` returns ``(result, report)`` with the ``obs``
+    report (``parse``/``solve``/``write`` spans, the solver counters, the
+    compile watch)."""
+    from .obs import CompileWatch, Recorder, build_report
+
     mode = _mode(chem)
-    id_ = input_data(input_file, lib_dir, chem, device=device)
+    rec = Recorder()
+    with rec.span("parse", input=os.path.basename(input_file)):
+        id_ = input_data(input_file, lib_dir, chem, device=device)
     surf_species = id_.smd.species if id_.smd is not None else None
     y0 = get_solution_vector(
         id_.mole_fracs, id_.thermo.molwt, id_.T, id_.p,
         ini_covg=id_.smd.ini_covg if id_.smd is not None else None)
+
+    def meta(**extra):
+        return {"entry": "batch_reactor", "mode": mode, "backend": "torch",
+                "method": solve_kw["method"],
+                "input": os.path.basename(input_file), **extra}
+
     if sens is not None:
         dev = y0.device
         cfg = {"T": torch.full((1,), float(id_.T), dtype=torch.float64,
@@ -960,21 +1057,40 @@ def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
                                  device=dev)}
         if sens == "hook":
             spec, theta = _default_theta(id_.gmd, id_.smd)
-            return SensitivityProblem(
+            prob = SensitivityProblem(
                 rhs=_make_rhs(mode, chem.udf, id_.gmd, id_.smd, id_.thermo,
                               kc_compat, asv_quirk, exp32),
                 y0=y0, cfg=cfg, t_span=(0.0, id_.tf), species=id_.species,
                 surface_species=surf_species, theta=theta, spec=spec)
-        return _sensitivity_run(
+            if telemetry:
+                # nothing solved: the report carries the parse span only
+                return prob, build_report(recorder=rec,
+                                          meta=meta(sens="hook"))
+            return prob
+        sol = _sensitivity_run(
             sens, mode, id_, y0, cfg, surf_species, kc_compat=kc_compat,
             asv_quirk=asv_quirk, exp32=exp32, rtol=solve_kw["rtol"],
             atol=solve_kw["atol"], max_steps=solve_kw["max_steps"],
             method=solve_kw["method"], jac_window=solve_kw["jac_window"],
-            segmented=solve_kw["segmented"], **sens_kw)
-    status, t_end, _, ts, ys, truncated, n_acc, n_rej = _run_solve(
-        _segmented_builder(mode, chem.udf, kc_compat, asv_quirk, exp32),
-        (id_.gmd, id_.smd, id_.thermo), y0, id_.T, id_.Asv, id_.tf,
-        **solve_kw)
+            segmented=solve_kw["segmented"], telemetry=telemetry,
+            recorder=rec, **sens_kw)
+        if telemetry:
+            sol, stats, watch = sol
+            return sol, build_report(recorder=rec, solver_stats=stats,
+                                     watch=watch, meta=meta(sens=sens))
+        return sol
+    watch = CompileWatch(recorder=rec, default_label="solve")
+    with contextlib.ExitStack() as stack:
+        if telemetry:
+            stack.enter_context(watch)
+        with rec.span("solve"):
+            (status, t_end, _, ts, ys, truncated, n_acc, n_rej,
+             run_stats) = _run_solve(
+                _segmented_builder(mode, chem.udf, kc_compat, asv_quirk,
+                                   exp32),
+                (id_.gmd, id_.smd, id_.thermo), y0, id_.T, id_.Asv, id_.tf,
+                stats=telemetry, recorder=rec if telemetry else None,
+                watch=watch if telemetry else None, **solve_kw)
     if verbose:
         # the reference prints every accepted time (@printf("%4e\n",t));
         # ts[0] is the initial row and a truncated run's last row is a
@@ -987,12 +1103,18 @@ def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
               f"profile files skip the overflow but end at the true final "
               f"state", file=sys.stderr)
     out_dir = os.path.dirname(os.path.abspath(input_file))
-    write_profiles(out_dir, id_.species, ts, ys, id_.T,
-                   id_.thermo.molwt.cpu().numpy(),
-                   surface_species=surf_species)
+    with rec.span("write"):
+        write_profiles(out_dir, id_.species, ts, ys, id_.T,
+                       id_.thermo.molwt.cpu().numpy(),
+                       surface_species=surf_species)
     if verbose:
         print(f"t = {t_end:.4e} s  "
               f"({n_acc} accepted / {n_rej} rejected steps)")
+        # the phase breakdown, to stderr
+        print("phases:\n" + rec.pretty(), file=sys.stderr)
+    if telemetry:
+        return status, build_report(recorder=rec, solver_stats=run_stats,
+                                    watch=watch, meta=meta())
     return status
 
 
@@ -1001,7 +1123,8 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
                   n_save=16384, max_steps=200_000, kc_compat=False,
                   asv_quirk=True, verbose=True, segmented=None, method="bdf",
                   jac_window=None, sens_params=None, sens_qoi=None,
-                  sens_grid=512, exp32=False, device=None, **deferred):
+                  sens_grid=512, exp32=False, telemetry=False, device=None,
+                  **deferred):
     """Simulate an isothermal constant-volume batch reactor.
 
     File-driven:   ``batch_reactor(input_file, lib_dir, surfchem=,
@@ -1033,7 +1156,13 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
     ``sens_qoi`` is a gas species name (final mass density) or
     ``("ignition", marker[, frac])`` (adjoint only); ``sens_grid`` sizes
     the adjoint's fixed re-solve grid.  Sensitivity runs are BDF,
-    monolithic (``segmented`` unset) and write no profile files."""
+    monolithic (``segmented`` unset) and write no profile files.
+
+    ``telemetry=True`` also returns the ``obs`` report (``br-obs-v1``:
+    spans, the solver's counters, the compile watch): ``(status, report)``
+    from the file-driven forms (``(solution, report)`` with ``sens``) and
+    ``(times, fractions, report)`` from the programmatic one; render it
+    with ``tools/obs_report.py``.  Off, every return shape is unchanged."""
     check_deferred(deferred, _RUN_DEFERRED)
     sens = _normalize_sens(sens)
     if method not in ("bdf", "sdirk"):
@@ -1057,7 +1186,8 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
                 "sens is a file-driven-form knob; the programmatic "
                 "dict-in/dict-out form does not support it")
         return _programmatic_run(*args, Asv=Asv, chem=chem,
-                                 thermo_obj=thermo_obj, md=md, **chem_kw)
+                                 thermo_obj=thermo_obj, md=md,
+                                 telemetry=telemetry, **chem_kw)
     if len(args) == 3 and callable(args[2]):
         chem = Chemistry(False, False, True, args[2])
     elif len(args) == 2:
@@ -1069,4 +1199,4 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
     return _file_driven_run(
         args[0], args[1], chem, sens, n_save=n_save, verbose=verbose,
         sens_kw=dict(sens_params=sens_params, sens_qoi=sens_qoi,
-                     sens_grid=sens_grid), **chem_kw)
+                     sens_grid=sens_grid), telemetry=telemetry, **chem_kw)

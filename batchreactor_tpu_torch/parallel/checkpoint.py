@@ -14,8 +14,15 @@ corrupt one instead of crashing, ``retry=`` re-solves failed or wedged
 chunks with exponential backoff and a per-chunk attempt ledger in the
 manifest, ``chunk_budget_s=`` bounds each chunk's device wait, and
 ``quarantine=`` re-solves non-success lanes before a chunk is saved, with
-per-lane provenance in the chunk.  ``recorder=`` waits for ROADMAP A14
-and ``oracle=`` for A16 (``NotImplementedError``).
+per-lane provenance in the chunk.  ``oracle=`` waits for ROADMAP A16
+(``NotImplementedError``).
+
+Telemetry (``obs/``): ``recorder=`` gets ``chunk_solve``, ``chunk_load``
+and ``chunk_save`` spans, ``fault`` events and the fault counters
+(``obs.counters.FAULT_KEYS``); with ``stats=True`` in the solve options
+each lane's counter block persists in its chunk under ``stat_*`` keys.
+An armed flight recorder (``obs.arm_flight``) dumps its ring when a
+chunk's retries are exhausted.
 """
 
 import concurrent.futures as _futures
@@ -30,6 +37,8 @@ import zipfile
 import numpy as np
 import torch
 
+from ..obs.live import flight_dump, flight_note_counters
+from ..obs.recorder import Recorder
 from ..solver.common import SolveResult, check_deferred
 from ..solver.graphs import tree_map
 from .sweep import ensemble_solve, ensemble_solve_segmented
@@ -43,7 +52,7 @@ _CORRUPT_ERRORS = (zipfile.BadZipFile, OSError, EOFError, KeyError,
                    ValueError)
 
 # (keyword, default, ROADMAP item) of checkpointed_sweep's deferred options
-_DEFERRED = (("recorder", None, "A14"), ("oracle", None, "A16"))
+_DEFERRED = (("oracle", None, "A16"),)
 
 #: chunk counters since they were last set to 0: ``chunks_solved`` (chunk
 #: solves that completed, retries not counted twice) and ``chunks_corrupt``
@@ -76,13 +85,19 @@ def _obs_dict(res):
 
 def host_result(res):
     """The checkpointed part of a SolveResult as host (CPU) tensors:
-    ``_FIELDS``, the observer fold and the provenance, each an owned copy
-    (the pipelined gear's next chunk overwrites its device buffers)."""
+    ``_FIELDS``, the observer fold, the stats block and the provenance,
+    each an owned copy (the pipelined gear's next chunk overwrites its
+    device buffers)."""
     obs = _obs_dict(res)
+
+    def own(d):
+        return (None if d is None else
+                {k: torch.as_tensor(v).detach().cpu().clone()
+                 for k, v in d.items()})
+
     return SolveResult(
         **{f: getattr(res, f).detach().cpu().clone() for f in _FIELDS},
-        observed=(None if obs is None else
-                  {k: v.detach().cpu().clone() for k, v in obs.items()}),
+        observed=own(obs), stats=own(res.stats),
         provenance=(None if res.provenance is None
                     else res.provenance.detach().cpu().clone()))
 
@@ -91,13 +106,15 @@ def save_result(path, res, cfgs=None):
     """Write a (batched) SolveResult [+ conditions] to one .npz, crash-
     atomically: the payload lands in ``<path>.tmp.npz`` and is
     ``os.replace``d into place.  Per-lane provenance persists as
-    ``prov``, the observer fold as ``obs_*``, the conditions as
-    ``cfg_*``."""
+    ``prov``, the observer fold as ``obs_*``, the stats block as
+    ``stat_*``, the conditions as ``cfg_*``."""
     payload = {f: _host(getattr(res, f)) for f in _FIELDS}
     obs = _obs_dict(res)
     if obs is not None:
         for k, v in obs.items():
             payload[f"obs_{k}"] = _host(v)
+    for k, v in (res.stats or {}).items():
+        payload[f"stat_{k}"] = _host(torch.as_tensor(v))
     if res.provenance is not None:
         payload["prov"] = np.asarray(_host(res.provenance), dtype=np.int8)
     for k, v in (cfgs or {}).items():
@@ -113,8 +130,10 @@ def load_result(path):
     with np.load(path) as z:
         obs = {k[4:]: torch.from_numpy(z[k]) for k in z.files
                if k.startswith("obs_")}
+        stats = {k[5:]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("stat_")}
         res = SolveResult(**{f: torch.from_numpy(z[f]) for f in _FIELDS},
-                          observed=obs or None,
+                          observed=obs or None, stats=stats or None,
                           provenance=(torch.from_numpy(z["prov"])
                                       if "prov" in z.files else None))
         cfgs = {k[4:]: torch.from_numpy(z[k]) for k in z.files
@@ -126,10 +145,13 @@ def _concat_results(parts):
     """Host chunk results as one SolveResult.  Chunks resumed from a
     quarantine-off run carry no provenance: they are primary by
     definition, so the mixed case fills zeros for them."""
-    observed = None
+    observed = stats = None
     if parts and parts[0].observed is not None:
         observed = {k: torch.cat([p.observed[k] for p in parts])
                     for k in parts[0].observed}
+    if parts and parts[0].stats is not None:
+        stats = {k: torch.cat([p.stats[k] for p in parts])
+                 for k in parts[0].stats}
     provenance = None
     if parts and any(p.provenance is not None for p in parts):
         provenance = torch.cat([
@@ -138,7 +160,8 @@ def _concat_results(parts):
             for p in parts])
     return SolveResult(**{f: torch.cat([getattr(p, f) for p in parts])
                           for f in _FIELDS},
-                       observed=observed, provenance=provenance)
+                       observed=observed, stats=stats,
+                       provenance=provenance)
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +349,13 @@ _SEGMENTED_ONLY = ("segment_steps", "pipeline", "poll_every",
                    "fetch_deadline", "admission", "refill")
 
 
-def _solve_chunk(rhs, y0c, t0, t1, cfgc, solve_kw):
+def _solve_chunk(rhs, y0c, t0, t1, cfgc, solve_kw, recorder=None):
     """Solve one chunk through the configured path: the monolithic
     ``ensemble_solve``, or with ``segment_steps > 0`` in ``solve_kw``
     ``ensemble_solve_segmented`` with ``max_steps`` mapped onto the exact
-    per-lane attempt budget.  Module-level so the elastic tier and the
-    quarantine passes run the chunk program the primary attempt ran."""
+    per-lane attempt budget (its segment spans on the caller's
+    ``recorder``).  Module-level so the elastic tier and the quarantine
+    passes run the chunk program the primary attempt ran."""
     seg_steps = int(solve_kw.get("segment_steps", 0) or 0)
     if seg_steps > 0:
         kw = {k: v for k, v in solve_kw.items()
@@ -339,7 +363,8 @@ def _solve_chunk(rhs, y0c, t0, t1, cfgc, solve_kw):
         ms = int(solve_kw.get("max_steps", 200_000))
         return ensemble_solve_segmented(
             rhs, y0c, t0, t1, cfgc, segment_steps=seg_steps,
-            max_segments=max(1, -(-ms // seg_steps)), max_attempts=ms, **kw)
+            max_segments=max(1, -(-ms // seg_steps)), max_attempts=ms,
+            recorder=recorder, **kw)
     kw = {k: v for k, v in solve_kw.items() if k not in _SEGMENTED_ONLY}
     return ensemble_solve(rhs, y0c, t0, t1, cfgc, **kw)
 
@@ -441,7 +466,8 @@ def _wait_chunk(res, budget_s, label):
 def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
                            chunk_size, resident, refill, refill_spec,
                            solve_kw, chunk_log, retry, qpol, ledger,
-                           load_chunk, save_async, subset_solve):
+                           load_chunk, save_async, subset_solve, rec,
+                           recorder):
     """``checkpointed_sweep``'s admission backlog mode: every pending
     (not-on-disk) chunk's lanes form ONE backlog streamed through the
     resident admission program, and a chunk's ``.npz`` is written the
@@ -498,13 +524,16 @@ def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
             h=torch.as_tensor(buf["h"], dtype=dtype),
             observed=({k: torch.as_tensor(v) for k, v in
                        buf["observed"].items()}
-                      if "observed" in buf else None))
+                      if "observed" in buf else None),
+            stats=({k: torch.as_tensor(v) for k, v in buf["stats"].items()}
+                   if "stats" in buf else None))
         # fault injection (global lane indices in solve order) before the
         # quarantine, as on the chunked path
         res = inject.poison_lanes(res, lo, hi)
         if qpol is not None:
             res, _ = _quarantine.resolve(res, y0s[lo:hi], chunk_cfgs,
-                                         subset_solve, policy=qpol)
+                                         subset_solve, policy=qpol,
+                                         recorder=rec, lane_offset=lo)
         att = res.n_accepted.numpy() + res.n_rejected.numpy()
         if chunk_log is not None:
             retry_note = f" (attempt {attempt})" if attempt else ""
@@ -535,9 +564,10 @@ def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
                  "n_accepted": np.zeros((n,), np.int64),
                  "n_rejected": np.zeros((n,), np.int64),
                  "h": np.zeros((n,))}
-            if "observed" in payload:
-                b["observed"] = {k: np.zeros((n,) + v.shape[1:], v.dtype)
-                                 for k, v in payload["observed"].items()}
+            for part in ("observed", "stats"):
+                if part in payload:
+                    b[part] = {k: np.zeros((n,) + v.shape[1:], v.dtype)
+                               for k, v in payload[part].items()}
             return b
 
         def on_harvest(gids, payload):
@@ -552,10 +582,9 @@ def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
                 for f in ("t", "y", "status", "n_accepted", "n_rejected",
                           "h"):
                     buf[f][rows] = payload[f][sel]
-                if "observed" in buf:
-                    for k in buf["observed"]:
-                        buf["observed"][k][rows] = payload["observed"][k][
-                            sel]
+                for part in ("observed", "stats"):
+                    for k in buf.get(part, ()):
+                        buf[part][k][rows] = payload[part][k][sel]
                 counts[ci] += sel.size
                 if counts[ci] == hi - lo:
                     finalize(ci, lo, hi, bufs.pop(ci), attempt)
@@ -571,14 +600,18 @@ def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
         n_seg = ((per_lane_segs + int(poll))
                  * (-(-backlog.size // int(resident)) + 1))
         try:
-            ensemble_solve_segmented(
-                rhs, y0_b, t0, t1, cfg_b, segment_steps=seg_steps,
-                max_segments=n_seg, max_attempts=ms,
-                admission=int(resident), refill=refill,
-                _on_harvest=on_harvest, **kw)
+            with rec.span("stream_solve", lanes=int(backlog.size),
+                          resident=int(resident), attempt=attempt):
+                ensemble_solve_segmented(
+                    rhs, y0_b, t0, t1, cfg_b, segment_steps=seg_steps,
+                    max_segments=n_seg, max_attempts=ms,
+                    admission=int(resident), refill=refill,
+                    recorder=recorder, _on_harvest=on_harvest, **kw)
             break
         except RETRYABLE as e:
             last = attempt == attempts - 1 or not retryable(e)
+            rec.event("fault", kind="stream_solve_error", attempt=attempt,
+                      error=f"{type(e).__name__}: {e}", final=last)
             for i, _, _ in pend:
                 if i not in done:
                     ledger.record(i, "error", attempt, e)
@@ -587,7 +620,12 @@ def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
                           f"FAILED ({type(e).__name__}); "
                           f"{'giving up' if last else 'retrying'}")
             if last:
+                # postmortem: the armed flight ring (no-op unarmed)
+                flight_note_counters(rec)
+                flight_dump(f"streamed pass retry exhausted: "
+                            f"{type(e).__name__}: {e}")
                 raise
+            rec.counter("chunk_retries")
             if isinstance(e, WedgeError):
                 reset_backend()
             time.sleep(retry.delay(attempt))
@@ -655,7 +693,18 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
 
     ``energy=`` declares a non-isothermal sweep: it pins the fingerprint
     (the chunk state grows the T column) and is not forwarded.
-    ``recorder=`` waits for ROADMAP A14 and ``oracle=`` for A16.
+    ``oracle=`` waits for ROADMAP A16.
+
+    ``recorder`` (an ``obs.Recorder``) collects the chunks' telemetry:
+    ``chunk_solve`` spans (lanes, attempt, mean attempts per lane),
+    ``chunk_load`` spans and ``chunk_loaded`` events on resume,
+    ``chunk_save`` spans from the writer thread, ``fault`` events
+    (``chunk_solve_error``, ``corrupt_chunk``, the quarantine's) and the
+    ``chunk_retries``/``chunks_corrupt``/``lanes_*`` counters; the
+    segmented driver's spans nest under ``chunk_solve``.  Without one, a
+    private recorder keeps the spans for the flight recorder only.
+    ``stats=True`` in ``solve_kw`` persists each lane's counters in its
+    chunk (``stat_*``).
     """
     from ..energy.eqns import resolve_energy
     from ..resilience import inject
@@ -666,7 +715,8 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
     from ..resilience.watchdog import WedgeError, reset_backend
     from .sweep import resolve_admission
 
-    check_deferred({"recorder": recorder, "oracle": oracle}, _DEFERRED)
+    check_deferred({"oracle": oracle}, _DEFERRED)
+    rec = recorder if recorder is not None else Recorder()
     retry = normalize_retry(retry)
     qpol = normalize_quarantine(quarantine)
     _quarantine.check_oracle(qpol)
@@ -747,23 +797,37 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
         attempts = (retry.max_retries if retry is not None else 0) + 1
         for attempt in range(attempts):
             try:
-                t_start = time.perf_counter()
-                res = _solve_chunk(rhs, y0c, t0, t1, cfgc, run_kw)
-                _wait_chunk(res, budget.budget_for(_rel_cost(lo, hi)),
-                            f"chunk{i}")
-                wall = time.perf_counter() - t_start
+                with rec.span("chunk_solve", chunk=i, lanes=hi - lo,
+                              attempt=attempt) as sp:
+                    t_start = time.perf_counter()
+                    res = _solve_chunk(rhs, y0c, t0, t1, cfgc, run_kw,
+                                       recorder)
+                    _wait_chunk(res, budget.budget_for(_rel_cost(lo, hi)),
+                                f"chunk{i}")
+                    wall = time.perf_counter() - t_start
+                    att = (res.n_accepted + res.n_rejected).to(
+                        torch.float64)
+                    sp["attrs"]["mean_attempts"] = float(att.mean())
                 budget.observe(wall, _rel_cost(lo, hi))
                 ledger.record(i, "ok", attempt)
                 return res, wall, attempt
             except RETRYABLE as e:
                 ledger.record(i, "error", attempt, e)
                 last = attempt == attempts - 1 or not retryable(e)
+                rec.event("fault", kind="chunk_solve_error", chunk=i,
+                          attempt=attempt,
+                          error=f"{type(e).__name__}: {e}", final=last)
                 if chunk_log is not None:
                     chunk_log(f"[ckpt] chunk {i} attempt {attempt} "
                               f"FAILED ({type(e).__name__}); "
                               f"{'giving up' if last else 'retrying'}")
                 if last:
+                    # postmortem: the armed flight ring (no-op unarmed)
+                    flight_note_counters(rec)
+                    flight_dump(f"chunk {i} retry exhausted: "
+                                f"{type(e).__name__}: {e}")
                     raise
+                rec.counter("chunk_retries")
                 if isinstance(e, WedgeError):
                     reset_backend()
                 time.sleep(retry.delay(attempt))
@@ -771,7 +835,7 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
     def _subset_solve(y0_sub, cfg_sub, pass_name):
         kw = (run_kw if pass_name == "retry"
               else fallback_kwargs(qpol, run_kw))
-        return _solve_chunk(rhs, y0_sub, t0, t1, cfg_sub, kw)
+        return _solve_chunk(rhs, y0_sub, t0, t1, cfg_sub, kw, recorder)
 
     parts = []
     pending = []
@@ -797,7 +861,10 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
 
         def job():
             t_save = time.perf_counter()
-            save_result(path, res, chunk_cfgs)
+            # on the writer thread: a root-depth span, interleaved with
+            # the chunk_solve spans by start time
+            with rec.span("chunk_save", chunk=i):
+                save_result(path, res, chunk_cfgs)
             # test-only: the corrupt-chunk simulation tears the file AFTER
             # the atomic save
             inject.corrupt_path(path, i)
@@ -816,13 +883,18 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
         aside (``*.corrupt``) and ``None`` is returned so the caller
         re-solves."""
         try:
-            res, _ = load_result(path)
+            with rec.span("chunk_load", chunk=i):
+                res, _ = load_result(path)
+            rec.event("chunk_loaded", chunk=i, path=path)
             if chunk_log is not None:
                 chunk_log(f"[ckpt] chunk {i} loaded from {path}")
             return res
         except _CORRUPT_ERRORS as e:
             os.replace(path, path + ".corrupt")
             COUNTS["chunks_corrupt"] += 1
+            rec.event("fault", kind="corrupt_chunk", chunk=i, path=path,
+                      error=f"{type(e).__name__}: {e}")
+            rec.counter("chunks_corrupt")
             if chunk_log is not None:
                 chunk_log(f"[ckpt] chunk {i} file corrupt "
                           f"({type(e).__name__}): re-solving")
@@ -838,7 +910,7 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
                 refill=refill, refill_spec=refill_spec, solve_kw=run_kw,
                 chunk_log=chunk_log, retry=retry, qpol=qpol, ledger=ledger,
                 load_chunk=_load_chunk, save_async=_save_async,
-                subset_solve=_subset_solve)
+                subset_solve=_subset_solve, rec=rec, recorder=recorder)
         else:
             for i, lo in enumerate(range(0, B, chunk_size)):
                 hi = min(lo + chunk_size, B)
@@ -856,7 +928,7 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
                     if qpol is not None:
                         res, _ = _quarantine.resolve(
                             res, y0s[lo:hi], chunk_cfgs, _subset_solve,
-                            policy=qpol)
+                            policy=qpol, recorder=rec, lane_offset=lo)
                     res = host_result(res)
                     if chunk_log is not None:
                         att = res.n_accepted.numpy() + res.n_rejected.numpy()

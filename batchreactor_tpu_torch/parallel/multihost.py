@@ -230,8 +230,17 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
     chunks over.  The directory interoperates with a single-process
     ``checkpointed_sweep`` resume.  No attempt ledger is written
     (concurrent manifest rewrites would race); the claim files carry the
-    ownership history.  ``recorder=``/``live=`` wait for ROADMAP A14 and
-    ``oracle=`` for A16.
+    ownership history.  ``oracle=`` waits for ROADMAP A16.
+
+    ``recorder`` (an ``obs.Recorder``) gets the reference's fault events
+    and counters (``chunk_solve_error``, ``dead_host_reassign``,
+    ``chunk_retries``, ``chunks_reassigned``, ``chunks_corrupt``) and the
+    chunks' segment spans.  Each process drops a metric snapshot beside
+    its heartbeat (``hosts/p<id>.metrics.json``, ``obs.live``) at every
+    chunk it saves and every recovery poll, from ``live`` (an
+    ``obs.LiveRegistry``; its ``/metrics`` then serves the merged fleet
+    view of the directory) or, with only a recorder, a registry over it;
+    with neither, no snapshot is written.
 
     Returns the full concatenated SolveResult (loaded from the chunk
     files, so every surviving process returns the same values).  Raises
@@ -251,9 +260,7 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
                              ensure_manifest, host_result, load_result,
                              resolve_chunk_budget, save_result)
 
-    check_deferred({"recorder": recorder, "live": live, "oracle": oracle},
-                   (("recorder", None, "A14"), ("live", None, "A14"),
-                    ("oracle", None, "A16")))
+    check_deferred({"oracle": oracle}, (("oracle", None, "A16"),))
     if not (0 <= int(process_id) < int(num_processes)):
         raise ValueError(f"process_id {process_id} outside "
                          f"[0, {num_processes})")
@@ -278,6 +285,36 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
                    name="br-elastic-heartbeat")
     hb.beat()
     hb.start()
+
+    # the fleet view: this process's metric snapshots beside its heartbeat
+    from ..obs.live import LiveRegistry, write_fleet_snapshot
+
+    reg = live
+    if reg is None and recorder is not None:
+        reg = LiveRegistry(recorder=recorder,
+                           meta={"process_id": int(process_id)})
+    if reg is not None and reg.fleet_dir is None:
+        reg.fleet_dir = ckpt_dir
+    if reg is not None and int(run_kw.get("segment_steps", 0) or 0) > 0:
+        # the per-chunk segmented driver publishes its occupancy into the
+        # same registry, so snapshots carry mid-chunk state too (after the
+        # fingerprint: an observer, not a solve option)
+        run_kw = {**run_kw, "live": reg}
+    snap_last = [0.0]
+
+    def drop_snapshot(force=False, **gauges):
+        if reg is None:
+            return
+        now = time.time()
+        if not force and now - snap_last[0] < max(float(heartbeat_s), 0.25):
+            return
+        snap_last[0] = now
+        if gauges:
+            reg.publish("elastic", gauges=gauges)
+        try:
+            write_fleet_snapshot(ckpt_dir, process_id, reg)
+        except OSError:
+            pass   # a missed snapshot reads as stale, never fatal
 
     def chunk_path(i):
         return os.path.join(ckpt_dir, f"chunk_{i:05d}.npz")
@@ -320,6 +357,11 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
                        "stolen_from": int(owner)}, f)
         os.replace(tmp, claim_path(i))
         COUNTS["chunks_reassigned"] += 1
+        if recorder is not None:
+            recorder.counter("chunks_reassigned")
+            recorder.event("fault", kind="dead_host_reassign", chunk=i,
+                           dead_process=int(owner),
+                           survivor=int(process_id))
         if chunk_log is not None:
             chunk_log(f"[elastic] p{process_id} reassigned chunk {i} "
                       f"from dead p{owner}")
@@ -327,7 +369,7 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
     def _subset_solve(y0_sub, cfg_sub, pass_name):
         kw = (run_kw if pass_name == "retry"
               else fallback_kwargs(qpol, run_kw))
-        return _solve_chunk(rhs, y0_sub, t0, t1, cfg_sub, kw)
+        return _solve_chunk(rhs, y0_sub, t0, t1, cfg_sub, kw, recorder)
 
     def solve_and_save(i):
         lo = i * int(chunk_size)
@@ -338,12 +380,17 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
             try:
                 t_start = time.perf_counter()
                 res = _solve_chunk(rhs, y0s[lo:hi], t0, t1, chunk_cfgs,
-                                   run_kw)
+                                   run_kw, recorder)
                 _wait_chunk(res, budget.budget_for(hi - lo),
                             f"elastic-chunk{i}")
                 break
             except RETRYABLE as e:
                 last = attempt == attempts - 1 or not retryable(e)
+                if recorder is not None:
+                    recorder.event(
+                        "fault", kind="chunk_solve_error", chunk=i,
+                        attempt=attempt, retryable=not last,
+                        error=f"{type(e).__name__}: {str(e)[:200]}")
                 if chunk_log is not None:
                     chunk_log(f"[elastic] p{process_id} chunk {i} attempt "
                               f"{attempt} FAILED ({type(e).__name__}); "
@@ -353,6 +400,8 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
                     # so the surviving peers take this process's chunks
                     raise
                 COUNTS["chunk_retries"] += 1
+                if recorder is not None:
+                    recorder.counter("chunk_retries")
                 if isinstance(e, WedgeError):
                     reset_backend()
                 time.sleep(retry.delay(attempt))
@@ -362,7 +411,8 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
         res = inject.poison_lanes(res, lo, hi)
         if qpol is not None:
             res, _ = _quarantine.resolve(res, y0s[lo:hi], chunk_cfgs,
-                                         _subset_solve, policy=qpol)
+                                         _subset_solve, policy=qpol,
+                                         recorder=recorder, lane_offset=lo)
         # test-only: the killed-process simulation exits here, after the
         # solve and before the save, so the chunk file stays missing and
         # the claim goes stale
@@ -371,6 +421,8 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
         if chunk_log is not None:
             chunk_log(f"[elastic] p{process_id} chunk {i} "
                       f"({hi - lo} lanes) solved+saved in {wall:.2f}s")
+        drop_snapshot(force=True, last_chunk=int(i),
+                      chunks_total=int(n_chunks))
 
     def owner_dead(cl, live_hosts):
         """A claim owner is dead when its heartbeat (or, if it never beat,
@@ -405,6 +457,8 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
             if prev_missing is not None and len(missing) < prev_missing:
                 deadline = time.time() + float(timeout_s)
             prev_missing = len(missing)
+            drop_snapshot(chunks_missing=len(missing),
+                          chunks_total=int(n_chunks))
             progressed = False
             live_hosts = host_liveness(ckpt_dir, dead_after_s)
             for i in missing:
@@ -440,11 +494,16 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
             except _CORRUPT_ERRORS as e:
                 os.replace(chunk_path(i), chunk_path(i) + ".corrupt")
                 COUNTS["chunks_corrupt"] += 1
+                if recorder is not None:
+                    recorder.event("fault", kind="corrupt_chunk", chunk=i,
+                                   error=f"{type(e).__name__}: {e}")
+                    recorder.counter("chunks_corrupt")
                 if chunk_log is not None:
                     chunk_log(f"[elastic] p{process_id} chunk {i} file "
                               f"corrupt ({type(e).__name__}): re-solving")
                 solve_and_save(i)
                 parts.append(load_result(chunk_path(i))[0])
+        drop_snapshot(force=True)
     finally:
         hb.stop()
     return _concat_results(parts)

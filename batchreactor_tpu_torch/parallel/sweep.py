@@ -63,10 +63,22 @@ device.  ``fetch_deadline=`` bounds every blocking host read of the
 segmented drivers (the choke point in ``solver/graphs.py``) and raises
 ``resilience.WedgeError`` past it.
 
+Telemetry (``obs/``): ``stats=True``/``timeline=N`` on every entry point
+carry the solvers' per-lane counters and attempt rings (``SolveResult.
+stats``), folded across segments as the step counts are (counters by a
+masked add, the gauge by max, the ring replaced), moved with their lane
+through the streaming driver's compactions and un-shuffled at harvest;
+they come back with each gear's existing fetches, so no host sync is
+added.  ``recorder=`` (an ``obs.Recorder``) gets the ``segment``, ``poll``
+and ``compact`` spans, the reference's counters (``blocking_syncs`` is
+the run's host syncs: ``graphs.recording``) and the occupancy pair;
+``watch=`` (an ``obs.CompileWatch``) sees the programs built and the
+graphs captured under the ``sweep-segment``/``sweep-compact`` labels;
+``live=`` (an ``obs.LiveRegistry``) gets an in-flight publish at each
+status poll and is retired on return.
+
 Functions take the device of the tensors they are given.  Not ported yet
-(``NotImplementedError``): ``stats``/``recorder``/``watch``/``timeline``/
-``live`` (ROADMAP A14), and the serving hooks ``_on_harvest`` and
-``_feed`` (A15).
+(``NotImplementedError``): the serving hook ``_feed`` (ROADMAP A15).
 """
 
 import contextlib
@@ -79,6 +91,10 @@ import numpy as np
 import torch
 
 from ..aot.buckets import downshift_bucket, resolve_bucket, upshift_bucket
+from ..obs import counters as obs_counters
+from ..obs.recorder import span_or_null
+from ..obs.retrace import CompileWatch
+from ..obs.timeline import validate as validate_timeline
 from ..solver import bdf, graphs, sdirk
 from ..solver.common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING,
                              SUCCESS, SolveResult, check_deferred,
@@ -89,16 +105,7 @@ _SOLVERS = {"sdirk": sdirk.solve, "bdf": bdf.solve}
 
 # (keyword, default, ROADMAP item) of the JAX sweep's options that wait
 # for a later slice
-_DEFERRED = (
-    ("stats", False, "A14"), ("recorder", None, "A14"),
-    ("watch", None, "A14"), ("timeline", None, "A14"),
-    ("live", None, "A14"), ("_feed", None, "A15"),
-    ("_live_source", "sweep", "A14"),
-)
-
-
-# (keyword, default, ROADMAP item) of the monolithic solve's deferred options
-_MONO_DEFERRED = (("stats", False, "A14"), ("timeline", None, "A14"))
+_DEFERRED = (("_feed", None, "A15"),)
 
 #: the streaming driver's counters since they were last set to 0 (the
 #: JAX package's recorder counters of the same names): ``compactions``,
@@ -411,7 +418,7 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
                    observer_init=None, jac_window=1, newton_tol=0.03,
                    method="bdf", freeze_precond=False, setup_economy=False,
                    stale_tol=0.3, buckets=None, mesh=None, axis="batch",
-                   **deferred):
+                   stats=False, timeline=None):
     """Solve every lane of ``y0s`` (B, n) over [t0, t1] in one solver call
     of at most ``max_steps`` attempts per lane.  ``cfgs`` is a dict of
     per-lane tensors; ``t0``/``t1`` are shared.  Returns the solver's
@@ -427,8 +434,10 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
     (``aot/buckets.py``) with dead copies of the last lane, stripped from
     the result.  ``mesh`` (a :class:`Mesh` whose axis is ``axis``) splits
     the lanes over its devices (module doc); ``"auto"`` then resolves with
-    the whole padded batch, so every shard runs the same linear algebra."""
-    check_deferred(deferred, _MONO_DEFERRED)
+    the whole padded batch, so every shard runs the same linear algebra.
+    ``stats=True``/``timeline=N`` return the solver's per-lane counters and
+    attempt rings in ``SolveResult.stats`` (``obs/counters.py``)."""
+    timeline = validate_timeline(timeline, stats)
     _check_method(method, newton_tol)
     if freeze_precond and method != "bdf":
         raise ValueError(
@@ -447,6 +456,7 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
                   jac_window=jac_window, newton_tol=newton_tol,
                   method=method, freeze_precond=freeze_precond,
                   setup_economy=setup_economy, stale_tol=stale_tol,
+                  stats=stats, timeline=timeline,
                   linsolve=resolve_linsolve(
                       linsolve, method=method,
                       device=_mesh_devices(mesh)[0],
@@ -466,19 +476,16 @@ def ensemble_solve(rhs, y0s, t0, t1, cfgs, *, rtol=1e-6, atol=1e-10,
         dt_min_factor=dt_min_factor, linsolve=linsolve, jac=jac,
         observer=observer,
         observer_init=_lane_obs(observer, observer_init, B, dt, dev),
+        stats=stats, timeline=timeline,
         **_solver_kw(method, newton_tol, jac_window, setup_economy,
                      stale_tol, freeze_precond)), B_live)
-
-
-# (keyword, default, ROADMAP item) of the forward sweep's deferred options
-_FWD_DEFERRED = (("stats", False, "A14"),)
 
 
 def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
                            mesh=None, axis="batch", rtol=1e-6, atol=1e-10,
                            max_steps=200_000, jac=None, jac_window=1,
                            linsolve="auto", sens_iters=2, S0=None,
-                           **deferred):
+                           stats=False):
     """Forward-sensitivity ensemble sweep: one theta, per-lane conditions.
 
     The sensitivity twin of :func:`ensemble_solve`: every lane integrates
@@ -495,10 +502,10 @@ def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
     GRI-3.0 sweep at B = 1024 takes ``"lu32p"`` on the GPU and every
     tangent solve goes through the kernel's factor.  ``mesh`` splits the
     lanes (and ``S0``) over its devices as :func:`ensemble_solve` does,
-    ``theta`` copied to each."""
+    ``theta`` copied to each.  ``stats=True`` returns the per-lane
+    counters in ``SolveResult.stats``."""
     from ..sensitivity.forward import solve_forward
 
-    check_deferred(deferred, _FWD_DEFERRED)
     B, n = y0s.shape
     if mesh is not None:
         _check_mesh(mesh, axis)
@@ -519,7 +526,7 @@ def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
                                        for k, v in theta.items()}, c,
                 rtol=rtol, atol=atol, max_steps=max_steps, jac=jac,
                 jac_window=jac_window, linsolve=ls, sens_iters=sens_iters,
-                S0=s0)
+                S0=s0, stats=stats)
 
         return _mesh_map(mesh, y0s, lanes, shard)
     linsolve = resolve_linsolve(linsolve, method="bdf", device=y0s.device,
@@ -527,7 +534,7 @@ def ensemble_solve_forward(rhs_theta, y0s, t0, t1, theta, cfgs, *,
     return solve_forward(rhs_theta, y0s, float(t0), float(t1), theta, cfgs,
                          rtol=rtol, atol=atol, max_steps=max_steps, jac=jac,
                          jac_window=jac_window, linsolve=linsolve,
-                         sens_iters=sens_iters, S0=S0)
+                         sens_iters=sens_iters, S0=S0, stats=stats)
 
 
 def temperature_sweep(rhs, y0, T_grid, t1, base_cfg=None, **kw):
@@ -556,6 +563,8 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                              admission=None, refill=None, upshift=None,
                              upshift_patience=2, mesh=None, axis="batch",
                              fetch_deadline=None, mesh_resident=None,
+                             stats=False, recorder=None, watch=None,
+                             timeline=None, live=None, _live_source="sweep",
                              _on_harvest=None, **deferred):
     """Solve every lane of ``y0s`` (B, n) over [t0, t1] with the device
     work bounded to ``segment_steps`` step attempts per lane per segment;
@@ -622,11 +631,22 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     ``checkpointed_sweep`` backlog mode) is called at each harvest with
     the caller's lane indices and their host rows (``t``, ``y``,
     ``status``, ``h``, ``n_accepted``, ``n_rejected`` and, with an
-    observer, ``observed``).
+    observer, ``observed``; with ``stats``, ``stats``).
+
+    Telemetry (module doc): ``stats=True`` returns each lane's counters
+    summed over the segments it ran in (``SolveResult.stats``), and
+    ``timeline=N`` (with ``stats``) its last N attempts, the ring resumed
+    across segments on the global attempt index, so it equals the
+    monolithic solve's at ``jac_window=1``; both gears give equal values,
+    bit for bit.  ``recorder`` gets spans and counters, ``watch`` the
+    builds and captures (with a recorder and no watch, a private watch
+    whose retraces land as recorder events), ``live`` an in-flight
+    publish at each status poll under the source ``_live_source``.
     """
     from ..resilience.watchdog import resolve_fetch_deadline
 
     check_deferred(deferred, _DEFERRED)
+    timeline = validate_timeline(timeline, stats)
     if max_segments < 1:
         raise ValueError(f"max_segments must be >= 1, got {max_segments}")
     pipeline, poll_every = resolve_pipeline_defaults(pipeline, poll_every)
@@ -658,13 +678,15 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
             method=method, setup_economy=setup_economy, stale_tol=stale_tol,
             pipeline=pipeline, poll_every=poll_every,
             fetch_deadline=fetch_deadline, upshift=upshift,
+            stats=stats, timeline=timeline, recorder=recorder,
+            watch=watch, live=live,
             linsolve=resolve_linsolve(
                 linsolve, method=method, device=_mesh_devices(mesh)[0],
                 batch=pad_batch(y0s.shape[0], mesh), n=y0s.shape[1]))
         return unpad_result(_mesh_map(
             mesh, y0s, cfgs, lambda dev, y, c: ensemble_solve_segmented(
                 rhs, y, t0, t1, c, rhs_bundle=_to_device(rhs_bundle, dev),
-                **seg_kw)), B_live)
+                _live_source=f"{_live_source}-{dev}", **seg_kw)), B_live)
     kw = dict(segment_steps=int(segment_steps),
               max_segments=int(max_segments), max_attempts=max_attempts,
               rtol=rtol, atol=atol, linsolve=linsolve,
@@ -673,7 +695,8 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
               jac_window=jac_window, newton_tol=newton_tol, method=method,
               setup_economy=setup_economy, stale_tol=float(stale_tol),
               rhs_bundle=rhs_bundle, progress=progress,
-              poll_every=poll_every)
+              poll_every=poll_every, stats=stats, timeline=timeline,
+              recorder=recorder, live=live)
     if resident is not None:
         if not pipeline:
             raise ValueError(
@@ -716,20 +739,22 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                       buckets=buckets, refill=refill,
                       upshift=None if upshift is None else upshift // n_dev,
                       upshift_patience=upshift_patience, pipeline=True,
-                      fetch_deadline=fetch_deadline)
+                      fetch_deadline=fetch_deadline, watch=watch)
             return _mesh_map(
                 Mesh(devs), y0s, cfgs,
                 lambda dev, y, c: ensemble_solve_segmented(
                     rhs, y, t0, t1, c, jac=jac,
                     rhs_bundle=_to_device(rhs_bundle, dev),
-                    admission=resident // n_dev, **kw))
-        with graphs.fetch_deadline(fetch_deadline):
+                    admission=resident // n_dev,
+                    _live_source=f"{_live_source}-{dev}", **kw))
+        with _telemetry(recorder, watch, fetch_deadline) as watch:
             return _run_segmented_streaming(
                 rhs, y0s, float(t0), float(t1), cfgs, observer_init,
                 resident=resident, refill_spec=refill_spec, buckets=buckets,
                 upshift=None if upshift is None else int(upshift),
                 upshift_patience=int(upshift_patience),
-                on_harvest=_on_harvest, **kw)
+                on_harvest=_on_harvest, watch=watch,
+                live_source=str(_live_source), **kw)
     if _on_harvest is not None:
         raise ValueError("_on_harvest is a streaming-driver hook; pass "
                          "admission= (continuous batching) or drop it")
@@ -750,10 +775,101 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     kw["linsolve"] = resolve_linsolve(linsolve, method=method, device=dev,
                                       batch=B, n=n)
     obs0 = _lane_obs(observer, observer_init, B, dt, dev)
-    run = _run_segmented_pipelined if pipeline else _run_segmented_blocking
-    with graphs.fetch_deadline(fetch_deadline):
-        return unpad_result(run(rhs, y0s, float(t0), float(t1), cfgs, obs0,
-                                n_save=int(n_save), **kw), B_live)
+    with _telemetry(recorder, watch, fetch_deadline) as watch:
+        if pipeline:
+            res = _run_segmented_pipelined(
+                rhs, y0s, float(t0), float(t1), cfgs, obs0,
+                n_save=int(n_save), watch=watch, n_live_lanes=B_live,
+                live_source=str(_live_source), **kw)
+        else:
+            kw.pop("live")
+            res = _run_segmented_blocking(rhs, y0s, float(t0), float(t1),
+                                          cfgs, obs0, n_save=int(n_save),
+                                          **kw)
+        return unpad_result(res, B_live)
+
+
+@contextlib.contextmanager
+def _telemetry(recorder, watch, fetch_deadline):
+    """The context of one segmented run: the watchdog deadline of its host
+    reads, its host syncs mirrored onto ``recorder``, and ``watch`` (with a
+    recorder and no watch, a private ``CompileWatch`` entered here whose
+    default label, ``sweep-host``, is not the armed one); yields the
+    watch."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(graphs.fetch_deadline(fetch_deadline))
+        stack.enter_context(graphs.recording(recorder))
+        if watch is None and recorder is not None:
+            watch = stack.enter_context(CompileWatch(
+                recorder=recorder, default_label="sweep-host"))
+        yield watch
+
+
+def _region(watch, label, B):
+    """``watch``'s single-program region ``label`` keyed on the lane count
+    (a bucket change is a first build, not a retrace), or a no-op."""
+    if watch is None:
+        return contextlib.nullcontext()
+    return watch.region(label, single_program=True, program_key=f"b{B}")
+
+
+def _retire_live(live, recorder, final_counters, source="sweep"):
+    """Clear-on-return of a driver's live overlay: fold the final counter
+    totals onto the recorder and drop the overlay atomically
+    (``LiveRegistry.retire``) when the registry fronts this recorder, else
+    fold and clear separately."""
+    if live is not None and (final_counters is None
+                             or live.recorder is recorder):
+        live.retire(source, final_counters)
+        return
+    if final_counters and recorder is not None:
+        for k, v in final_counters.items():
+            recorder.counter(k, v)
+    if live is not None:
+        live.clear(source)
+
+
+def _stats_zeros(method, B, dtype, dev, timeline):
+    """The zero stats block of the segment carry: the keys of the solver's
+    ``SolveResult.stats`` (the step counts, the counters, BDF's order
+    histogram and, with ``timeline``, the empty ring)."""
+    from ..solver.common import init_stats, init_timeline
+
+    if method == "bdf":
+        st = init_stats(("n_accepted", "n_rejected") + bdf.STATS_KEYS, B,
+                        dev, order_slots=bdf.MAXORD + 1)
+    else:
+        st = init_stats(("n_accepted", "n_rejected")
+                        + obs_counters.COMMON_KEYS, B, dev)
+    if timeline is not None:
+        ring, _ = init_timeline(timeline, None, B, dtype, dev)
+        st.update(timeline_t=ring["t"], timeline_h=ring["h"],
+                  timeline_code=ring["code"])
+    return st
+
+
+def _fold_stats(acc, seg, running):
+    """Device twin of ``obs.counters.accumulate`` for lanes that ran this
+    segment (``running`` (B,)): counters add, the gauge keeps its peak, the
+    ring is replaced (the solver was handed the carried one)."""
+    out = {}
+    for k, a in acc.items():
+        v = seg[k]
+        m = running.reshape(running.shape + (1,) * (v.ndim - 1))
+        if k in obs_counters.GAUGE_KEYS:
+            out[k] = torch.maximum(a, torch.where(m, v, 0))
+        elif k in obs_counters.TIMELINE_KEYS:
+            out[k] = torch.where(m, v, a)
+        else:
+            out[k] = a + torch.where(m, v, 0)
+    return out
+
+
+def _timeline_state(st, n_acc, n_rej):
+    """The solver's ``timeline_state`` from a carried stats block and the
+    lanes' attempts so far."""
+    return {"t": st["timeline_t"], "h": st["timeline_h"],
+            "code": st["timeline_code"], "base": n_acc + n_rej}
 
 
 def _resolve_mesh_resident(mesh_resident, device):
@@ -807,14 +923,16 @@ def _economy(method, setup_economy, jac_window):
     return bool(setup_economy) and jac_window > 1 and method == "bdf"
 
 
-def _init_segment_carry(y0s, t0, method, obs0, n_save, economy, linsolve):
+def _init_segment_carry(y0s, t0, method, obs0, n_save, economy, linsolve,
+                        stats=False, timeline=None):
     """The segment carry of a cold start: ``y``, ``t``, ``h`` (-1: the
     heuristic first step), the observer fold ``obs`` (its init, or a dummy
     lane vector without an observer), BDF's ``sstate`` (an all-zero
     history is a cold lane) or SDIRK's PI memory ``e`` (-1: fresh), and
     the control block ``ctrl`` that the blocking gear keeps on the host:
-    ``final_status``, ``final_t``, the accepted and rejected totals and,
-    with ``n_save``, the rows saved."""
+    ``final_status``, ``final_t``, the accepted and rejected totals, with
+    ``n_save`` the rows saved and with ``stats`` the stats block
+    (:func:`_stats_zeros`)."""
     B, n = y0s.shape
     dt, dev = y0s.dtype, y0s.device
     seg = {"y": y0s,
@@ -844,6 +962,8 @@ def _init_segment_carry(y0s, t0, method, obs0, n_save, economy, linsolve):
         "n_rej": torch.zeros(B, dtype=torch.int64, device=dev)}
     if n_save:
         seg["ctrl"]["saved"] = torch.zeros(B, dtype=torch.int64, device=dev)
+    if stats:
+        seg["ctrl"]["stats"] = _stats_zeros(method, B, dt, dev, timeline)
     return seg
 
 
@@ -851,9 +971,11 @@ def _run_segmented_blocking(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
                             max_segments, max_attempts, rtol, atol,
                             linsolve, jac, observer, dt_min_factor, n_save,
                             jac_window, newton_tol, method, setup_economy,
-                            stale_tol, rhs_bundle, progress, poll_every):
+                            stale_tol, rhs_bundle, progress, poll_every,
+                            stats=False, timeline=None, recorder=None):
     """The blocking gear: one solver call per segment (its loops stop once
-    no lane needs them) and the park/budget bookkeeping on the host."""
+    no lane needs them) and the park/budget bookkeeping on the host, the
+    stats folded there too (``obs.counters.accumulate``)."""
     del poll_every  # the blocking gear reads every segment
     if rhs_bundle is not None:
         rhs, jac = rhs(rhs_bundle)
@@ -874,23 +996,35 @@ def _run_segmented_blocking(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
         all_ys = np.zeros((B, int(n_save), n))
         saved = np.zeros((B,), dtype=np.int64)
     seg_t = None
+    stats_acc = None
     for seg in range(max_segments):
         kw = _solver_kw(method, newton_tol, jac_window, setup_economy,
                         stale_tol)
         kw.update({"err0": e} if method == "sdirk"
                   else {"solver_state": sstate})
-        res = _SOLVERS[method](
-            rhs, y, t, t1, cfgs, rtol=rtol, atol=atol,
-            max_steps=segment_steps, n_save=seg_save, dt0=h,
-            dt_min_factor=dt_min_factor, linsolve=linsolve, jac=jac,
-            observer=observer, observer_init=obs, **kw)
-        status, seg_acc, seg_rej, seg_t = graphs.fetch(
-            res.status, res.n_accepted, res.n_rejected, res.t)
+        if stats:
+            kw.update(stats=True, timeline=timeline)
+            if timeline is not None and stats_acc is not None:
+                kw["timeline_state"] = _timeline_state(stats_acc, n_acc,
+                                                       n_rej)
+        with span_or_null(recorder, "segment", index=seg):
+            res = _SOLVERS[method](
+                rhs, y, t, t1, cfgs, rtol=rtol, atol=atol,
+                max_steps=segment_steps, n_save=seg_save, dt0=h,
+                dt_min_factor=dt_min_factor, linsolve=linsolve, jac=jac,
+                observer=observer, observer_init=obs, **kw)
+            st_keys = list(res.stats) if stats else []
+            got = graphs.fetch(res.status, res.n_accepted, res.n_rejected,
+                               res.t, *(res.stats[k] for k in st_keys))
+        status, seg_acc, seg_rej, seg_t = got[:4]
         # only lanes still live this segment contribute step counts: parked
         # lanes re-enter as zero-span solves
         running = final_status == RUNNING
         n_acc += np.where(running, seg_acc, 0)
         n_rej += np.where(running, seg_rej, 0)
+        if stats:
+            stats_acc = obs_counters.accumulate(
+                stats_acc, dict(zip(st_keys, got[4:])), running)
         drained_ts = None
         if n_save:
             seg_n, = graphs.fetch(res.n_saved)
@@ -957,7 +1091,9 @@ def _run_segmented_blocking(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
         n_accepted=torch.as_tensor(n_acc), n_rejected=torch.as_tensor(n_rej),
         ts=ts_out, ys=ys_out, n_saved=n_saved_out, h=h,
         observed=obs if observer is not None else None,
-        err_prev=e if method == "sdirk" else None, solver_state=sstate)
+        err_prev=e if method == "sdirk" else None, solver_state=sstate,
+        stats=(None if stats_acc is None else
+               {k: torch.as_tensor(v) for k, v in stats_acc.items()}))
 
 
 # ---------------------------------------------------------------------------
@@ -1021,13 +1157,15 @@ def _segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, cfgs,
                      obs_keys, *, method, rtol, atol, segment_steps,
                      dt_min_factor, linsolve, jac_window, newton_tol,
                      setup_economy, stale_tol, seg_save, n_save,
-                     has_budget):
+                     has_budget, stats=False, timeline=None):
     """The cached :class:`~..solver.graphs.Program` of one segment shape:
     its steps ``begin``, ``window``, ``end`` and ``compact`` (module doc)
     over the state entries ``seg`` (the segment carry), ``w`` (the
     solver's carry), ``cfg``, ``t1`` (B,), ``budget`` (1,), ``flag`` (1,)
     and, with ``n_save``, ``drain``; ``compact`` reads ``order``,
-    ``admit_y``, ``admit_cfg``, ``fresh``, ``n_live`` and ``n_new``."""
+    ``admit_y``, ``admit_cfg``, ``fresh``, ``n_live`` and ``n_new``.
+    ``stats``/``timeline`` are part of the key: a telemetry sweep never
+    replays a stats-free program, nor the reverse."""
     bundle_sig = None if bundle is None else _signature(bundle)
     key = ("segment", method, id(rhs), id(jac), id(observer), bundle_sig,
            B, n, str(dtype), str(dev), linsolve, jac_window,
@@ -1035,20 +1173,22 @@ def _segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, cfgs,
            dt_min_factor, newton_tol, seg_save, n_save, has_budget,
            tuple((k, tuple(v.shape[1:]), str(v.dtype))
                  for k, v in cfgs.items()),
-           obs_keys)
+           obs_keys, bool(stats), timeline)
     return graphs.program(key, lambda: _build_segment_program(
         rhs, jac, observer, bundle, B, n, dtype, dev, method=method,
         rtol=rtol, atol=atol, segment_steps=segment_steps,
         dt_min_factor=dt_min_factor, linsolve=linsolve,
         jac_window=jac_window, newton_tol=newton_tol,
         setup_economy=setup_economy, stale_tol=stale_tol,
-        seg_save=seg_save, n_save=n_save, has_budget=has_budget))
+        seg_save=seg_save, n_save=n_save, has_budget=has_budget,
+        stats=stats, timeline=timeline))
 
 
 def _build_segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, *,
                            method, rtol, atol, segment_steps, dt_min_factor,
                            linsolve, jac_window, newton_tol, setup_economy,
-                           stale_tol, seg_save, n_save, has_budget):
+                           stale_tol, seg_save, n_save, has_budget,
+                           stats=False, timeline=None):
     # the stepper is built once, over a cfg dict that every step refreshes
     # from the state's buffers, and (bundle mode) over the functions the
     # builder makes from the state's bundle buffers at each step
@@ -1077,25 +1217,31 @@ def _build_segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, *,
             max_steps=segment_steps, n_save=seg_save,
             dt_min_factor=dt_min_factor, linsolve=linsolve, jac=jac,
             observer=observer, jac_window=jac_window,
-            setup_economy=setup_economy, stale_tol=stale_tol)
+            setup_economy=setup_economy, stale_tol=stale_tol, stats=stats,
+            timeline=timeline)
     else:
         st = sdirk.make_stepper(
             rhs, cfg, B, n, dtype, dev, rtol=rtol, atol=atol,
             max_steps=segment_steps, n_save=seg_save,
             newton_tol=newton_tol, dt_min_factor=dt_min_factor,
             linsolve=linsolve, jac=jac, observer=observer,
-            jac_window=jac_window)
+            jac_window=jac_window, stats=stats, timeline=timeline)
 
     def begin(s):
         prelude(s)
         seg = s["seg"]
         obs0 = seg["obs"] if observer is not None else None
+        ctrl = seg["ctrl"]
+        tl = (_timeline_state(ctrl["stats"], ctrl["n_acc"], ctrl["n_rej"])
+              if timeline is not None else None)
         if method == "bdf":
             w = st.init(seg["y"], seg["t"], s["t1"], dt0=seg["h"],
-                        solver_state=seg["sstate"], observer_init=obs0)
+                        solver_state=seg["sstate"], observer_init=obs0,
+                        timeline_state=tl)
         else:
             w = st.init(seg["y"], seg["t"], s["t1"], dt0=seg["h"],
-                        err0=seg["e"], observer_init=obs0)
+                        err0=seg["e"], observer_init=obs0,
+                        timeline_state=tl)
         return {"w": w}
 
     def window(s):
@@ -1122,6 +1268,8 @@ def _build_segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, *,
             final_t = torch.where(exhausted, res.t, final_t)
         ctrl2 = {"final_status": final_status.to(torch.int32),
                  "final_t": final_t, "n_acc": n_acc, "n_rej": n_rej}
+        if stats:
+            ctrl2["stats"] = _fold_stats(ctrl["stats"], res.stats, running)
         out = {}
         if n_save:
             saved = ctrl["saved"]
@@ -1221,7 +1369,7 @@ class _Flags:
         self.polled = None
 
     def read(self):
-        graphs.COUNTS["host_syncs"] += 1
+        graphs.add_count("host_syncs")
         flag = self.prog.state["flag"]
         if not self.cuda:
             return bool(flag[0])
@@ -1230,30 +1378,50 @@ class _Flags:
         graphs.wait_event(self.event, "flag")
         return bool(self.pin[0])
 
-    def poll(self):
-        """Start copying the status vector and accepted totals; the next
-        :meth:`read` waits for them too."""
+    def poll(self, rejected=False):
+        """Start copying the status vector and accepted totals (and with
+        ``rejected`` the rejected ones); the next :meth:`read` waits for
+        them too."""
         ctrl = self.prog.state["seg"]["ctrl"]
         vals = (ctrl["final_status"], ctrl["n_acc"])
+        if rejected:
+            vals += (ctrl["n_rej"],)
         if self.cuda:
             vals = tuple(v.to("cpu", non_blocking=True) for v in vals)
         self.polled = vals
 
     def take_poll(self):
-        """The polled (status, accepted) as numpy, read after a flag."""
+        """The polled (status, accepted[, rejected]) as numpy, read after a
+        flag."""
         vals, self.polled = self.polled, None
         return tuple(v.numpy() for v in vals)
 
 
-def _run_segment(prog, flags):
+def _run_segment(prog, flags, watch=None, recorder=None, index=0):
     """One segment: ``begin``, ``window`` until no lane is running in it
     (the first window always runs: a lane still live enters a segment
-    short of t1), then ``end``."""
-    prog.run("begin")
-    prog.run("window")
-    while flags.read():
+    short of t1), then ``end``; a ``segment`` span on ``recorder``, its
+    captures under ``watch``'s ``sweep-segment`` label."""
+    with span_or_null(recorder, "segment", index=index), \
+            _region(watch, "sweep-segment", prog.state["t1"].shape[0]):
+        prog.run("begin")
         prog.run("window")
-    prog.run("end")
+        while flags.read():
+            prog.run("window")
+        prog.run("end")
+
+
+def _poll_read(flags, recorder, seg, take):
+    """The flag read after a segment's ``end`` at a poll point, as a
+    ``poll`` span (its wall on ``poll_wait_s``: the only time the
+    pipelined host waits for the card), with the polled vectors when
+    ``take``.  Returns (any lane live, polled vectors or None)."""
+    with span_or_null(recorder, "poll", upto=seg) as sp:
+        live = flags.read()
+        polled = flags.take_poll() if take else None
+    if recorder is not None:
+        recorder.counter("poll_wait_s", sp["dur"])
+    return live, polled
 
 
 def _result_clone(x):
@@ -1264,26 +1432,37 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
                              max_segments, max_attempts, rtol, atol,
                              linsolve, jac, observer, dt_min_factor, n_save,
                              jac_window, newton_tol, method, setup_economy,
-                             stale_tol, rhs_bundle, progress, poll_every):
+                             stale_tol, rhs_bundle, progress, poll_every,
+                             stats=False, timeline=None, recorder=None,
+                             watch=None, live=None, live_source="sweep",
+                             n_live_lanes=None):
     """The pipelined gear (module doc): bit for bit the blocking gear's
-    results, with one host sync per window."""
+    results, with one host sync per window.  ``live`` gets an in-flight
+    publish at every status poll, from the vectors the poll copies anyway
+    (the occupancy pair and the segment/lanes gauges); the stats block
+    comes back with the final fetch."""
     B, n = y0s.shape
     dt, dev = y0s.dtype, y0s.device
+    nl_live = int(B if n_live_lanes is None else n_live_lanes)
     seg_save = min(int(n_save), int(segment_steps)) if n_save else 0
     economy = _economy(method, setup_economy, jac_window)
-    prog = _segment_program(
-        rhs, jac, observer, rhs_bundle, B, n, dt, dev, cfgs,
-        tuple(obs) if obs is not None else None, method=method, rtol=rtol,
-        atol=atol, segment_steps=segment_steps, dt_min_factor=dt_min_factor,
-        linsolve=linsolve, jac_window=jac_window, newton_tol=newton_tol,
-        setup_economy=economy, stale_tol=stale_tol, seg_save=seg_save,
-        n_save=int(n_save), has_budget=max_attempts is not None)
+    with _region(watch, "sweep-segment", B):
+        prog = _segment_program(
+            rhs, jac, observer, rhs_bundle, B, n, dt, dev, cfgs,
+            tuple(obs) if obs is not None else None, method=method,
+            rtol=rtol, atol=atol, segment_steps=segment_steps,
+            dt_min_factor=dt_min_factor, linsolve=linsolve,
+            jac_window=jac_window, newton_tol=newton_tol,
+            setup_economy=economy, stale_tol=stale_tol, seg_save=seg_save,
+            n_save=int(n_save), has_budget=max_attempts is not None,
+            stats=stats, timeline=timeline)
     _segment_inputs(prog, _init_segment_carry(y0s, t0, method, obs, n_save,
-                                              economy, linsolve),
+                                              economy, linsolve, stats,
+                                              timeline),
                     cfgs, t1, max_attempts, rhs_bundle)
     flags = _Flags(prog)
     drainer = (_TrajectoryDrainer(B, int(n_save), n, prog.on_cuda,
-                                  graphs.current_deadline())
+                                  graphs.current_deadline(), recorder)
                if n_save else None)
     emitted = 0
 
@@ -1303,21 +1482,39 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
             progress(payload)
             emitted = s + 1
 
+    def publish(seg, status_np, acc_np, rej_np, launched):
+        lanes_done = int((status_np != RUNNING).sum())
+        live.publish(
+            live_source,
+            counters={"lane_attempts": int(acc_np[:nl_live].sum()
+                                           + rej_np[:nl_live].sum()),
+                      "lane_capacity": (int(launched) * B
+                                        * int(segment_steps))},
+            gauges={"segment": int(seg), "lanes_done": lanes_done,
+                    "lanes_total": B, "lanes_running": B - lanes_done})
+
+    # the status vector is copied (without a wait, read at the flag) at
+    # the poll points only when someone reads it
+    take = progress is not None or live is not None
     done = False
     launched = 0
     try:
         for seg in range(max_segments):
-            _run_segment(prog, flags)
+            _run_segment(prog, flags, watch, recorder, seg)
             launched = seg + 1
             if drainer is not None:
                 drainer.submit(seg, prog.state["drain"])
-            polled = launched % poll_every == 0
-            if polled and progress is not None:
-                flags.poll()
-            live = flags.read()
-            if polled and progress is not None:
-                emit(*flags.take_poll(), launched)
-            if not live:
+            if launched % poll_every == 0 or launched == max_segments:
+                if take:
+                    flags.poll(rejected=live is not None)
+                running_any, polled = _poll_read(flags, recorder, seg, take)
+                if live is not None:
+                    publish(seg, *polled, launched)
+                if progress is not None:
+                    emit(*polled[:2], launched)
+            else:
+                running_any = flags.read()
+            if not running_any:
                 done = True
                 break
     except BaseException:
@@ -1327,15 +1524,18 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
         graphs.discard(prog)
         if drainer is not None:
             drainer.close(raise_error=False)
+        _retire_live(live, recorder, None, live_source)
         raise
     if drainer is not None:
         drainer.close()
 
     seg = prog.state["seg"]
     ctrl = seg["ctrl"]
-    fs, ft, na, nr, t_np = graphs.fetch(
+    st_keys = list(ctrl["stats"]) if stats else []
+    got = graphs.fetch(
         ctrl["final_status"], ctrl["final_t"], ctrl["n_acc"], ctrl["n_rej"],
-        seg["t"])
+        seg["t"], *(ctrl["stats"][k] for k in st_keys))
+    fs, ft, na, nr, t_np = got[:5]
     emit(fs, na, launched)
     fs = np.array(fs, copy=True)
     if not done:
@@ -1344,6 +1544,14 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
     # never-terminated lanes report their current t (a lane still running
     # was never parked, so its carried t is the last segment's)
     ft = np.where(np.isnan(ft), t_np, ft)
+    # the occupancy pair: the caller's lanes' attempts against the attempt
+    # capacity of the padded program (pad lanes read as idle capacity)
+    final_counters = None
+    if recorder is not None and launched:
+        final_counters = {
+            "lane_attempts": int(na[:nl_live].sum() + nr[:nl_live].sum()),
+            "lane_capacity": int(launched) * B * int(segment_steps)}
+    _retire_live(live, recorder, final_counters, live_source)
     w = prog.state["w"]
     if n_save:
         ts_out = torch.as_tensor(drainer.all_ts, dtype=dt)
@@ -1361,7 +1569,9 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
                   else None),
         err_prev=seg["e"].clone() if method == "sdirk" else None,
         solver_state=(_result_clone(seg["sstate"]) if method == "bdf"
-                      else None))
+                      else None),
+        stats=({k: torch.as_tensor(v) for k, v in zip(st_keys, got[5:])}
+               if stats else None))
 
 
 class _TrajectoryDrainer:
@@ -1377,8 +1587,10 @@ class _TrajectoryDrainer:
     failures are re-raised by :meth:`close` and the next :meth:`submit`.
     On the CPU the drain runs inline."""
 
-    def __init__(self, B, n_save, n, threaded, deadline=None):
+    def __init__(self, B, n_save, n, threaded, deadline=None,
+                 recorder=None):
         self.all_ts = np.full((B, n_save), np.inf)
+        self.recorder = recorder
         # the watchdog deadline of the sweep's thread, which the worker
         # applies to its own waits
         self._deadline = deadline
@@ -1452,8 +1664,14 @@ class _TrajectoryDrainer:
         return tuple(t.numpy() for t in out)
 
     def _drain(self, seg, drain):
+        with span_or_null(self.recorder, "drain", segment=seg):
+            self._drain_rows(seg, drain)
+
+    def _drain_rows(self, seg, drain):
         take, = self._host(drain["take"])
         tot = int(take.sum())
+        if self.recorder is not None and tot:
+            self.recorder.counter("drain_rows", tot)
         ts_np = np.empty((0,))
         if tot:
             ts_np, ys_np = self._host(drain["ts"][:tot], drain["ys"][:tot])
@@ -1488,7 +1706,9 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                              max_attempts, rtol, atol, linsolve, jac,
                              observer, dt_min_factor, jac_window, newton_tol,
                              method, setup_economy, stale_tol, rhs_bundle,
-                             progress, poll_every, on_harvest=None):
+                             progress, poll_every, on_harvest=None,
+                             stats=False, timeline=None, recorder=None,
+                             watch=None, live=None, live_source="sweep"):
     """Continuous batching: one resident program of B slots streams
     through N lanes.  Its loop is the pipelined gear's, and at each status
     poll (every ``poll_every`` segments, and whenever every resident lane
@@ -1510,7 +1730,12 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
        down-shift, so the ladder does not thrash.
 
     Lanes are independent, so every lane's results equal the
-    admission-off sweep's; on the CPU bit for bit."""
+    admission-off sweep's; on the CPU bit for bit.  The stats block rides
+    the carry, moves with its lane through every compaction and shift, and
+    is harvested with the lane's other rows; ``live`` gets the queue's
+    state (backlog, harvested and admitted lanes, resident bucket) at
+    every poll, its gauges suffixed with the epoch tag of a
+    ``live_source`` other than ``"sweep"``."""
     N, n = y0s.shape
     dtype, dev = y0s.dtype, y0s.device
     y0_all = y0s.detach().clone()
@@ -1528,19 +1753,22 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     obs_keys = tuple(observer_init) if observer is not None else None
 
     def rung(B_):
-        return _segment_program(
-            rhs, jac, observer, rhs_bundle, B_, n, dtype, dev, cfg_all,
-            obs_keys, method=method, rtol=rtol, atol=atol,
-            segment_steps=segment_steps, dt_min_factor=dt_min_factor,
-            linsolve=linsolve, jac_window=jac_window, newton_tol=newton_tol,
-            setup_economy=economy, stale_tol=stale_tol, seg_save=0,
-            n_save=0, has_budget=max_attempts is not None)
+        with _region(watch, "sweep-segment", B_):
+            return _segment_program(
+                rhs, jac, observer, rhs_bundle, B_, n, dtype, dev, cfg_all,
+                obs_keys, method=method, rtol=rtol, atol=atol,
+                segment_steps=segment_steps, dt_min_factor=dt_min_factor,
+                linsolve=linsolve, jac_window=jac_window,
+                newton_tol=newton_tol, setup_economy=economy,
+                stale_tol=stale_tol, seg_save=0, n_save=0,
+                has_budget=max_attempts is not None, stats=stats,
+                timeline=timeline)
 
     def fresh_carry(B_):
         return _init_segment_carry(
             torch.zeros((B_, n), dtype=dtype, device=dev), t0, method,
             _lane_obs(observer, observer_init, B_, dtype, dev), 0, economy,
-            linsolve)
+            linsolve, stats, timeline)
 
     def load(prog, seg, cfg, B_):
         _segment_inputs(prog, seg, cfg, t1, max_attempts, rhs_bundle)
@@ -1558,7 +1786,7 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     prog = rung(B)
     load(prog, _init_segment_carry(
         y_blk, t0, method, _lane_obs(observer, observer_init, B, dtype, dev),
-        0, economy, linsolve), cfg_blk, B)
+        0, economy, linsolve, stats, timeline), cfg_blk, B)
     flags = _Flags(prog)
 
     # N-lane outputs in the caller's order
@@ -1573,7 +1801,18 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         # never-admitted lanes report the observer's initial values
         out_obs = {k: np.full((N,), float(v)) for k, v in
                    observer_init.items()}
+    out_stats = None
+    if stats:
+        # never-admitted lanes report zero counters and an empty ring
+        out_stats = {k: np.zeros((N,) + tuple(v.shape[1:]),
+                                 dtype=str(v.dtype).replace("torch.", ""))
+                     for k, v in prog.state["seg"]["ctrl"]["stats"].items()}
     counts = {k: 0 for k in STREAM_COUNTS}
+
+    def counted(name, k=1):
+        counts[name] += k
+        if recorder is not None:
+            recorder.counter(name, k)
     capacity_lane_segs = 0
     up_streak = down_streak = shift_cooldown = 0
 
@@ -1588,9 +1827,13 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         seg = prog.state["seg"]
         ctrl = seg["ctrl"]
         obs_t = list(seg["obs"].values()) if observer is not None else []
+        st_keys = list(out_stats) if stats else []
         got = graphs.fetch(seg["y"], seg["h"], seg["t"], ctrl["final_t"],
-                           ctrl["n_acc"], ctrl["n_rej"], *obs_t)
+                           ctrl["n_acc"], ctrl["n_rej"], *obs_t,
+                           *(ctrl["stats"][k] for k in st_keys))
         y_f, h_f, t_f, ft_f, na_f, nr_f = got[:6]
+        st_f = dict(zip(st_keys, got[6 + len(obs_t):]))
+        got = got[:6 + len(obs_t)]
         gids = slot_gid[rows]
         out_status[gids] = np.where(parked[rows], status_np[rows],
                                     MAX_STEPS_REACHED)
@@ -1603,6 +1846,8 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         if observer is not None:
             for k, v in zip(seg["obs"], got[6:]):
                 out_obs[k][gids] = v[rows]
+        for k, v in st_f.items():
+            out_stats[k][gids] = v[rows]
         slot_gid[rows] = -1
         counts["harvested_lanes"] += rows.size
         if on_harvest is not None:
@@ -1612,6 +1857,8 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
             if observer is not None:
                 payload["observed"] = {k: v[rows] for k, v in
                                        zip(seg["obs"], got[6:])}
+            if stats:
+                payload["stats"] = {k: v[rows] for k, v in st_f.items()}
             on_harvest(gids, payload)
 
     def compact(status_np, n_new):
@@ -1629,20 +1876,22 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
             new_y[n_live:n_live + n_new] = y0_all[sel]
             for k, v in cfg_all.items():
                 new_cfg[k][n_live:n_live + n_new] = v[sel]
-        prog.set(order=torch.as_tensor(order_np).to(dev),
-                 admit_y=new_y, admit_cfg=new_cfg,
-                 n_live=torch.full((1,), n_live, dtype=torch.int64,
-                                   device=dev),
-                 n_new=torch.full((1,), n_new, dtype=torch.int64,
-                                  device=dev))
-        prog.run("compact")
+        with span_or_null(recorder, "compact", admitted=n_new), \
+                _region(watch, "sweep-compact", B):
+            prog.set(order=torch.as_tensor(order_np).to(dev),
+                     admit_y=new_y, admit_cfg=new_cfg,
+                     n_live=torch.full((1,), n_live, dtype=torch.int64,
+                                       device=dev),
+                     n_new=torch.full((1,), n_new, dtype=torch.int64,
+                                      device=dev))
+            prog.run("compact")
         slot_gid = slot_gid[order_np]
+        counted("compactions")
         if n_new:
             slot_gid[n_live:n_live + n_new] = np.arange(
                 next_gid, next_gid + n_new, dtype=np.int64)
             next_gid += n_new
-            counts["admitted_lanes"] += n_new
-        counts["compactions"] += 1
+            counted("admitted_lanes", n_new)
 
     def move(B2, seg, cfg):
         """Switch to the B2-lane rung with the given carry."""
@@ -1662,9 +1911,12 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         compact(status_np, 0)
         cut = graphs.tree_map(lambda x: x[:B2].clone(),
                               (prog.state["seg"], prog.state["cfg"]))
+        B1 = B
         move(B2, *cut)
         slot_gid = slot_gid[:B2]
-        counts["bucket_downshifts"] += 1
+        counted("bucket_downshifts")
+        if recorder is not None:
+            recorder.event("bucket_downshift", bucket=B1, live=n_live)
         return True
 
     def upshift_now(status_np):
@@ -1686,7 +1938,10 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         status_ext = np.concatenate(
             [status_np, np.full((grow,), MAX_STEPS_REACHED,
                                 dtype=status_np.dtype)])
-        counts["bucket_upshifts"] += 1
+        counted("bucket_upshifts")
+        if recorder is not None:
+            recorder.event("bucket_upshift", bucket=B, live=n_live,
+                           backlog=backlog)
         compact(status_ext, min(B2 - n_live, backlog))
         return True
 
@@ -1702,22 +1957,55 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                                         + acc_np[live_rows].sum()),
                   "admitted_total": n_seed + counts["admitted_lanes"]})
 
+    gauge_tag = ("" if live_source == "sweep"
+                 else "_" + live_source.rpartition("-")[2])
+
+    def publish(seg_i, status_np, acc_np, rej_np):
+        """The queue's state at a poll point, from the polled vectors (the
+        epoch tag keeps concurrent epochs' gauges apart; counters sum
+        across sources)."""
+        live_rows = slot_gid >= 0
+        lanes_done = counts["harvested_lanes"] + int(
+            ((status_np != RUNNING) & live_rows).sum())
+        live.publish(
+            live_source,
+            counters={"lane_attempts": int(out_acc.sum() + out_rej.sum()
+                                           + acc_np[live_rows].sum()
+                                           + rej_np[live_rows].sum()),
+                      "lane_capacity": (int(capacity_lane_segs)
+                                        * int(segment_steps))},
+            gauges={f"{k}{gauge_tag}": v for k, v in (
+                ("segment", int(seg_i)), ("lanes_done", lanes_done),
+                ("lanes_total", int(N)),
+                ("lanes_running", int(N) - lanes_done),
+                ("backlog_depth", int(N - next_gid)),
+                ("harvested_lanes", counts["harvested_lanes"]),
+                ("admitted_lanes", n_seed + counts["admitted_lanes"]),
+                ("resident_bucket", int(B)))})
+
     done = False
     launched = 0
     try:
         for seg_i in range(max_segments):
-            _run_segment(prog, flags)
+            _run_segment(prog, flags, watch, recorder, seg_i)
             launched += 1
             capacity_lane_segs += B
             # the status vector is copied without a wait after every segment
             # and read at poll points: every poll_every segments, and as soon
             # as every resident lane has parked (rather than run all-parked
             # segments until the stride comes round)
-            flags.poll()
-            live = flags.read()
-            status_np, acc_np = flags.take_poll()
-            if live and launched % poll_every and launched != max_segments:
-                continue
+            flags.poll(rejected=live is not None)
+            if launched % poll_every and launched != max_segments:
+                running_any = flags.read()
+                polled = flags.take_poll()
+                if running_any:
+                    continue
+            else:
+                running_any, polled = _poll_read(flags, recorder, seg_i,
+                                                 True)
+            status_np, acc_np = polled[:2]
+            if live is not None:
+                publish(seg_i, *polled)
             emit_progress(seg_i, status_np, acc_np)
             running = status_np == RUNNING
             n_parked = int(B - running.sum())
@@ -1759,6 +2047,7 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     except BaseException:
         # a fault mid-window leaves the rung's program state in flight
         graphs.discard(prog)
+        _retire_live(live, recorder, None, live_source)
         raise
     if not done:
         # max_segments exhausted: still-running lanes are MaxSteps at their
@@ -1774,6 +2063,9 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                 f"— scale max_segments by the generation count "
                 f"(~ceil(N/resident) x per-lane segments)",
                 RuntimeWarning, stacklevel=3)
+            if recorder is not None:
+                recorder.event("fault", kind="admission_starved",
+                               lanes=int(never.sum()), n_lanes=N)
         out_status[never] = MAX_STEPS_REACHED
         out_t[never] = t0
     counts["lane_attempts"] = int(out_acc.sum() + out_rej.sum())
@@ -1781,6 +2073,9 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     with _STREAM_LOCK:
         for k, v in counts.items():
             STREAM_COUNTS[k] += v
+    _retire_live(live, recorder, {k: counts[k] for k in (
+        "lane_attempts", "lane_capacity")} if recorder is not None
+        and launched else None, live_source)
     return SolveResult(
         t=torch.as_tensor(out_t, dtype=dtype),
         y=torch.as_tensor(out_y, dtype=dtype),
@@ -1794,8 +2089,9 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         h=torch.as_tensor(out_h, dtype=dtype),
         observed=(None if observer is None else
                   {k: torch.as_tensor(v, dtype=dtype)
-                   for k, v in out_obs.items()}))
-
+                   for k, v in out_obs.items()}),
+        stats=(None if out_stats is None else
+               {k: torch.as_tensor(v) for k, v in out_stats.items()}))
 
 
 def sweep_report(res, cfgs=None):

@@ -81,7 +81,8 @@ def provenance_counts(prov):
             if int((prov == c).sum())}
 
 
-def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None):
+def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None,
+            recorder=None, lane_offset=0):
     """Run the quarantine escalation ladder over ``res``'s failed lanes.
 
     ``solve_subset(y0_sub, cfgs_sub, pass_name)`` re-solves a batch of
@@ -92,12 +93,20 @@ def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None):
 
     Returns ``(res, provenance)``: ``res`` with recovered lanes merged in
     and ``provenance`` attached (always, even all-primary, so the schema
-    is uniform whenever quarantine is armed)."""
+    is uniform whenever quarantine is armed).  ``recorder`` (an
+    ``obs.Recorder``) gets the ``lanes_quarantined``/``lanes_recovered``/
+    ``lanes_unrecovered`` counters and ``fault`` events naming the lanes
+    (offset by ``lane_offset``, a chunk's first lane)."""
     check_oracle(policy, oracle)
     status0 = res.status.cpu().numpy()
     B = int(status0.shape[0])
     prov = np.zeros(B, dtype=np.int8)
-    pending = np.nonzero(status0 != SUCCESS)[0]
+    pending = bad = np.nonzero(status0 != SUCCESS)[0]
+    if bad.size and recorder is not None:
+        recorder.counter("lanes_quarantined", int(bad.size))
+        recorder.event("fault", kind="lane_quarantine",
+                       lanes=[int(lane_offset + i) for i in bad],
+                       statuses=[int(s) for s in status0[bad]])
     passes = ([("retry", RETRY)] if policy.retry_pass else [])
     passes.append(("fallback", FALLBACK))
     for pass_name, code in passes:
@@ -117,6 +126,14 @@ def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None):
             prov[pending[ok]] = code
         pending = pending[~ok]
     prov[pending] = FAILED
+    if bad.size and recorder is not None:
+        recovered = int(bad.size - pending.size)
+        if recovered:
+            recorder.counter("lanes_recovered", recovered)
+        if pending.size:
+            recorder.counter("lanes_unrecovered", int(pending.size))
+            recorder.event("fault", kind="lane_unrecovered",
+                           lanes=[int(lane_offset + i) for i in pending])
     res = dataclasses.replace(res, provenance=torch.as_tensor(prov))
     return res, prov
 

@@ -121,12 +121,15 @@ def _events_of(x):
     return events, devices
 
 
-def _guarded_wait(events, devices, deadline_s, label):
+def _guarded_wait(events, devices, deadline_s, label, recorder=None):
     """Poll ``events`` until all have completed, bounded by ``deadline_s``.
 
     The fault injector's ``hang_fetch`` delay holds the wait back inside
     this loop, so the deadline breach below fires exactly as it would on
-    a real wedge."""
+    a real wedge.  On a breach the armed flight recorder (``obs.live``;
+    no-op unarmed) gets the last counter snapshot and dumps its ring, and
+    ``recorder`` the ``fetch_timeouts`` counter and a ``hung_fetch``
+    fault event."""
     from . import inject
 
     t0 = time.perf_counter()
@@ -139,6 +142,17 @@ def _guarded_wait(events, devices, deadline_s, label):
         if elapsed > deadline_s:
             for d in devices:
                 mark_suspect(d)
+            from ..obs.live import flight_dump, flight_note_counters
+
+            # the counters before the fault event, so the dumped ring
+            # reads "last known state, then the fault"
+            flight_note_counters(recorder)
+            if recorder is not None:
+                recorder.counter("fetch_timeouts")
+                recorder.event("fault", kind="hung_fetch", label=label,
+                               deadline_s=float(deadline_s),
+                               elapsed_s=round(elapsed, 3), devices=devices)
+            flight_dump(f"hung_fetch [{label}] after {deadline_s:g}s")
             raise WedgeError(
                 f"blocking device wait [{label}] exceeded its "
                 f"{deadline_s:g} s deadline ({elapsed:.1f} s elapsed); "
@@ -149,17 +163,18 @@ def _guarded_wait(events, devices, deadline_s, label):
         time.sleep(0 if elapsed < 1e-3 else 5e-4)
 
 
-def block_with_deadline(x, deadline_s, *, label="block"):
+def block_with_deadline(x, deadline_s, recorder=None, *, label="block"):
     """Wait, bounded by ``deadline_s``, until the device work that
-    produces ``x`` (a nest of tensors, or a CUDA event) has completed."""
+    produces ``x`` (a nest of tensors, or a CUDA event) has completed;
+    ``recorder`` (an ``obs.Recorder``) gets a breach's fault telemetry."""
     events, devices = _events_of(x)
-    _guarded_wait(events, devices, deadline_s, label)
+    _guarded_wait(events, devices, deadline_s, label, recorder)
 
 
-def fetch_with_deadline(x, deadline_s, *, label="fetch"):
+def fetch_with_deadline(x, deadline_s, recorder=None, *, label="fetch"):
     """The tensors of the tuple ``x`` as host numpy arrays, the wait for
     them bounded by ``deadline_s``."""
-    block_with_deadline(x, deadline_s, label=label)
+    block_with_deadline(x, deadline_s, recorder, label=label)
     return tuple(t.detach().cpu().numpy() for t in x)
 
 

@@ -33,13 +33,11 @@ backward sweep, independent of the number of parameters.
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..solver import bdf
-from ..solver.common import check_deferred
+from ..obs.recorder import span_or_null
+from ..solver import bdf, graphs
 from ..solver.linalg import make_solve_m
 from ..solver.sdirk import _A, _B, _C, _GAMMA
 from . import params as P
-
-_DEFERRED = (("stats", False, "A14"), ("recorder", None, "A14"))
 
 
 def _resolve_linsolve(linsolve, device):
@@ -185,7 +183,8 @@ def ignition_delay_qoi(marker, frac=0.5):
 def solve_adjoint(rhs_theta, qoi_fn, y0, t0, t1, theta, cfg, *,
                   jac_theta=None, rtol=1e-6, atol=1e-10, grid_size=256,
                   segments=8, grid_refine=2, max_steps=100_000,
-                  jac_window=1, linsolve="auto", dt0=None, **deferred):
+                  jac_window=1, linsolve="auto", dt0=None, stats=False,
+                  recorder=None):
     """Gradient of a scalar QoI per lane with respect to theta.
 
     ``rhs_theta(t, y, theta, cfg)`` / optional ``jac_theta(t, y, theta,
@@ -203,8 +202,12 @@ def solve_adjoint(rhs_theta, qoi_fn, y0, t0, t1, theta, cfg, *,
     resolution, raise ``grid_size``).  ``grid_refine=r`` splits every
     pinned step into r equal SDIRK4 substeps.  ``linsolve="auto"`` is
     ``"lu"`` on the CPU and ``"inv32"`` on CUDA, for both passes.
+
+    Telemetry: ``stats=True`` turns on the grid-pinning pass's counter
+    block (``aux["stats"]``); ``recorder`` (an ``obs.Recorder``) gets
+    ``adjoint_pin`` and ``adjoint_grad`` spans around the two passes, each
+    waiting for the card before it closes.
     """
-    check_deferred(deferred, _DEFERRED)
     linsolve = _resolve_linsolve(linsolve, y0.device)
     theta0 = {k: v.detach() for k, v in theta.items()}
 
@@ -216,9 +219,13 @@ def solve_adjoint(rhs_theta, qoi_fn, y0, t0, t1, theta, cfg, *,
         def jac0(t, y, cfg):
             return jac_theta(t, y, theta0, cfg)
 
-    prim = bdf.solve(rhs0, y0, t0, t1, cfg, rtol=rtol, atol=atol,
-                     max_steps=max_steps, n_save=grid_size, jac=jac0,
-                     jac_window=jac_window, linsolve=linsolve, dt0=dt0)
+    with span_or_null(recorder, "adjoint_pin", grid_size=int(grid_size)):
+        prim = bdf.solve(rhs0, y0, t0, t1, cfg, rtol=rtol, atol=atol,
+                         max_steps=max_steps, n_save=grid_size, jac=jac0,
+                         jac_window=jac_window, linsolve=linsolve, dt0=dt0,
+                         stats=stats)
+        if recorder is not None:
+            graphs.block(prim.y)
     B = y0.shape[0]
     tk = torch.minimum(prim.ts, torch.as_tensor(t1, dtype=y0.dtype,
                                                 device=y0.device))
@@ -251,11 +258,15 @@ def solve_adjoint(rhs_theta, qoi_fn, y0, t0, t1, theta, cfg, *,
     theta_flat, unflatten = P.flatten(theta)
     theta_flat = theta_flat.detach().requires_grad_(True)
     fns = (rhs_theta, jacf, linsolve, unflatten)
-    ys, y_final = _fixed_grid_solve(fns, y0, t_prev, t_next, theta_flat, cfg,
-                                    segments)
-    qoi = qoi_fn(t_next, ys, y_final)
-    grad_flat, = torch.autograd.grad(qoi.sum(), theta_flat)
+    with span_or_null(recorder, "adjoint_grad", segments=int(segments)):
+        ys, y_final = _fixed_grid_solve(fns, y0, t_prev, t_next, theta_flat,
+                                        cfg, segments)
+        qoi = qoi_fn(t_next, ys, y_final)
+        grad_flat, = torch.autograd.grad(qoi.sum(), theta_flat)
+        if recorder is not None:
+            graphs.block(grad_flat)
     aux = {"status": prim.status, "t": prim.t, "y": prim.y,
            "n_accepted": prim.n_accepted, "n_rejected": prim.n_rejected,
-           "truncated": prim.n_accepted > grid_size, "ts": tk}
+           "truncated": prim.n_accepted > grid_size, "ts": tk,
+           "stats": prim.stats}
     return qoi.detach(), unflatten(grad_flat), aux

@@ -19,12 +19,9 @@ every J S_p + df/dtheta_p, exact to roundoff, with J never built.
 
 import torch
 
-from ..solver import bdf
-from ..solver.common import check_deferred
+from ..obs.recorder import span_or_null
+from ..solver import bdf, graphs
 from . import params as P
-
-_DEFERRED = (("step_audit", False, "A14"), ("stats", False, "A14"),
-             ("recorder", None, "A14"))
 
 
 def _repeat_lanes(x, nP):
@@ -70,7 +67,7 @@ def solve_forward(rhs_theta, y0, t0, t1, theta, cfg, *, rtol=1e-6,
                   atol=1e-10, max_steps=100_000, n_save=0, dt0=None,
                   jac=None, jac_window=1, linsolve="auto", sens_iters=2,
                   sens_errcon=False, observer=None, observer_init=None,
-                  S0=None, **deferred):
+                  S0=None, step_audit=False, stats=False, recorder=None):
     """Integrate state + forward sensitivities of every lane of ``y0``
     (B, n) in one BDF solve.
 
@@ -79,8 +76,10 @@ def solve_forward(rhs_theta, y0, t0, t1, theta, cfg, *, rtol=1e-6,
     ``jac`` is the analytic state Jacobian at the given theta (build it
     from ``params.apply(mech, theta, spec)``, as ``api.py`` does); ``S0``
     (B, P, n) or (P, n) replaces the zero initial tangents when y0 depends
-    on theta.  The other options are ``bdf.solve``'s."""
-    check_deferred(deferred, _DEFERRED)
+    on theta.  The other options are ``bdf.solve``'s; ``stats`` and
+    ``step_audit`` count the tangent-carrying solve's steps as in a plain
+    one.  ``recorder`` (an ``obs.Recorder``) gets a ``sens_forward`` span
+    around the solve that waits for the card."""
     theta_flat, _ = P.flatten(theta)
     nP = theta_flat.shape[-1]
     if S0 is None:
@@ -91,8 +90,15 @@ def solve_forward(rhs_theta, y0, t0, t1, theta, cfg, *, rtol=1e-6,
     def rhs(t, y, cfg):
         return rhs_theta(t, y, theta, cfg)
 
-    return bdf.solve(
-        rhs, y0, t0, t1, cfg, rtol=rtol, atol=atol, max_steps=max_steps,
-        n_save=n_save, dt0=dt0, jac=jac, jac_window=jac_window,
-        linsolve=linsolve, observer=observer, observer_init=observer_init,
-        tangent=(fdot, S0), sens_iters=sens_iters, sens_errcon=sens_errcon)
+    with span_or_null(recorder, "sens_forward", n_params=int(nP)) as sp:
+        res = bdf.solve(
+            rhs, y0, t0, t1, cfg, rtol=rtol, atol=atol, max_steps=max_steps,
+            n_save=n_save, dt0=dt0, jac=jac, jac_window=jac_window,
+            linsolve=linsolve, observer=observer,
+            observer_init=observer_init, tangent=(fdot, S0),
+            sens_iters=sens_iters, sens_errcon=sens_errcon,
+            step_audit=step_audit, stats=stats)
+        if recorder is not None:
+            graphs.block(res.y)
+            sp["attrs"]["n_accepted"] = int(res.n_accepted.sum())
+    return res

@@ -31,18 +31,26 @@ do not depend on whether a loop stopped early.
 
 ``tangent=`` carries forward sensitivities (CVODES's staggered corrector)
 in a (B, ROWS, P, n) difference history, held as (B, ROWS, P n), stepped
-with the state's grid, order and factor (``sensitivity/forward.py``).  Options not ported yet
-raise ``NotImplementedError``: ``stats``, ``timeline``,
-``timeline_state`` and ``step_audit`` (ROADMAP A14).
+with the state's grid, order and factor (``sensitivity/forward.py``).
+
+``stats=True`` adds the per-lane counter block (``obs/counters.py``) to
+the carry, ``timeline=N`` the attempt ring (``obs/timeline.py``) and
+``step_audit=True`` the 64-slot accept ring and the last iteration
+matrix: int32 masked adds and per-lane scatters on values the attempt
+already computes, so a window that carries them still captures.  Off,
+the carry holds none of their keys.
 """
 
 import math
 
 import torch
 
+from ..obs.counters import COMMON_KEYS
+from ..obs.timeline import validate as validate_timeline
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
-                     SolveResult, Stepper, atol_scale_of, check_deferred,
-                     jacfwd_lanes, nlive_of, rms, scaled_norm)
+                     SolveResult, Stepper, atol_scale_of, init_stats,
+                     init_timeline, jacfwd_lanes, nlive_of, ring_write, rms,
+                     scaled_norm, stats_out)
 from .common import where_lanes as _where
 from .graphs import count, host_any
 from .linalg import (apply_factor, factor_m, factor_zeros, make_solve_m,
@@ -63,10 +71,12 @@ _ECON_MAX_AGE = 20
 _ERRC_TAB = [1.0 / (q + 1) for q in range(_ROWS)]
 
 
-# (keyword, default, ROADMAP item) of the JAX solver's options that wait
-# for a later slice
-_DEFERRED = (("step_audit", False, "A14"), ("stats", False, "A14"),
-             ("timeline", None, "A14"), ("timeline_state", None, "A14"))
+#: the (B,) int32 counter keys of BDF's stats block (``order_hist`` is
+#: (B, MAXORD + 1)); ``setup_reuses``/``precond_age`` stay 0 without the
+#: setup economy, so the block's keys never depend on the options
+STATS_KEYS = COMMON_KEYS + ("setup_reuses", "precond_age")
+#: slots of the step-audit accept ring
+AUDIT_SLOTS = 64
 
 
 def _change_D(D, order, factor):
@@ -137,7 +147,10 @@ def solve(
     tangent=None,
     sens_iters=2,
     sens_errcon=False,
-    **deferred,
+    step_audit=False,
+    stats=False,
+    timeline=None,
+    timeline_state=None,
 ):
     """Integrate ``dy/dt = rhs(t, y, cfg)`` per lane with BDF(1..5).
 
@@ -186,10 +199,24 @@ def solve(
     it is.  Tangents cannot resume from ``solver_state``.  They land in
     ``SolveResult.tangents`` (B, P, n).
 
+    ``stats=True`` returns the per-lane counters in ``SolveResult.stats``
+    (``obs/counters.py``: Newton iterations, Jacobian builds,
+    factorizations, error and convergence rejections, the order histogram,
+    the setup economy's reuses and peak age).  ``timeline=N`` (with
+    ``stats``) adds each lane's last N attempts ``(t, h, code)`` under
+    ``stats["timeline_*"]``, slotted by the global attempt index mod N;
+    ``timeline_state`` (``{"t", "h", "code", "base"}``) resumes the ring of
+    a previous segment.  ``step_audit=True`` adds the 64-slot int8 accept
+    ring (``SolveResult.accept_ring``) and the last iteration matrix
+    (``SolveResult.it_matrix``), both also under ``stats``.
+
     This is the blocking gear: :func:`make_stepper`'s pieces driven by a
     loop that stops each of its three loops once no lane needs it.
     """
-    check_deferred(deferred, _DEFERRED)
+    timeline = validate_timeline(timeline, stats)
+    if timeline is None and timeline_state is not None:
+        raise ValueError("timeline_state resumes a timeline ring; pass "
+                         "timeline=N too or drop the state")
     if jac_window < 1:
         raise ValueError(f"jac_window must be >= 1, got {jac_window}")
     if freeze_precond and jac_window == 1:
@@ -221,10 +248,12 @@ def solve(
         freeze_precond=freeze_precond, setup_economy=setup_economy,
         stale_tol=stale_tol,
         fdot=tangent[0] if tangent is not None else None,
-        sens_iters=sens_iters, sens_errcon=sens_errcon)
+        sens_iters=sens_iters, sens_errcon=sens_errcon, stats=stats,
+        timeline=timeline, step_audit=step_audit)
     carry = st.init(y0, t0, t1, dt0=dt0, solver_state=solver_state,
                     observer_init=observer_init,
-                    S0=tangent[1] if tangent is not None else None)
+                    S0=tangent[1] if tangent is not None else None,
+                    timeline_state=timeline_state)
     while host_any(carry["status"] == RUNNING):
         carry = st.window(carry)
     return st.result(carry)
@@ -235,13 +264,14 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                  dt_min_factor=1e-22, linsolve="lu", jac=None,
                  observer=None, jac_window=1, freeze_precond=False,
                  setup_economy=False, stale_tol=0.3, fdot=None, sens_iters=2,
-                 sens_errcon=False):
+                 sens_errcon=False, stats=False, timeline=None,
+                 step_audit=False):
     """The BDF of :func:`solve` as a :class:`~.common.Stepper` over B lanes
     of n components (``linsolve`` resolved, options validated by the
     caller; ``fdot`` is the tangent hook's, whose ``S0`` goes to ``init``).
 
     ``init(y0, t0, t1, dt0=None, solver_state=None, observer_init=None,
-    S0=None)`` takes :func:`solve`'s arguments; with tensors for ``t0``,
+    S0=None, timeline_state=None)`` takes :func:`solve`'s arguments; with tensors for ``t0``,
     ``t1`` and ``dt0`` it allocates only on the device and reads no device
     value, so it can run inside a captured graph (a segment's opening).
     The carry holds the solve's per-lane constants (``t1``, the span) under
@@ -276,7 +306,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                      min(0.03, math.sqrt(rtol)))
 
     def init(y0, t0, t1, dt0=None, solver_state=None, observer_init=None,
-             S0=None):
+             S0=None, timeline_state=None):
         def lanes(x):
             return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
 
@@ -355,14 +385,27 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             DS[:, 1] = (h_init[:, None, None] * fdot(t0, y0, S0)).reshape(B,
                                                                           -1)
             carry["DS"] = DS
+        if stats:
+            carry["st"] = init_stats(STATS_KEYS, B, dev, order_slots=_M)
+        if timeline is not None:
+            carry["tl"], carry["k"]["tl_base"] = init_timeline(
+                timeline, timeline_state, B, dt, dev)
+        if step_audit:
+            carry["audit"] = {
+                "ring": torch.full((B, AUDIT_SLOTS), -1, dtype=torch.int8,
+                                   device=dev),
+                "M": torch.zeros((B, n, n), dtype=dt, device=dev)}
         return carry
 
     def newton(solve_m, t_new, y_pred, psi, c, scale, live, fixed):
         """Solve c f(t_new, y_pred + d) = psi + d per lane; returns
-        (d, converged).  A lane that converged or diverged keeps its d;
-        lanes outside ``live`` (their attempt is discarded anyway) do not
-        iterate at all.  ``fixed`` runs all ``max_newton`` iterations."""
+        (d, converged, iterations).  A lane that converged or diverged
+        keeps its d; lanes outside ``live`` (their attempt is discarded
+        anyway) do not iterate at all.  ``fixed`` runs all ``max_newton``
+        iterations; ``iterations`` (B,) int32 (None without ``stats``)
+        counts each lane's own, as the blocking gear runs them."""
         d = torch.zeros_like(y_pred)
+        nit = torch.zeros(B, dtype=torch.int32, device=dev) if stats else None
         ynew = y_pred
         dw_old = torch.full((B,), -1.0, dtype=dt, device=dev)
         conv = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -372,6 +415,8 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             if not fixed and not host_any(active):
                 break
             count("newton_iters")
+            if stats:
+                nit = nit + active
             res = c[:, None] * f(t_new, ynew) - psi - d
             dd = solve_m(res)
             dw = rms(dd / scale, nlive_of(cfg, dd))
@@ -391,7 +436,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             dw_old = torch.where(active, dw, dw_old)
             conv = torch.where(active, conv2 & ~bad, conv)
             div = torch.where(active, slow | bad, div)
-        return d, conv
+        return d, conv, nit
 
     def step_once(c, k, J_stale, pre=None, stale_pre=None, fixed=False):
         """One step attempt for every lane (terminated lanes hold their
@@ -429,15 +474,18 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
 
         J = J_at(t_new, y_pred) if J_stale is None else J_stale
         if pre is None:
-            solve_m = make_solve_m(eye - cc[:, None, None] * J, linsolve, dt)
+            M = eye - cc[:, None, None] * J
+            solve_m = make_solve_m(M, linsolve, dt)
         else:
             solve0, c0 = pre
+            M = eye - c0[:, None, None] * J if step_audit else None
             cj_fac = 2.0 / (1.0 + cc / c0)
 
             def solve_m(b):
                 return solve0(b) * cj_fac.reshape((B,) + (1,) * (b.ndim - 1))
-        d, conv = newton(solve_m, t_new, y_pred, psi, cc, scale,
-                         running & ~already, fixed)
+        live = running & ~already
+        d, conv, nit = newton(solve_m, t_new, y_pred, psi, cc, scale, live,
+                              fixed)
 
         err = _norm(errc_tab[order][:, None] * d, y_pred)
         if fdot is not None:
@@ -573,6 +621,39 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                "obs": obs}
         if fdot is not None:
             out["DS"] = DS_new
+        if stats:
+            # masked adds on values this attempt computed; ``live`` makes
+            # them algorithmic work per lane, not the masked lanes a fixed
+            # trip runs
+            st = dict(c["st"])
+            rej = live & ~accept
+            st["newton_iters"] = st["newton_iters"] + torch.where(live, nit,
+                                                                  0)
+            if J_stale is None:
+                st["jac_builds"] = st["jac_builds"] + live
+            if pre is None:
+                st["factorizations"] = st["factorizations"] + live
+            st["err_rejects"] = st["err_rejects"] + (rej & conv)
+            st["conv_rejects"] = st["conv_rejects"] + (rej & ~conv)
+            st["order_hist"] = st["order_hist"] + (
+                (torch.arange(_M, device=dev)[None, :] == order[:, None])
+                & accept[:, None])
+            out["st"] = st
+        if timeline is not None:
+            # slot: the global attempt index (previous segments' attempts
+            # in the base); code: the order on accept, -1 error reject,
+            # -2 convergence reject
+            tslot = (k["tl_base"] + c["n_acc"] + c["n_rej"]) % timeline
+            tcode = torch.where(accept, order,
+                                torch.where(conv, -1, -2))
+            out["tl"] = ring_write(c["tl"], tslot, live, t=t_new, h=h,
+                                   code=tcode)
+        if step_audit:
+            slot = (c["n_acc"] + c["n_rej"]) % AUDIT_SLOTS
+            out["audit"] = {
+                "ring": ring_write({"r": c["audit"]["ring"]}, slot, live,
+                                   r=accept)["r"],
+                "M": _where(live, M, c["audit"]["M"])}
         return out, newton_failed
 
     def window(c, fixed=False):
@@ -590,6 +671,13 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         y_pred = _masked_row_sum(D, ones_rows, order)
         J = J_at(t + h, y_pred)
         reuse = pre = None
+        if stats:
+            # the window opening's J (and, frozen, its factorization)
+            st = dict(c["st"])
+            open0 = c["status"] == RUNNING
+            st["jac_builds"] = st["jac_builds"] + open0
+            if freeze_precond and not economy:
+                st["factorizations"] = st["factorizations"] + open0
         if economy or freeze_precond:
             # the window's frozen factorization at its opening c0; the
             # economy keeps a lane's carried one instead when it passes the
@@ -607,7 +695,18 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                 fac = _where(need, fac, econ["fac"])
                 c0 = torch.where(need, c_open, econ["c0"])
                 age = torch.where(need, 0, econ["age"] + 1)
+                if stats:
+                    # factorizations only where the staleness test asked;
+                    # precond_age the peak windows one factorization served
+                    st["factorizations"] = st["factorizations"] + (
+                        live0 & need)
+                    st["setup_reuses"] = st["setup_reuses"] + (live0 & reuse)
+                    st["precond_age"] = torch.maximum(
+                        st["precond_age"],
+                        torch.where(live0, age + 1, 0).to(torch.int32))
             pre = ((lambda b: apply_factor(fac, b, linsolve, dt)), c0)
+        if stats:
+            c["st"] = st
         nf = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(jac_window):
             active = ~nf & (c["status"] == RUNNING)
@@ -634,11 +733,17 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         tangents = None
         if fdot is not None:
             tangents = c["DS"][:, 0].reshape(B, -1, n)
+        st = stats_out(c, timeline) if stats else None
+        ring = M_last = None
+        if step_audit:
+            ring, M_last = c["audit"]["ring"], c["audit"]["M"]
+            st = dict(st or {}, accept_ring=ring, it_matrix=M_last)
         return SolveResult(
             t=c["t"], y=c["D"][:, 0], status=c["status"],
             n_accepted=c["n_acc"], n_rejected=c["n_rej"],
             ts=c["ts"], ys=c["ys"], n_saved=c["n_saved"],
             h=c["h"], observed=c["obs"] if observer is not None else None,
-            solver_state=state_out, tangents=tangents)
+            solver_state=state_out, tangents=tangents, stats=st,
+            it_matrix=M_last, accept_ring=ring)
 
     return Stepper(init, window, result)

@@ -52,6 +52,9 @@ class SolveResult:
     solver_state: object = None  # opaque multistep carry (BDF resume)
     tangents: torch.Tensor = None  # (B, P, n) forward sensitivities (BDF)
     provenance: torch.Tensor = None  # (B,) int8 quarantine provenance codes
+    stats: dict = None       # per-lane counters (stats=True; obs/counters.py)
+    it_matrix: torch.Tensor = None  # (B, n, n) last M = I - cJ (step_audit)
+    accept_ring: torch.Tensor = None  # (B, 64) int8 attempt ring (step_audit)
 
 
 def check_deferred(kwargs, table):
@@ -124,6 +127,60 @@ def jacfwd_lanes(rhs):
         return vmap(jacfwd(one, argnums=1))(t, y, cfg)
 
     return jac
+
+
+def init_stats(keys, B, device, order_slots=None):
+    """The zero counter block of ``stats=True``: one (B,) int32 tensor per
+    key, and with ``order_slots`` BDF's (B, order_slots) order histogram."""
+    st = {k: torch.zeros(B, dtype=torch.int32, device=device) for k in keys}
+    if order_slots is not None:
+        st["order_hist"] = torch.zeros((B, order_slots), dtype=torch.int32,
+                                       device=device)
+    return st
+
+
+def init_timeline(timeline, timeline_state, B, dtype, device):
+    """The ring of ``timeline=N`` as ``({"t", "h", "code"}, base)``: zero
+    slots (code 0 = empty) and base 0, or resumed from ``timeline_state``
+    (``{"t", "h", "code", "base"}``, ``base`` the (B,) attempts of the
+    previous segments, so the slot keys on the global attempt index)."""
+    if timeline_state is None:
+        ring = {"t": torch.zeros((B, timeline), dtype=dtype, device=device),
+                "h": torch.zeros((B, timeline), dtype=dtype, device=device),
+                "code": torch.zeros((B, timeline), dtype=torch.int8,
+                                    device=device)}
+        return ring, torch.zeros(B, dtype=torch.int64, device=device)
+    ring = {"t": torch.as_tensor(timeline_state["t"], dtype=dtype,
+                                 device=device).clone(),
+            "h": torch.as_tensor(timeline_state["h"], dtype=dtype,
+                                 device=device).clone(),
+            "code": torch.as_tensor(timeline_state["code"], dtype=torch.int8,
+                                    device=device).clone()}
+    base = torch.as_tensor(timeline_state["base"], dtype=torch.int64,
+                           device=device).expand(B).clone()
+    return ring, base
+
+
+def ring_write(ring, slot, live, **vals):
+    """Write ``vals`` (per-lane (B,) values by ring key) at the per-lane
+    ``slot`` (B,) of ``ring`` where ``live`` holds: a gather, a select and a
+    scatter, so a captured window can write it."""
+    idx = slot[:, None]
+    return {k: ring[k].scatter(1, idx, torch.where(
+        live[:, None], vals[k].to(ring[k].dtype)[:, None],
+        ring[k].gather(1, idx))) if k in vals else ring[k] for k in ring}
+
+
+def stats_out(c, timeline):
+    """``SolveResult.stats`` of a stepper carry: the counters, the step
+    counts (int32, so the block is self-contained) and the ring."""
+    out = {"n_accepted": c["n_acc"].to(torch.int32),
+           "n_rejected": c["n_rej"].to(torch.int32), **c["st"]}
+    if timeline is not None:
+        out["timeline_t"] = c["tl"]["t"]
+        out["timeline_h"] = c["tl"]["h"]
+        out["timeline_code"] = c["tl"]["code"]
+    return out
 
 
 class Stepper(NamedTuple):

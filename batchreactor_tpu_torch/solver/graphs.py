@@ -24,15 +24,23 @@ iterations) is recorded once at capture and added on every replay, so a
 count means work the card did.
 
 Every blocking host read of the segmented drivers goes through this module
-(:func:`host_any`, :func:`fetch`, :func:`wait_event`), which makes it the
-one choke point of the wedge watchdog: inside :func:`fetch_deadline`
-(thread-local) each read waits through
+(:func:`host_any`, :func:`fetch`, :func:`block`, :func:`wait_event`), which
+makes it the one choke point of the wedge watchdog: inside
+:func:`fetch_deadline` (thread-local) each read waits through
 ``resilience.watchdog.block_with_deadline`` and raises ``WedgeError`` past
 its deadline; outside it a read adds no event, poll or thread.
+
+Inside :func:`recording` (thread-local) every increment of :data:`COUNTS`
+also lands on an ``obs.Recorder`` under the names of
+:data:`RECORDER_NAMES` (a replayed graph's tally too), so a run's report
+carries its own host syncs.  Program builds and graph captures are
+reported to the entered ``obs.CompileWatch`` instances
+(``obs/retrace.py``).
 """
 
 import contextlib
 import threading
+import time
 
 import torch
 
@@ -45,9 +53,37 @@ CAPTURES = {}
 #: fixed-trip window counts every iteration it runs, masked or not)
 COUNTS = {"replays": 0, "host_syncs": 0, "newton_iters": 0}
 
+#: the recorder counter each :data:`COUNTS` key lands on inside
+#: :func:`recording` (``host_syncs`` under the JAX package's name)
+RECORDER_NAMES = {"host_syncs": "blocking_syncs", "replays": "graph_replays",
+                  "newton_iters": "newton_iters_executed"}
+
 # the tally of the graph being captured (None outside a capture): counts
 # made by the captured code, replayed with the graph
 _tally = threading.local()
+# the recorder of this thread's run (None: off)
+_sink = threading.local()
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Mirror this thread's :data:`COUNTS` increments onto ``recorder``
+    (an ``obs.Recorder``, or None: off) for the block."""
+    prev = getattr(_sink, "value", None)
+    _sink.value = recorder
+    try:
+        yield
+    finally:
+        _sink.value = prev
+
+
+def add_count(name, k=1):
+    """Add ``k`` to :data:`COUNTS` ``[name]`` (and to the recording
+    recorder, if any)."""
+    COUNTS[name] += k
+    rec = getattr(_sink, "value", None)
+    if rec is not None:
+        rec.counter(RECORDER_NAMES[name], k)
 
 
 def reset_counts():
@@ -69,7 +105,7 @@ def count(name, k=1):
     if tally is not None:
         tally[name] = tally.get(name, 0) + k
     else:
-        COUNTS[name] += k
+        add_count(name, k)
 
 
 # the watchdog deadline of this thread's host reads (None: off)
@@ -98,13 +134,14 @@ def _guard(x, label):
     if seconds is not None:
         from ..resilience.watchdog import block_with_deadline
 
-        block_with_deadline(x, seconds, label=label)
+        block_with_deadline(x, seconds, getattr(_sink, "value", None),
+                            label=label)
 
 
 def host_any(mask):
     """``bool(mask.any())``, counted as a host sync: the break points of
     the blocking gear's loops."""
-    COUNTS["host_syncs"] += 1
+    add_count("host_syncs")
     _guard(mask, "host_any")
     return bool(mask.any())
 
@@ -112,9 +149,30 @@ def host_any(mask):
 def fetch(*tensors):
     """The tensors as numpy arrays on the host, counted as one host sync
     (the first copy waits for the card; the rest find it idle)."""
-    COUNTS["host_syncs"] += 1
+    add_count("host_syncs")
     _guard(tensors, "fetch")
     return tuple(t.detach().cpu().numpy() for t in tensors)
+
+
+def block(tree):
+    """Wait until the card has written the tensors of ``tree`` (a tensor
+    or a nest of them), counted as one host sync and bounded by this
+    thread's deadline; on the CPU there is nothing to wait for."""
+    add_count("host_syncs")
+    cuda = [x for x in tree_leaves(tree)
+            if torch.is_tensor(x) and x.device.type == "cuda"]
+    if cuda:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(cuda[0].device))
+        wait_event(event, "block")
+
+
+def notify_watches(kind, **info):
+    """Report a program build (``kind="trace"``) or a graph capture
+    (``"compile"``) to the entered compile watches (``obs/retrace.py``)."""
+    from ..obs import retrace
+
+    retrace.dispatch(kind, **info)
 
 
 def wait_event(event, label="event"):
@@ -215,10 +273,10 @@ class Program:
         if graph is None:
             graph = self._capture(name)
         graph.replay()
-        COUNTS["replays"] += 1
+        add_count("replays")
         tally, launches = self._tallies[name]
         for k, v in tally.items():
-            COUNTS[k] += v
+            add_count(k, v)
         if launches:
             from . import linalg_cuda
 
@@ -231,6 +289,7 @@ class Program:
         step cannot be captured."""
         from . import linalg_cuda
 
+        t0 = time.perf_counter()
         fn = self.steps[name]
         dev = self.device
         side = torch.cuda.Stream(dev)
@@ -262,6 +321,8 @@ class Program:
         self._tallies[name] = (tally, launches)
         self._graphs[name] = graph
         CAPTURES[name] = CAPTURES.get(name, 0) + 1
+        notify_watches("compile", step=name,
+                       seconds=time.perf_counter() - t0)
         return graph
 
 
@@ -284,6 +345,7 @@ def program(key, build):
         prog = _PROGRAMS.pop(key, None)
         if prog is None:
             prog = build()
+            notify_watches("trace", device=prog.device.type)
         _PROGRAMS[key] = prog
         while len(_PROGRAMS) > MAX_PROGRAMS:
             _PROGRAMS.pop(next(iter(_PROGRAMS)))

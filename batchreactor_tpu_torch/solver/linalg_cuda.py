@@ -160,7 +160,11 @@ def library_path():
 
 
 def load_library():
-    """Build (once, at first use) and load the kernel library."""
+    """Build (once, at first use) and load the kernel library; an entered
+    ``obs.CompileWatch`` counts the build, or the load from the build
+    cache."""
+    from ..obs import retrace
+
     global _lib
     with _lock:
         if _lib is not None:
@@ -179,6 +183,10 @@ def load_library():
             os.replace(tmp, so)
             BUILD_INFO.update(seconds=time.perf_counter() - t0,
                               log=proc.stderr)
+            retrace.dispatch("compile", step="nvcc",
+                             seconds=BUILD_INFO["seconds"])
+        else:
+            retrace.dispatch("cache_hit")
         lib = ctypes.CDLL(so)
         # (M, LU, piv, batch, n, npad, grid, block, smem, stream)
         lib.lu32p_factor.argtypes = [

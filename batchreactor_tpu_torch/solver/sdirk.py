@@ -19,18 +19,22 @@ out, as in :mod:`.bdf`:
 
 The any-lane tests are host syncs (:func:`solve`, the blocking gear);
 :func:`make_stepper`'s ``window(carry, fixed=True)`` runs every trip under
-the masks instead, for a captured graph (``solver/graphs.py``).  ``stats``
-and ``timeline`` are not ported yet (ROADMAP A14) and raise
-``NotImplementedError``.
+the masks instead, for a captured graph (``solver/graphs.py``).
+``stats=True`` and ``timeline=N`` add the counter block and the attempt
+ring to the carry, as in :mod:`.bdf` (``obs/counters.py``: SDIRK has no
+order histogram; its Newton iterations sum the five stage solves).
 """
 
 import math
 
 import torch
 
+from ..obs.counters import COMMON_KEYS
+from ..obs.timeline import validate as validate_timeline
 from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
-                     SolveResult, Stepper, atol_scale_of, check_deferred,
-                     jacfwd_lanes, nlive_of, scaled_norm, where_lanes)
+                     SolveResult, Stepper, atol_scale_of, init_stats,
+                     init_timeline, jacfwd_lanes, nlive_of, ring_write,
+                     scaled_norm, stats_out, where_lanes)
 from .graphs import count, host_any
 from .linalg import make_solve_m, resolve_linsolve
 
@@ -50,10 +54,8 @@ _B = (25 / 24, -49 / 48, 125 / 16, -85 / 12, 1 / 4)
 _B_ERR = tuple(b - bh for b, bh in zip(
     _B, (59 / 48, -17 / 96, 225 / 32, -85 / 12, 0.0)))
 
-# (keyword, default, ROADMAP item) of the JAX solver's options that wait
-# for a later slice
-_DEFERRED = (("stats", False, "A14"), ("timeline", None, "A14"),
-             ("timeline_state", None, "A14"))
+#: the attempt-ring code of an accepted SDIRK4 step: its fixed order
+_ORDER = 4
 
 
 def solve(
@@ -77,7 +79,9 @@ def solve(
     observer_init=None,
     err0=None,
     jac_window=1,
-    **deferred,
+    stats=False,
+    timeline=None,
+    timeline_state=None,
 ):
     """Integrate ``dy/dt = rhs(t, y, cfg)`` per lane with SDIRK4.
 
@@ -98,8 +102,15 @@ def solve(
 
     ``linsolve="auto"`` is ``"lu"`` on the CPU and ``"inv32"`` on the GPU
     (``solver.linalg.resolve_linsolve``).
+
+    ``stats=True`` returns the per-lane counters in ``SolveResult.stats``
+    and ``timeline=N`` the attempt ring, resumed by ``timeline_state``
+    (as in ``bdf.solve``; an accepted attempt's code is 4).
     """
-    check_deferred(deferred, _DEFERRED)
+    timeline = validate_timeline(timeline, stats)
+    if timeline is None and timeline_state is not None:
+        raise ValueError("timeline_state resumes a timeline ring; pass "
+                         "timeline=N too or drop the state")
     if jac_window < 1:
         raise ValueError(f"jac_window must be >= 1, got {jac_window}")
     if (observer is None) != (observer_init is None):
@@ -114,9 +125,11 @@ def solve(
                       atol=atol, max_steps=max_steps, n_save=n_save,
                       max_newton=max_newton, newton_tol=newton_tol,
                       dt_min_factor=dt_min_factor, linsolve=linsolve,
-                      jac=jac, observer=observer, jac_window=jac_window)
+                      jac=jac, observer=observer, jac_window=jac_window,
+                      stats=stats, timeline=timeline)
     carry = st.init(y0, t0, t1, dt0=dt0, err0=err0,
-                    observer_init=observer_init)
+                    observer_init=observer_init,
+                    timeline_state=timeline_state)
     while host_any(carry["status"] == RUNNING):
         carry = st.window(carry)
     return st.result(carry)
@@ -125,11 +138,12 @@ def solve(
 def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                  max_steps=100_000, n_save=0, max_newton=8, newton_tol=0.03,
                  dt_min_factor=1e-22, linsolve="lu", jac=None, observer=None,
-                 jac_window=1):
+                 jac_window=1, stats=False, timeline=None):
     """The SDIRK4 of :func:`solve` as a :class:`~.common.Stepper` over B
     lanes of n components (``linsolve`` resolved by the caller).
 
-    ``init(y0, t0, t1, dt0=None, err0=None, observer_init=None)`` takes
+    ``init(y0, t0, t1, dt0=None, err0=None, observer_init=None,
+    timeline_state=None)`` takes
     :func:`solve`'s arguments; with tensors for ``t0``, ``t1``, ``dt0`` and
     ``err0`` it reads no device value, so it can run inside a captured
     graph.  ``window(carry, fixed=False)`` is one Jacobian and its
@@ -149,7 +163,8 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
     if jac is None:
         jac = jacfwd_lanes(rhs)
 
-    def init(y0, t0, t1, dt0=None, err0=None, observer_init=None):
+    def init(y0, t0, t1, dt0=None, err0=None, observer_init=None,
+             timeline_state=None):
         def lanes(x):
             return torch.as_tensor(x, dtype=dt, device=dev).expand(B).clone()
 
@@ -185,7 +200,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         # its h = 0 attempts until max_steps, and its carry stays as it was.
         already = t0 >= t1 - torch.abs(span) * 1e-14
         nsb = max(n_save, 1)
-        return {
+        carry = {
             "t": t0.clone(), "y": y0, "h": h_init, "err": err_init,
             "status": torch.where(already, SUCCESS, RUNNING).to(torch.int32),
             "n_acc": torch.zeros(B, dtype=torch.int64, device=dev),
@@ -197,13 +212,22 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                     else {"_": torch.zeros(B, dtype=dt, device=dev)}),
             "k": {"t1": t1, "span": span},
         }
+        if stats:
+            carry["st"] = init_stats(COMMON_KEYS, B, dev)
+        if timeline is not None:
+            carry["tl"], carry["k"]["tl_base"] = init_timeline(
+                timeline, timeline_state, B, dt, dev)
+        return carry
 
     def newton_stage(solve_m, base, t_stage, h, z_init, y_scale, live,
                      fixed):
         """Solve z = base + h gamma f(t_stage, z) by modified Newton per
-        lane; returns (z, converged).  Lanes outside ``live`` do not
-        iterate; ``fixed`` runs all ``max_newton`` iterations."""
+        lane; returns (z, converged, iterations).  Lanes outside ``live``
+        do not iterate; ``fixed`` runs all ``max_newton`` iterations;
+        ``iterations`` (B,) int32 (None without ``stats``) counts each
+        lane's own."""
         z = z_init
+        nit = torch.zeros(B, dtype=torch.int32, device=dev) if stats else None
         dnorm = torch.full((B,), math.inf, dtype=dt, device=dev)
         conv = torch.zeros(B, dtype=torch.bool, device=dev)
         div = ~live
@@ -213,6 +237,8 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             if not fixed and not host_any(active):
                 break
             count("newton_iters")
+            if stats:
+                nit = nit + active
             g = z - base - hg * f(t_stage, z)
             dz = solve_m(-g)
             dn = _norm(dz, y_scale)
@@ -224,23 +250,29 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             dnorm = torch.where(active, dn, dnorm)
             conv = torch.where(active, converged, conv)
             div = torch.where(active, growing | bad, div)
-        return z, conv & torch.isfinite(dnorm)
+        return z, conv & torch.isfinite(dnorm), nit
 
     def attempt_step(t, y, h, J, live, fixed):
-        """One SDIRK4 step attempt per lane: (y_new, err, newton_ok)."""
+        """One SDIRK4 step attempt per lane: (y_new, err, newton_ok,
+        Newton iterations summed over the stages (None without
+        ``stats``))."""
         solve_m = make_solve_m(eye - (h * _GAMMA)[:, None, None] * J,
                                linsolve, dt)
         ks = []
         ok = torch.ones(B, dtype=torch.bool, device=dev)
         z_pred = y
+        n_newton = torch.zeros(B, dtype=torch.int32, device=dev) if stats \
+            else None
         for i, a_row in enumerate(_A):
             base = y
             for j in range(i):
                 base = base + (h * a_row[j])[:, None] * ks[j]
             t_stage = t + _C[i] * h
-            z, conv = newton_stage(solve_m, base, t_stage, h, z_pred, y,
-                                   live, fixed)
+            z, conv, nit = newton_stage(solve_m, base, t_stage, h, z_pred, y,
+                                        live, fixed)
             ok = ok & conv
+            if stats:
+                n_newton = n_newton + nit
             ks.append((z - base) / (h * _GAMMA)[:, None])
             z_pred = z  # next stage's predictor
         y_new = y + h[:, None] * sum(b_i * k for b_i, k in zip(_B, ks))
@@ -248,7 +280,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                     y)
         ok = (ok & torch.all(torch.isfinite(y_new), dim=-1)
               & torch.isfinite(err))
-        return y_new, err, ok
+        return y_new, err, ok, n_newton
 
     def step_once(c, J, fixed):
         """One attempt for every lane; a lane that is not RUNNING keeps
@@ -258,7 +290,8 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                                      c["status"])
         running = status == RUNNING
         h_eff = torch.minimum(h, t1 - t)
-        y_new, err, ok = attempt_step(t, y, h_eff, J, running, fixed)
+        y_new, err, ok, n_newton = attempt_step(t, y, h_eff, J, running,
+                                                fixed)
         accept = ok & (err <= 1.0) & running
 
         # PI step-size controller (embedded order 3 -> exponent base 1/4)
@@ -306,15 +339,35 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                         torch.where(out_of_steps, MAX_STEPS_REACHED,
                                     RUNNING))).to(torch.int32)
         status2 = torch.where(running, status2, status)
-        return {"t": t_new, "y": y_out, "h": h_next, "err": err_new,
-                "status": status2, "n_acc": n_acc2, "n_rej": n_rej2,
-                "ts": ts, "ys": ys, "n_saved": n_saved, "obs": obs,
-                "k": c["k"]}
+        out = {"t": t_new, "y": y_out, "h": h_next, "err": err_new,
+               "status": status2, "n_acc": n_acc2, "n_rej": n_rej2,
+               "ts": ts, "ys": ys, "n_saved": n_saved, "obs": obs,
+               "k": c["k"]}
+        if stats:
+            st = dict(c["st"])
+            rej = running & ~accept
+            st["newton_iters"] = st["newton_iters"] + torch.where(
+                running, n_newton, 0)
+            st["factorizations"] = st["factorizations"] + running
+            st["err_rejects"] = st["err_rejects"] + (rej & ok)
+            st["conv_rejects"] = st["conv_rejects"] + (rej & ~ok)
+            out["st"] = st
+        if timeline is not None:
+            tslot = (c["k"]["tl_base"] + c["n_acc"] + c["n_rej"]) % timeline
+            tcode = torch.where(accept, _ORDER, torch.where(ok, -1, -2))
+            out["tl"] = ring_write(c["tl"], tslot, running, t=t + h_eff,
+                                   h=h_eff, code=tcode)
+        return out
 
     def window(c, fixed=False):
         """One Jacobian per window of attempts (a window of 1: per
         attempt)."""
         J = jac(c["t"], c["y"], cfg)
+        if stats:
+            c = dict(c)
+            c["st"] = dict(c["st"])
+            c["st"]["jac_builds"] = c["st"]["jac_builds"] + (
+                c["status"] == RUNNING)
         for i in range(jac_window):
             c = step_once(c, J, fixed)
             if (not fixed and i + 1 < jac_window
@@ -329,6 +382,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             ts=c["ts"], ys=c["ys"], n_saved=c["n_saved"],
             h=c["h"],
             observed=c["obs"] if observer is not None else None,
-            err_prev=c["err"])
+            err_prev=c["err"],
+            stats=stats_out(c, timeline) if stats else None)
 
     return Stepper(init, window, result)

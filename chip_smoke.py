@@ -68,7 +68,17 @@ paths through its own entry points:
   in a gloo group, ``ensemble_solve_multihost`` over phase 3's lanes
   against phase 3, then ``elastic_checkpointed_sweep`` with one process
   killed before its second chunk: the survivor takes it over and every
-  chunk equals phase 20's bit for bit.
+  chunk equals phase 20's bit for bit;
+- observability (phase 22): phase 3's sweep with ``telemetry=True`` and a
+  64-attempt timeline, cold and warm, equal to phase 3 to the bit, its
+  per-lane counters checked against the result and each other, phase 3's
+  host syncs and launches; the blocking gear's counters and rings equal
+  to the bit; the compile watch (captures cold, none warm); a thread
+  scraping ``/metrics`` and ``/healthz`` while a ``live_metrics`` sweep
+  runs; the report's JSONL, Prometheus and rendering; a
+  ``utils.profiling.device_trace`` that names the kernel as often as it
+  was counted; and ``checkpointed_sweep`` with a recorder (4 chunk solves,
+  then 4 loads).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a CUDA graph adds its captured launches on every replay.
@@ -76,7 +86,8 @@ The child processes of phases 20-21 (``chip_smoke.py --child ARGS``) do
 the same in their own process and report their counts.
 ``--profile`` adds a phase that runs the gas main path once more in each
 gear under ``torch.profiler`` and prints where its time goes (per layer
-and per kernel); ``--profile-only`` runs only that.  Each phase prints one JSON line; any failure
+and per kernel); ``--profile-only`` runs only that, and
+``--telemetry-only`` only phase 3's sweep and phase 22.  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
@@ -582,12 +593,13 @@ def time_kernel(M, same_pivots=True):
 def sweep(bt, gm, th, T, device, t1=T1, **kw):
     """The main path's sweep of the temperatures T; ``kw`` overrides its
     solver configuration."""
-    cfg = dict(method="bdf", jac_window=8, setup_economy=True)
+    cfg = dict(method="bdf", jac_window=8, setup_economy=True,
+               segment_steps=256)
     cfg.update(kw)
     return bt.batch_reactor_sweep(
         COMP, T, 1e5, t1, chem=bt.Chemistry(gaschem=True), thermo_obj=th,
-        md=gm, rtol=RTOL, atol=ATOL, ignition_marker="CH4",
-        segment_steps=256, device=device, **cfg)
+        md=gm, rtol=RTOL, atol=ATOL, ignition_marker="CH4", device=device,
+        **cfg)
 
 
 def counted(fn):
@@ -1764,6 +1776,328 @@ def phase_multihost(dir_a, out3, smi, by_phase):
           "lu32p_launches_by_path": by})
 
 
+# the telemetry cell (phase 22): the main path's sweep with the solver
+# counters and a ring of each lane's last TIMELINE attempts
+TIMELINE = 64
+# the scraper thread of phase 22 (d): its period and its URL timeout (s);
+# the live sweep runs segments of LIVE_SEGMENT attempts polled after each,
+# so its in-flight state is published about five times (a main-path lane
+# takes 247-305 attempts)
+SCRAPE_EVERY_S, SCRAPE_TIMEOUT_S = 0.02, 5.0
+LIVE_SEGMENT = 64
+# the traced sweep of phase 22 (f): (d)'s program over the first 1/1000
+# of the horizon (the whole horizon runs ~850 000 kernels and its first
+# 1/16 ~630 000, whose Chrome trace took 39 s to write and read back)
+TRACE_T1 = T1 / 1000
+
+
+def captured_driver():
+    """A wrapper of the API's segmented driver that keeps every
+    SolveResult it returns (the API reports no per-lane step counts) and
+    a function that restores the driver: ``(results, restore)``."""
+    from batchreactor_tpu_torch import api
+
+    orig = api.ensemble_solve_segmented
+    results = []
+
+    def keep(*a, **k):
+        res = orig(*a, **k)
+        results.append(res)
+        return res
+
+    api.ensemble_solve_segmented = keep
+
+    def restore():
+        api.ensemble_solve_segmented = orig
+
+    return results, restore
+
+
+def lane_counters(rep):
+    """The per-lane block of a telemetry report as numpy arrays."""
+    return {k: np.asarray(v) for k, v in
+            rep["solver_stats"]["per_lane"].items()}
+
+
+def scrape(port, stop, out):
+    """Scrape ``/metrics`` every SCRAPE_EVERY_S until ``stop`` is set, and
+    ``/healthz`` once two scrapes are in; ``out`` gets the texts."""
+    import urllib.request
+
+    base = f"http://127.0.0.1:{port}"
+    while not stop.is_set():
+        try:
+            with urllib.request.urlopen(base + "/metrics",
+                                        timeout=SCRAPE_TIMEOUT_S) as r:
+                out["metrics"].append(r.read().decode())
+            if len(out["metrics"]) >= 2 and out["healthz"] is None:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=SCRAPE_TIMEOUT_S) as r:
+                    out["healthz"] = json.loads(r.read().decode())
+        except OSError as e:   # not bound yet, or closed at the end
+            out["errors"].append(type(e).__name__)
+        time.sleep(SCRAPE_EVERY_S)
+
+
+def sweep_lines(text):
+    """``{series: value}`` of the in-flight sweep families of a scrape:
+    ``br_sweep_*`` and the sweep counters (not the endpoint's own)."""
+    keep = {}
+    for ln in text.splitlines():
+        if ln.startswith("#") or not ln.strip():
+            continue
+        name, value = ln.rsplit(" ", 1)
+        if name.startswith("br_sweep_") or any(
+                f'name="{k}"' in name for k in ("lane_attempts",
+                                                "lane_capacity")):
+            keep[name] = value
+    return keep
+
+
+def phase_telemetry(bt, gm, th, T, out3, counts3, wall3, launches3, device,
+                    smi, by_phase):
+    """Phase 22: observability on the main path.  (a) ``telemetry=True,
+    timeline=TIMELINE`` cold, then warm: status, x and tau equal phase 3's
+    to the bit, the per-lane counters consistent with the result and with
+    each other, the rings as full as the attempts, the warm host syncs and
+    launches phase 3's; (b) the blocking gear: every counter and ring
+    equal to (a)'s; (c) the compile watch: captures cold, none warm, no
+    retrace; (d) ``live_metrics``: a thread scrapes ``/metrics`` while the
+    sweep runs (two scrapes that differ, the reference's names) and then
+    ``/healthz``, on a warm program of LIVE_SEGMENT-attempt segments;
+    (e) the report's JSONL round trip, Prometheus lines and rendering;
+    (f) ``utils.profiling.device_trace`` around (d)'s program, warm, over
+    TRACE_T1 names the kernel as often as it was counted; (g)
+    ``checkpointed_sweep`` with a recorder: 4 ``chunk_solve`` spans fresh,
+    4 ``chunk_load`` spans and no solve on the second call."""
+    import re
+    import socket
+    import threading
+
+    import torch
+
+    from batchreactor_tpu_torch import obs
+    from batchreactor_tpu_torch.parallel import checkpoint as ck
+    from batchreactor_tpu_torch.solver import graphs
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+    from batchreactor_tpu_torch.utils.profiling import device_trace
+
+    tel = dict(telemetry=True, timeline=TIMELINE)
+    walls = {}
+
+    def run(name, **kw):
+        results, restore = captured_driver()
+        try:
+            graphs.reset_counts()
+            r = gear_run(lambda: sweep(bt, gm, th, T, device, **kw))
+        finally:
+            restore()
+        r["solve"] = results[-1]
+        walls[name] = r["wall_s"]
+        return r
+
+    # ---- (a) the sweep, cold then warm -----------------------------------
+    cold = run("a_cold", **tel)
+    warm = run("a_warm", **tel)
+    out, res = warm["res"], warm["solve"]
+    for k in ("status", "tau"):
+        if not np.array_equal(out[k], out3[k], equal_nan=True):
+            raise AssertionError(f"telemetry: {k} differs from phase 3")
+    if any(not np.array_equal(out["x"][sp], out3["x"][sp])
+           for sp in out["x"]):
+        raise AssertionError("telemetry: x differs from phase 3")
+    rep = out["telemetry"]
+    pl = lane_counters(rep)
+    n_acc, n_rej = res.n_accepted.numpy(), res.n_rejected.numpy()
+    attempts = n_acc + n_rej
+    filled = (pl["timeline_code"] != 0).sum(axis=1)
+    checks = {
+        "n_accepted": np.array_equal(pl["n_accepted"], n_acc),
+        "n_rejected": np.array_equal(pl["n_rejected"], n_rej),
+        "err_plus_conv": np.array_equal(
+            pl["err_rejects"] + pl["conv_rejects"], pl["n_rejected"]),
+        "order_hist_sum": np.array_equal(pl["order_hist"].sum(axis=1),
+                                         pl["n_accepted"]),
+        "reuses_plus_factorizations": np.array_equal(
+            pl["setup_reuses"] + pl["factorizations"], pl["jac_builds"]),
+        "timeline_filled": np.array_equal(
+            filled, np.minimum(TIMELINE, attempts))}
+    if not all(checks.values()):
+        raise AssertionError(f"telemetry: per-lane checks {checks}")
+    if warm["host_syncs"] != counts3["host_syncs"]:
+        raise AssertionError(f"telemetry: {warm['host_syncs']} host syncs "
+                             f"warm, phase 3 {counts3['host_syncs']}")
+    lp = warm["lu32p_launches_by_path"]
+    if lp["warp"] != launches3 or lp["cta"]:
+        raise AssertionError(f"telemetry: lu32p launches {lp}, phase 3 "
+                             f"{launches3} on the warp path")
+    if rep["counters"].get("blocking_syncs") != warm["host_syncs"]:
+        raise AssertionError(f"telemetry: the report's blocking_syncs "
+                             f"{rep['counters'].get('blocking_syncs')}, the "
+                             f"run's host syncs {warm['host_syncs']}")
+
+    # ---- (b) the blocking gear -------------------------------------------
+    blk = run("b_blocking", pipeline=False, **tel)
+    pl_b = lane_counters(blk["res"]["telemetry"])
+    differ = [k for k in pl if not np.array_equal(pl[k], pl_b[k])]
+    if differ:
+        raise AssertionError(f"telemetry: the gears' counters differ in "
+                             f"{differ}")
+    if not np.array_equal(blk["res"]["tau"], out["tau"], equal_nan=True):
+        raise AssertionError("telemetry: the gears' tau differ")
+
+    # ---- (c) the compile watch -------------------------------------------
+    cw, ww = (cold["res"]["telemetry"]["compile"],
+              out["telemetry"]["compile"])
+    if not (cw["compiles"] >= 1 and cw["by_label"].get(
+            "sweep-segment", {}).get("compiles", 0) >= 1
+            and cw["retraces"] == 0 and ww["compiles"] == 0
+            and ww["retraces"] == 0):
+        raise AssertionError(f"telemetry: compile watch cold {cw}, warm {ww}")
+
+    # ---- (d) live metrics ------------------------------------------------
+    live_kw = dict(segment_steps=LIVE_SEGMENT, poll_every=1)
+    run("d_cold", **live_kw)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    scraped = {"metrics": [], "healthz": None, "errors": []}
+    stop = threading.Event()
+    scraper = threading.Thread(target=scrape, args=(port, stop, scraped),
+                               daemon=True, name="chip-smoke-scraper")
+    scraper.start()
+    try:
+        live = run("d_live", live_metrics=port, **live_kw)
+    finally:
+        stop.set()
+        scraper.join()
+    series = [sweep_lines(t) for t in scraped["metrics"]]
+    inflight = [x for x in series if x]
+    distinct = {tuple(sorted(x.items())) for x in inflight}
+    if not (len(inflight) >= 2 and len(distinct) >= 2
+            and any("br_sweep_occupancy" in x for x in inflight)
+            and scraped["healthz"] and scraped["healthz"]["ok"]):
+        raise AssertionError(
+            f"telemetry: live scrapes {len(scraped['metrics'])}, in flight "
+            f"{len(inflight)}, distinct {len(distinct)}, healthz "
+            f"{scraped['healthz']}")
+    # another segment length restarts the jac windows elsewhere: the
+    # lanes agree at the rtol scale, not to the bit
+    rel_d = np.abs(live["res"]["tau"] / out["tau"] - 1.0)
+    if not (np.array_equal(live["res"]["status"], out["status"])
+            and rel_d.max() <= 1e-3):
+        raise AssertionError(f"telemetry: the live sweep's status or tau "
+                             f"(max rel {rel_d.max()}) off (a)")
+
+    # ---- (e) the report --------------------------------------------------
+    if obs.from_jsonl(obs.to_jsonl(rep)) != rep:
+        raise AssertionError("telemetry: the JSONL round trip changed the "
+                             "report")
+    prom = obs.to_prometheus(rep)
+    sample = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+                        r'(-?[0-9.eE+-]+|[+-]?Inf|NaN)$')
+    bad = [ln for ln in prom.splitlines()
+           if ln and not ln.startswith("# ") and not sample.match(ln)]
+    text = obs.render(rep)
+    if bad or "n_accepted" not in text or "solve" not in text:
+        raise AssertionError(f"telemetry: Prometheus lines {bad[:3]}, "
+                             f"render {text[:200]!r}")
+
+    # ---- (f) the device trace --------------------------------------------
+    trace_dir = tempfile.mkdtemp(prefix="br_trace_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lc.LAUNCHES = 0
+    lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    with device_trace(trace_dir) as trace_path:
+        sweep(bt, gm, th, T, device, t1=TRACE_T1, **live_kw)
+    traced = lc.LAUNCHES
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    walls["f_trace"] = time.perf_counter() - t0
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    named = sum("lu32p_" in e.get("name", "") for e in kernels)
+    if traced <= 0 or named != traced:
+        raise AssertionError(f"telemetry: the trace names lu32p {named} "
+                             f"times, the wrapper counted {traced}")
+
+    # ---- (g) the checkpointed sweep with a recorder ----------------------
+    rhs, y0s, cfg, kw = ckpt_setup(gm, th, T, device)
+    ckdir = tempfile.mkdtemp(prefix="br_ckpt_obs_")
+    recs = []
+    for _ in range(2):
+        rec = obs.Recorder()
+        t0 = time.perf_counter()
+        ck.checkpointed_sweep(rhs, y0s, 0.0, T1, cfg, ckdir,
+                              chunk_size=CKPT_CHUNK, recorder=rec, **kw)
+        torch.cuda.synchronize()
+        walls[f"g_{len(recs)}"] = time.perf_counter() - t0
+        recs.append({k: v["count"] for k, v in rec.by_name().items()})
+    n_chunks = B_MAIN // CKPT_CHUNK
+    if not (recs[0].get("chunk_solve") == n_chunks
+            and recs[0].get("chunk_save") == n_chunks
+            and recs[1].get("chunk_load") == n_chunks
+            and "chunk_solve" not in recs[1]):
+        raise AssertionError(f"telemetry: checkpointed spans {recs}")
+
+    by_phase["telemetry"] = lp
+    st = rep["solver_stats"]["totals"]
+    emit({"phase": "telemetry", "gpu": smi, "B": B_MAIN,
+          "timeline": TIMELINE, "walls_s": walls,
+          "warm_wall_s": warm["wall_s"], "phase3_warm_wall_s": wall3,
+          "counters_cost_share": warm["wall_s"] / wall3 - 1.0,
+          "host_syncs_warm": warm["host_syncs"],
+          "phase3_host_syncs": counts3["host_syncs"],
+          "per_lane_checks": checks, "solver_totals": st,
+          "recorder_counters": rep["counters"],
+          "newton_iters_executed": {"pipelined": warm["newton_iters"],
+                                    "blocking": blk["newton_iters"]},
+          "newton_iters_counted": st["newton_iters"],
+          "compile_cold": {k: cw[k] for k in ("compiles", "traces",
+                                              "retraces", "compile_s")},
+          "compile_warm": {k: ww[k] for k in ("compiles", "traces",
+                                              "retraces")},
+          "live": {"segment_steps": LIVE_SEGMENT,
+                   "tau_max_rel_vs_a": float(rel_d.max()),
+                   "scrapes": len(scraped["metrics"]),
+                   "in_flight": len(inflight), "distinct": len(distinct),
+                   "healthz_ok": scraped["healthz"]["ok"]},
+          "prometheus_lines": len(prom.splitlines()),
+          "trace": {"kernels": len(kernels), "lu32p": named,
+                    "lu32p_counted": traced},
+          "checkpointed_spans": recs,
+          "lu32p_launches_by_path": lp,
+          "lu32p_launches_by_path_blocking": blk[
+              "lu32p_launches_by_path"]})
+
+
+def telemetry_main(bt, gm, th, device, smi):
+    """``--telemetry-only``: phase 3's sweep (cold, then warm, its counts
+    set to 0 before the warm run) and phase 22 against it.  Prints no
+    contract line."""
+    import torch
+
+    from batchreactor_tpu_torch.solver import graphs
+
+    T = np.linspace(T_LO, T_HI, B_MAIN)
+    sweep(bt, gm, th, T, device)
+    graphs.reset_counts()
+    r = gear_run(lambda: sweep(bt, gm, th, T, device))
+    out = r["res"]
+    emit({"phase": "main_path", "gpu": smi, "wall_s": r["wall_s"],
+          "host_syncs": r["host_syncs"],
+          "lu32p_launches_by_path": r["lu32p_launches_by_path"]})
+    t0 = time.perf_counter()
+    phase_telemetry(bt, gm, th, T, {k: out[k] for k in ("status", "tau",
+                                                          "x")},
+                    {"host_syncs": r["host_syncs"]}, r["wall_s"],
+                    r["lu32p_launches_by_path"]["warp"], device, smi, {})
+    torch.cuda.synchronize()
+    emit({"phase": "walls", "telemetry_s": time.perf_counter() - t0})
+    print(smi, flush=True)
+    return 0
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms,
                       pipeline):
     """Where the main path's time goes in one gear: the sweep under
@@ -1930,12 +2264,15 @@ def main():
 
     # ---- phase 2: the kernel against its plain version ------------------
     profile_only = "--profile-only" in sys.argv[1:]
+    telemetry_only = "--telemetry-only" in sys.argv[1:]
     t0 = time.perf_counter()
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
                           os.path.join(FIXTURES, "therm.dat"))
     if profile_only:
         return profile_gears(bt, gm, th, device, smi)
+    if telemetry_only:
+        return telemetry_main(bt, gm, th, device, smi)
     check_kernel(device)
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
@@ -2219,7 +2556,7 @@ def main():
     # ---- checkpointing and resilience, the multi-process tiers -----------
     walls = {}
     ckpt_dir = []
-    out3 = {"status": out["status"], "tau": tau}
+    out3 = {"status": out["status"], "tau": tau, "x": out["x"]}
     for name, run in (
             ("padded_gas", lambda: phase_padded(bt, gm, th, T, tau, rep_main,
                                                 device, smi, by_phase)),
@@ -2233,7 +2570,10 @@ def main():
             ("resilience", lambda: ckpt_dir.append(phase_resilience(
                 bt, gm, th, T, out3, wall, device, smi, by_phase))),
             ("multihost", lambda: phase_multihost(ckpt_dir[0], out3, smi,
-                                                  by_phase))):
+                                                  by_phase)),
+            ("telemetry", lambda: phase_telemetry(
+                bt, gm, th, T, out3, counts3, wall, launches, device, smi,
+                by_phase))):
         t0 = time.perf_counter()
         run()
         walls[name] = time.perf_counter() - t0

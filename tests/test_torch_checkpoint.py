@@ -284,8 +284,15 @@ def test_lane_cost_orders_chunks_and_returns_caller_order(tmp_path):
 
 def test_deferred_options_name_their_items(tmp_path):
     y0, cfg = _decay(4)
-    for kw, item in (({"recorder": object()}, "A14"),
-                     ({"oracle": object()}, "A16"),
+    # recorder= landed (ROADMAP A14): one chunk_solve span per chunk
+    from batchreactor_tpu_torch.obs import Recorder
+
+    rec = Recorder()
+    ck.checkpointed_sweep(_decay_rhs, y0, 0.0, 0.1, cfg,
+                          str(tmp_path / "r"), chunk_size=2, linsolve="lu",
+                          recorder=rec)
+    assert rec.by_name()["chunk_solve"]["count"] == 2
+    for kw, item in (({"oracle": object()}, "A16"),
                      ({"quarantine": {"oracle": True}}, "A16")):
         with pytest.raises(NotImplementedError, match=item):
             ck.checkpointed_sweep(_decay_rhs, y0, 0.0, 0.1, cfg,

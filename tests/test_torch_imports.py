@@ -51,7 +51,10 @@ def test_port_files_found():
             "parallel/multihost.py", "resilience/watchdog.py",
             "resilience/policy.py", "resilience/inject.py",
             "resilience/quarantine.py", "resilience/heartbeat.py",
-            "resilience/guard.py"} <= names
+            "resilience/guard.py", "obs/counters.py", "obs/recorder.py",
+            "obs/timeline.py", "obs/report.py", "obs/export.py",
+            "obs/live.py", "obs/retrace.py", "utils/profiling.py",
+            "tools/obs_report.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
 
 
@@ -82,13 +85,18 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
                           device="cpu")
     kw = dict(chem=bt.Chemistry(gaschem=True), thermo_obj=th, md=gm,
               device="cpu")
-    for opt, item in (({"telemetry": True}, "A14"),
-                      ({"timeline": 8}, "A14"),
-                      ({"quarantine": {"oracle": True}}, "A16"),
-                      ({"live_metrics": 0}, "A14")):
+    for opt, item in (({"quarantine": {"oracle": True}}, "A16"),):
         with pytest.raises(NotImplementedError, match=item):
             bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
                                    **opt)
+    # what the ninth slice ported runs: telemetry, the timeline and the
+    # live endpoint (an ephemeral port)
+    for opt in ({"telemetry": True}, {"telemetry": True, "timeline": 8},
+                {"live_metrics": 0}):
+        out = bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.2, "N2": 0.5},
+                                     1200.0, 1e5, 1e-7, **kw, **opt)
+        assert out["report"]["counts"] == {"success": 1}, opt
+        assert ("telemetry" in out) == bool(opt.get("telemetry")), opt
     # what the eighth slice ported runs: the quarantine, a mesh and the
     # watchdog deadline
     for opt in ({"quarantine": True}, {"mesh": bt.Mesh(["cpu"])},
@@ -120,6 +128,15 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
                                thermo_obj=th, md=gm, device="cpu")
 
 
+def test_no_deferral_table_names_a14():
+    """Every option of ROADMAP A14 landed: no deferral table of the port
+    names it (the tables are the ``(name, default, item)`` tuples handed to
+    ``check_deferred``)."""
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert '"A14")' not in text, path
+
+
 def test_c5_reference_options_raise_not_implemented_naming_their_item():
     """Every option of the JAX package's signatures that the port lacks
     raises NotImplementedError naming its ROADMAP item, never TypeError."""
@@ -131,13 +148,19 @@ def test_c5_reference_options_raise_not_implemented_naming_their_item():
     def rhs(t, y, cfg):
         return -y
 
-    for opt, item in (({"timeline_state": {"t": 0}}, "A14"),
-                      ({"step_audit": True}, "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            bdf.solve(rhs, y0, 0.0, 1.0, {}, linsolve="lu", **opt)
-    for opt, item in (({"stats": True}, "A14"),
-                      ({"recorder": object()}, "A14"),
-                      ({"_feed": object()}, "A15")):
+    # the ninth slice's options run (ROADMAP A14), or raise the JAX
+    # package's ValueError when given without what they ride on
+    res = bdf.solve(rhs, y0, 0.0, 1.0, {}, linsolve="lu", step_audit=True)
+    assert res.accept_ring.shape == (1, 64)
+    with pytest.raises(ValueError, match="timeline_state"):
+        bdf.solve(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                  timeline_state={"t": 0})
+    from batchreactor_tpu_torch.obs import Recorder
+
+    res = ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                                   stats=True, recorder=Recorder())
+    assert int(res.stats["n_accepted"][0]) == int(res.n_accepted[0])
+    for opt, item in (({"_feed": object()}, "A15"),):
         with pytest.raises(NotImplementedError, match=item):
             ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
                                      **opt)

@@ -185,9 +185,17 @@ def test_zero_span_lane_succeeds_untouched():
 
 
 def test_sdirk_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="A14"):
+    # the counters landed (ROADMAP A14): stats runs, a ring without the
+    # counter block is refused, and an unknown option is a TypeError
+    res = sdirk.solve(_robertson_t, torch.tensor(Y0), 0.0, 1e-3,
+                      {"k": torch.tensor(K3)}, stats=True, linsolve="lu")
+    assert torch.equal(res.stats["n_accepted"], res.n_accepted.int())
+    with pytest.raises(ValueError, match="stats"):
         sdirk.solve(_robertson_t, torch.tensor(Y0), 0.0, 1.0,
-                    {"k": torch.tensor(K3)}, stats=True)
+                    {"k": torch.tensor(K3)}, timeline=4)
+    with pytest.raises(TypeError):
+        sdirk.solve(_robertson_t, torch.tensor(Y0), 0.0, 1.0,
+                    {"k": torch.tensor(K3)}, step_audit=True)
     with pytest.raises(ValueError, match="jac_window"):
         sdirk.solve(_robertson_t, torch.tensor(Y0), 0.0, 1.0,
                     {"k": torch.tensor(K3)}, jac_window=0)
