@@ -740,15 +740,20 @@ _RUN_DEFERRED = (("backend", None, "A16"),)
 
 
 @functools.lru_cache(maxsize=32)
-def _segmented_builder(mode, udf, kc_compat, asv_quirk, exp32):
+def _segmented_builder(mode, udf, kc_compat, asv_quirk, exp32, energy=None):
     """Builder of the file-driven runs' RHS and Jacobian from a
     ``(gm, sm, thermo)`` bundle (``batchreactor_tpu/api.py::
     _segmented_builder``): one builder per chemistry configuration, so the
     segmented driver's pipelined gear (``rhs_bundle=``) replays one set of
-    graphs for re-parsed copies of a mechanism."""
+    graphs for re-parsed copies of a mechanism.  ``energy`` (gas mode only;
+    ``energy/eqns.py`` modes) builds the non-isothermal RHS and Jacobian
+    over the ``[rho_k, T]`` state instead."""
 
     def build(bundle):
         gm, sm, thermo = bundle
+        if energy is not None:
+            return (make_energy_rhs(gm, thermo, energy, kc_compat, exp32),
+                    make_energy_jac(gm, thermo, energy, kc_compat, exp32))
         return (_make_rhs(mode, udf, gm, sm, thermo, kc_compat, asv_quirk,
                           exp32),
                 _make_jac(mode, gm, sm, thermo, kc_compat, asv_quirk,

@@ -27,9 +27,9 @@ One machine-parseable surface for what a long sweep did:
 
 Nothing here runs with telemetry off: without ``stats``/``timeline`` the
 solver carry gains no key, and without a recorder the drivers record
-nothing.  No import in this package touches a device.  The reference's
-request tracing, SLO monitor and fleet stitching (``obs/trace.py``,
-``slo.py``, ``stitch.py``) come with the serving layer (ROADMAP A15).
+nothing.  No import in this package touches a device.  Request tracing,
+the SLO monitor and fleet stitching (:mod:`.trace`, :mod:`.slo`,
+:mod:`.stitch`) are fed by the serving scheduler and the fleet router.
 """
 
 from . import counters, live, timeline  # noqa: F401

@@ -104,8 +104,8 @@ from ..solver.linalg import factor_zeros, resolve_linsolve
 _SOLVERS = {"sdirk": sdirk.solve, "bdf": bdf.solve}
 
 # (keyword, default, ROADMAP item) of the JAX sweep's options that wait
-# for a later slice
-_DEFERRED = (("_feed", None, "A15"),)
+# for a later slice: none left
+_DEFERRED = ()
 
 #: the streaming driver's counters since they were last set to 0 (the
 #: JAX package's recorder counters of the same names): ``compactions``,
@@ -565,7 +565,7 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                              fetch_deadline=None, mesh_resident=None,
                              stats=False, recorder=None, watch=None,
                              timeline=None, live=None, _live_source="sweep",
-                             _on_harvest=None, **deferred):
+                             _on_harvest=None, _feed=None, **deferred):
     """Solve every lane of ``y0s`` (B, n) over [t0, t1] with the device
     work bounded to ``segment_steps`` step attempts per lane per segment;
     segments repeat until every lane terminates.
@@ -631,7 +631,16 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     ``checkpointed_sweep`` backlog mode) is called at each harvest with
     the caller's lane indices and their host rows (``t``, ``y``,
     ``status``, ``h``, ``n_accepted``, ``n_rejected`` and, with an
-    observer, ``observed``; with ``stats``, ``stats``).
+    observer, ``observed``; with ``stats``, ``stats``).  ``_feed(n_space,
+    idle)`` (streaming driver only: the serving scheduler's hook) makes the
+    backlog live: once the static backlog is used up and slots have
+    parked, the driver harvests, then asks the feed for up to ``n_space``
+    more lanes (the free slots, plus the up-shift headroom when
+    ``upshift`` is armed); the feed returns ``(y0_rows, cfg_rows)`` host
+    blocks, whose lanes take the next indices, or ``None`` to close for
+    good.  With ``idle=True`` no resident lane is running: the feed may
+    block until work arrives, and an empty answer then closes it.  While
+    a feed is open the drain-tail down-shift does not fire.
 
     Telemetry (module doc): ``stats=True`` returns each lane's counters
     summed over the segments it ran in (``SolveResult.stats``), and
@@ -659,6 +668,12 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     fetch_deadline = resolve_fetch_deadline(fetch_deadline)
     resident, refill_spec = resolve_admission(admission, refill,
                                               n_lanes=y0s.shape[0])
+    if _feed is not None and resident is None:
+        # a live backlog exists only on the streaming driver: ignoring the
+        # feed would strand every lane it was going to supply
+        raise ValueError(
+            "_feed is a streaming-driver hook; pass admission= (continuous "
+            "batching) or drop the feed")
     if mesh is not None:
         _check_mesh(mesh, axis)
         if resident is not None or _on_harvest is not None:
@@ -725,9 +740,9 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                 f"upshift_patience must be >= 1, got {upshift_patience}")
         devs = _resolve_mesh_resident(mesh_resident, y0s.device)
         if devs is not None and len(devs) > 1:
-            if _on_harvest is not None:
-                raise ValueError("_on_harvest reports one stream's lane "
-                                 "indices; drop mesh_resident=")
+            if _on_harvest is not None or _feed is not None:
+                raise ValueError("_on_harvest and _feed serve one stream's "
+                                 "lane indices; drop mesh_resident=")
             n_dev = len(devs)
             if resident % n_dev:
                 raise ValueError(
@@ -753,7 +768,7 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
                 resident=resident, refill_spec=refill_spec, buckets=buckets,
                 upshift=None if upshift is None else int(upshift),
                 upshift_patience=int(upshift_patience),
-                on_harvest=_on_harvest, watch=watch,
+                on_harvest=_on_harvest, feed=_feed, watch=watch,
                 live_source=str(_live_source), **kw)
     if _on_harvest is not None:
         raise ValueError("_on_harvest is a streaming-driver hook; pass "
@@ -1157,7 +1172,7 @@ def _segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, cfgs,
                      obs_keys, *, method, rtol, atol, segment_steps,
                      dt_min_factor, linsolve, jac_window, newton_tol,
                      setup_economy, stale_tol, seg_save, n_save,
-                     has_budget, stats=False, timeline=None):
+                     has_budget, stats=False, timeline=None, owner=None):
     """The cached :class:`~..solver.graphs.Program` of one segment shape:
     its steps ``begin``, ``window``, ``end`` and ``compact`` (module doc)
     over the state entries ``seg`` (the segment carry), ``w`` (the
@@ -1165,7 +1180,9 @@ def _segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, cfgs,
     and, with ``n_save``, ``drain``; ``compact`` reads ``order``,
     ``admit_y``, ``admit_cfg``, ``fresh``, ``n_live`` and ``n_new``.
     ``stats``/``timeline`` are part of the key: a telemetry sweep never
-    replays a stats-free program, nor the reverse."""
+    replays a stats-free program, nor the reverse.  So is ``owner`` (a
+    serving epoch's name): two epochs of one shape on one device each get
+    their own buffers, since they run at the same time."""
     bundle_sig = None if bundle is None else _signature(bundle)
     key = ("segment", method, id(rhs), id(jac), id(observer), bundle_sig,
            B, n, str(dtype), str(dev), linsolve, jac_window,
@@ -1173,7 +1190,7 @@ def _segment_program(rhs, jac, observer, bundle, B, n, dtype, dev, cfgs,
            dt_min_factor, newton_tol, seg_save, n_save, has_budget,
            tuple((k, tuple(v.shape[1:]), str(v.dtype))
                  for k, v in cfgs.items()),
-           obs_keys, bool(stats), timeline)
+           obs_keys, bool(stats), timeline, owner)
     return graphs.program(key, lambda: _build_segment_program(
         rhs, jac, observer, bundle, B, n, dtype, dev, method=method,
         rtol=rtol, atol=atol, segment_steps=segment_steps,
@@ -1700,6 +1717,56 @@ def _grow_tail(tree, grow):
         tree)
 
 
+class _Backlog:
+    """The streaming driver's lanes, in the caller's order, on the host
+    (pinned memory when the stream runs on the card): a compaction copies
+    only the rows it admits to the device, and a live feed appends rows
+    into room that doubles when it runs out, so a long-lived stream never
+    copies its whole backlog again."""
+
+    def __init__(self, y0s, cfgs, pin):
+        self.pin = pin
+        self.n = int(y0s.shape[0])
+        self.y = self._host(y0s)
+        self.cfg = {k: self._host(v) for k, v in cfgs.items()}
+
+    def _host(self, x, rows=None):
+        shape = (x.shape[0] if rows is None else rows,) + tuple(x.shape[1:])
+        out = torch.empty(shape, dtype=x.dtype, pin_memory=self.pin)
+        if rows is None:
+            out.copy_(x)
+        return out
+
+    def append(self, y_rows, cfg_rows):
+        """Append ``k`` host rows: ``y_rows`` (k, n) and ``cfg_rows`` (a
+        dict of (k, ...) arrays with each leaf's trailing shape)."""
+        k = int(y_rows.shape[0])
+        lo, hi = self.n, self.n + k
+        if hi > self.y.shape[0]:
+            cap = max(hi, 2 * self.y.shape[0])
+            grown = self._host(self.y, cap)
+            grown[:lo] = self.y[:lo]
+            self.y = grown
+            for key, v in self.cfg.items():
+                g = self._host(v, cap)
+                g[:lo] = v[:lo]
+                self.cfg[key] = g
+        self.y[lo:hi] = torch.as_tensor(np.asarray(y_rows),
+                                        dtype=self.y.dtype)
+        for key, v in self.cfg.items():
+            v[lo:hi] = torch.as_tensor(
+                np.asarray(cfg_rows[key]), dtype=v.dtype).reshape(
+                    (k,) + tuple(v.shape[1:]))
+        self.n = hi
+
+    def rows(self, lo, hi, dev):
+        """Lanes ``lo:hi`` on ``dev`` (copies that do not wait on the
+        host when the rows are pinned)."""
+        return (self.y[lo:hi].to(dev, non_blocking=True),
+                {k: v[lo:hi].to(dev, non_blocking=True)
+                 for k, v in self.cfg.items()})
+
+
 def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                              resident, refill_spec, buckets, upshift,
                              upshift_patience, segment_steps, max_segments,
@@ -1707,8 +1774,9 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                              observer, dt_min_factor, jac_window, newton_tol,
                              method, setup_economy, stale_tol, rhs_bundle,
                              progress, poll_every, on_harvest=None,
-                             stats=False, timeline=None, recorder=None,
-                             watch=None, live=None, live_source="sweep"):
+                             feed=None, stats=False, timeline=None,
+                             recorder=None, watch=None, live=None,
+                             live_source="sweep"):
     """Continuous batching: one resident program of B slots streams
     through N lanes.  Its loop is the pipelined gear's, and at each status
     poll (every ``poll_every`` segments, and whenever every resident lane
@@ -1735,11 +1803,18 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     is harvested with the lane's other rows; ``live`` gets the queue's
     state (backlog, harvested and admitted lanes, resident bucket) at
     every poll, its gauges suffixed with the epoch tag of a
-    ``live_source`` other than ``"sweep"``."""
+    ``live_source`` other than ``"sweep"``.  ``feed`` (the ``_feed`` hook
+    of :func:`ensemble_solve_segmented`) appends lanes to the backlog at a
+    poll once the backlog is used up; an epoch tag also gives the epoch
+    its own programs (``owner`` of :func:`_segment_program`), so two
+    epochs on one device never replay one set of buffers."""
     N, n = y0s.shape
     dtype, dev = y0s.dtype, y0s.device
-    y0_all = y0s.detach().clone()
-    cfg_all = {k: v.detach().clone() for k, v in cfgs.items()}
+    backlog_rows = _Backlog(y0s.detach(), {k: v.detach()
+                                           for k, v in cfgs.items()},
+                            pin=dev.type == "cuda")
+    cfg_all = backlog_rows.cfg
+    owner = None if live_source == "sweep" else live_source
     n0 = min(int(resident), N)
     B = resolve_bucket(n0, buckets)
     refill_n = _refill_slots(refill_spec, B)
@@ -1762,7 +1837,7 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                 newton_tol=newton_tol, setup_economy=economy,
                 stale_tol=stale_tol, seg_save=0, n_save=0,
                 has_budget=max_attempts is not None, stats=stats,
-                timeline=timeline)
+                timeline=timeline, owner=owner)
 
     def fresh_carry(B_):
         return _init_segment_carry(
@@ -1777,8 +1852,7 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     # resident block 0: min(B, N) backlog lanes; a bucket larger than the
     # whole backlog pads with dead copies (slot id -1, never harvested)
     n_seed = min(B, N)
-    y_blk, cfg_blk = _pad_lanes(y0_all[:n_seed],
-                                {k: v[:n_seed] for k, v in cfg_all.items()},
+    y_blk, cfg_blk = _pad_lanes(*backlog_rows.rows(0, n_seed, dev),
                                 B - n_seed)
     slot_gid = np.concatenate([np.arange(n_seed, dtype=np.int64),
                                np.full((B - n_seed,), -1, dtype=np.int64)])
@@ -1792,7 +1866,7 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
     # N-lane outputs in the caller's order
     out_t = np.full((N,), np.nan)
     out_status = np.full((N,), RUNNING, dtype=np.int32)
-    out_y = y0_all.cpu().numpy().copy()
+    out_y = backlog_rows.y[:N].numpy().copy()
     out_h = np.full((N,), -1.0)
     out_acc = np.zeros((N,), dtype=np.int64)
     out_rej = np.zeros((N,), dtype=np.int64)
@@ -1872,10 +1946,11 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         new_cfg = {k: torch.zeros((B,) + v.shape[1:], dtype=v.dtype,
                                   device=dev) for k, v in cfg_all.items()}
         if n_new:
-            sel = slice(next_gid, next_gid + n_new)
-            new_y[n_live:n_live + n_new] = y0_all[sel]
-            for k, v in cfg_all.items():
-                new_cfg[k][n_live:n_live + n_new] = v[sel]
+            y_sel, cfg_sel = backlog_rows.rows(next_gid, next_gid + n_new,
+                                               dev)
+            new_y[n_live:n_live + n_new] = y_sel
+            for k, v in cfg_sel.items():
+                new_cfg[k][n_live:n_live + n_new] = v
         with span_or_null(recorder, "compact", admitted=n_new), \
                 _region(watch, "sweep-compact", B):
             prog.set(order=torch.as_tensor(order_np).to(dev),
@@ -1945,6 +2020,43 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
         compact(status_ext, min(B2 - n_live, backlog))
         return True
 
+    def feed_more(n_space, idle):
+        """Ask the feed for up to ``n_space`` lanes and append them to the
+        backlog and the outputs; the count appended, or None once the feed
+        has closed (a ``None`` answer, or an empty one while idle)."""
+        nonlocal N, out_t, out_status, out_y, out_h, out_acc, out_rej
+        nonlocal out_obs, out_stats
+        got = feed(int(n_space), bool(idle))
+        if got is None:
+            return None
+        y_new, cfg_new = got
+        y_new = np.asarray(y_new, dtype=out_y.dtype).reshape((-1, n))
+        k = int(y_new.shape[0])
+        if k == 0:
+            # an idle stream cannot wait on an open, empty feed: it would
+            # relaunch all-parked segments for ever
+            return None if idle else 0
+        backlog_rows.append(y_new, cfg_new)
+        out_t = np.concatenate([out_t, np.full((k,), np.nan)])
+        out_status = np.concatenate(
+            [out_status, np.full((k,), RUNNING, dtype=np.int32)])
+        out_y = np.concatenate([out_y, y_new])
+        out_h = np.concatenate([out_h, np.full((k,), -1.0)])
+        out_acc = np.concatenate([out_acc, np.zeros((k,), dtype=np.int64)])
+        out_rej = np.concatenate([out_rej, np.zeros((k,), dtype=np.int64)])
+        if out_obs is not None:
+            out_obs = {key: np.concatenate(
+                [v, np.full((k,), float(observer_init[key]))])
+                for key, v in out_obs.items()}
+        if out_stats is not None:
+            out_stats = {key: np.concatenate(
+                [v, np.zeros((k,) + v.shape[1:], dtype=v.dtype)])
+                for key, v in out_stats.items()}
+        if recorder is not None:
+            recorder.counter("fed_lanes", k)
+        N += k
+        return k
+
     def emit_progress(seg_i, status_np, acc_np):
         if progress is None:
             return
@@ -2011,6 +2123,18 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
             n_parked = int(B - running.sum())
             if shift_cooldown:
                 shift_cooldown -= 1
+            if feed is not None and next_gid >= N and n_parked:
+                # the live backlog: harvest first (the callbacks fire at
+                # this poll), then ask for more, blocking only when nothing
+                # runs; with the up-shift armed the ask overshoots the free
+                # slots by the climb left, so the backlog can qualify the
+                # next rung
+                harvest(status_np)
+                ask = n_parked
+                if upshift_cap is not None and B < upshift_cap:
+                    ask += upshift_cap - B
+                if feed_more(ask, idle=not running.any()) is None:
+                    feed = None
             if upshift_cap is not None:
                 backlog = N - next_gid
                 B_up = (upshift_bucket(int(running.sum()) + backlog,
@@ -2033,8 +2157,10 @@ def _run_segmented_streaming(rhs, y0s, t0, t1, cfgs, observer_init, *,
                 harvest(status_np)
                 done = True
                 break
-            elif buckets is not None and n_parked and upshift_cap is None:
-                # the drain tail: the backlog can never refill
+            elif (buckets is not None and n_parked and upshift_cap is None
+                  and feed is None):
+                # the drain tail: the backlog can never refill (an open feed
+                # could, and a shrunken program would serialise its lanes)
                 harvest(status_np)
                 downshift(status_np)
             elif upshift_cap is not None and n_parked:

@@ -136,6 +136,17 @@ def fetch_hang_delay():
     return float(p.get("delay", 30.0)) if p else 0.0
 
 
+def slow_request_delay(request_id):
+    """Seconds the serving scheduler should stall this request between
+    admission and harvest (0 = none); a ``request=`` param pins the
+    plan to one request id, otherwise the next admitted request
+    matches."""
+    p = _take("slow_request",
+              lambda prm: ("request" not in prm
+                           or prm["request"] == str(request_id)))
+    return float(p.get("delay", 0.5)) if p else 0.0
+
+
 def kill_now(chunk):
     """``os._exit(137)`` if a ``kill`` plan targets this chunk — the
     un-catchable-death simulation (finally blocks and atexit do NOT run,

@@ -331,37 +331,81 @@ _PROGRAMS = {}
 # the mesh runs shards on host threads, one per device, which share the
 # cache
 _PROGRAMS_LOCK = threading.Lock()
-#: how many programs :func:`program` keeps
+#: how many unpinned programs :func:`program` keeps
 MAX_PROGRAMS = 12
+#: the owners pinning each cached program (by key): a pinned program
+#: stays cached, outside the :data:`MAX_PROGRAMS` count, until every owner
+#: has released it
+_PINS = {}
+# the owner pinning what this thread builds or reuses (None: off)
+_pin = threading.local()
+
+
+@contextlib.contextmanager
+def pinned(owner):
+    """Pin to ``owner`` every program this thread builds or reuses in the
+    block, until :func:`release` (a serving session pins the programs its
+    warmup captured, so a ladder of more than :data:`MAX_PROGRAMS` rungs
+    serves without a capture)."""
+    prev = getattr(_pin, "value", None)
+    _pin.value = owner
+    try:
+        yield
+    finally:
+        _pin.value = prev
+
+
+def pinned_programs(owner):
+    """How many cached programs ``owner`` pins."""
+    with _PROGRAMS_LOCK:
+        return sum(1 for owners in _PINS.values() if owner in owners)
+
+
+def release(owner):
+    """Unpin every program ``owner`` pins; a program no owner pins any
+    more is discarded (its graphs and buffers go with it)."""
+    with _PROGRAMS_LOCK:
+        for key in list(_PINS):
+            _PINS[key].discard(owner)
+            if not _PINS[key]:
+                del _PINS[key]
+                _PROGRAMS.pop(key, None)
 
 
 def program(key, build):
     """The cached :class:`Program` for ``key``, or ``build()``'s, kept
-    (the least recently used one is dropped past :data:`MAX_PROGRAMS`).
-    A program keeps references to what its steps call, so an identity in
-    ``key`` (``id(rhs)``) cannot be reused by another object while the
-    program lives."""
+    (past :data:`MAX_PROGRAMS` unpinned programs the least recently used
+    one is dropped; a pinned one is kept, see :func:`pinned`).  A program
+    keeps references to what its steps call, so an identity in ``key``
+    (``id(rhs)``) cannot be reused by another object while the program
+    lives."""
     with _PROGRAMS_LOCK:
         prog = _PROGRAMS.pop(key, None)
         if prog is None:
             prog = build()
             notify_watches("trace", device=prog.device.type)
         _PROGRAMS[key] = prog
-        while len(_PROGRAMS) > MAX_PROGRAMS:
-            _PROGRAMS.pop(next(iter(_PROGRAMS)))
+        owner = getattr(_pin, "value", None)
+        if owner is not None:
+            _PINS.setdefault(key, set()).add(owner)
+        unpinned = [k for k in _PROGRAMS if k not in _PINS]
+        for k in unpinned[:max(0, len(unpinned) - MAX_PROGRAMS)]:
+            del _PROGRAMS[k]
         return prog
 
 
 def discard(prog):
-    """Drop ``prog`` from the cache: a run that raised mid-window leaves
-    its state in flight, and the next run builds and captures afresh
-    instead of replaying it."""
+    """Drop ``prog`` from the cache, pinned or not: a run that raised
+    mid-window leaves its state in flight, and the next run builds and
+    captures afresh instead of replaying it."""
     with _PROGRAMS_LOCK:
         for key in [k for k, v in _PROGRAMS.items() if v is prog]:
             del _PROGRAMS[key]
+            _PINS.pop(key, None)
 
 
 def clear_programs():
-    """Drop every cached program (and its graphs)."""
+    """Drop every cached program (and its graphs), pinned or not."""
     with _PROGRAMS_LOCK:
         _PROGRAMS.clear()
+        _PINS.clear()

@@ -4,6 +4,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py            # add --profile for the time breakdown
     python3 chip_smoke.py --profile-only   # only the breakdown, both gears
+    python3 chip_smoke.py --serving-only   # phase 3, then phases 23-24
 
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
@@ -78,7 +79,29 @@ paths through its own entry points:
   runs; the report's JSONL, Prometheus and rendering; a
   ``utils.profiling.device_trace`` that names the kernel as often as it
   was counted; and ``checkpointed_sweep`` with a recorder (4 chunk solves,
-  then 4 loads).
+  then 4 loads);
+- serving (phase 23): a ``serving.SolverSession`` on GRI-3.0 (1024 slots
+  on the ladder (256, 512, 1024), ``lu32p``, the main path's BDF
+  settings, the CH4 marker, counters on, ``adiabatic_v`` enabled) warmed,
+  then (b) phase 3's 1024 temperatures as 8 concurrent HTTP requests of
+  128 lanes on a ``127.0.0.1`` port: every lane ``success``, tau within
+  1e-3 and x within 1e-5 + 1e-3|x| of phase 3, no graph captured, warp
+  launches, latency percentiles and the lanes bit-equal to phase 3; (c) a
+  64-lane ``adiabatic_v`` request on phase 11's first lanes beside a
+  thread scraping ``/metrics``; (d) ``overloaded`` past the queue bound,
+  then ``draining`` during a drain that answers its stalled request; (e)
+  two resident epochs on the one card against (b); (f) ``python -m
+  batchreactor_tpu_torch.tools.serve`` as a child process, SIGTERM while
+  two requests stall: exit 0, every accepted request answered, a
+  ``draining`` answer and a flight dump;
+- the fleet (phase 24): two member daemons of 256 slots as child
+  processes on the one card behind an in-process ``fleet.FleetRouter``;
+  8 requests of 64 lanes over 4 horizons (two waves), one member
+  SIGKILLed while it holds work: every request answered once, the killed
+  member's requests failed over, each answer against the same lanes
+  solved by phase 23's session, both hosts in the router's ``/metrics``,
+  the traces stitched (a failover one trace of two hops), exit codes 0
+  and -9.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a CUDA graph adds its captured launches on every replay.
@@ -86,8 +109,10 @@ The child processes of phases 20-21 (``chip_smoke.py --child ARGS``) do
 the same in their own process and report their counts.
 ``--profile`` adds a phase that runs the gas main path once more in each
 gear under ``torch.profiler`` and prints where its time goes (per layer
-and per kernel); ``--profile-only`` runs only that, and
-``--telemetry-only`` only phase 3's sweep and phase 22.  Each phase prints one JSON line; any failure
+and per kernel); ``--profile-only`` runs only that,
+``--telemetry-only`` only phase 3's sweep and phase 22, and
+``--serving-only`` only phase 3's sweep and phases 23-24 (these three
+print no contract line).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
@@ -157,7 +182,9 @@ S_PAD, R_PAD = 96, 512
 # the gear comparison (phase 18): the 64-lane checks take every 16th lane
 # of the coupled, energy and main-path grids, over a shorter horizon
 GEAR_STRIDE = 16
-T1_E_GEARS, T1_SDIRK_GEARS = 1e-3, T1 / 4
+# (the SDIRK4 check only to T1 / 8: its blocking gear sets the phase's
+# wall, and the whole script has a 1000 s target)
+T1_E_GEARS, T1_SDIRK_GEARS = 1e-3, T1 / 8
 # continuous batching (phase 19): 4096 main-path temperatures streamed
 # through 1024 resident slots on a three-rung ladder; then the first 1024
 # of them from 256 slots, free to climb to 1024.  Every main-path lane
@@ -894,6 +921,7 @@ def phase_energy(bt, gm, th, device, smi, timing, by_phase):
           "h_drift_max": float(drift_p.max()),
           "h_drift_bound": DRIFT_BOUND_P, "h_drift_jax_cpu": DRIFT_REF_P,
           "seconds": time.perf_counter() - t0})
+    return x_e, T_e, tau_e
 
 
 def main_path_lanes(gm, th, Ts, device):
@@ -2098,6 +2126,674 @@ def telemetry_main(bt, gm, th, device, smi):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: serving and the fleet
+# ---------------------------------------------------------------------------
+# phase 23: phase 3's 1024 temperatures as 8 concurrent requests of 128
+# lanes to a resident program of 1024 slots on the ladder (256, 512,
+# 1024); the coalesce window lets all 8 join one seed (it closes as soon
+# as 1024 lanes are queued), so the epoch runs phase 3's width
+SERVE_REQUESTS, SERVE_LANES = 8, 128
+SERVE_BUCKETS = (256, 512, 1024)
+SERVE_COALESCE_S = 1.0
+# (d): the refusal scheduler's queue bound, the stall of the drained
+# request; (f): the daemon's stalls, during which SIGTERM lands
+REFUSE_QUEUE, STALL_S, DAEMON_STALL_S = 128, 1.0, 2.0
+# phase 24: two member daemons of 256 slots; 8 requests of 64 lanes over 4
+# horizons (t1 is an operand, not a program key); the member names put
+# two of the four route keys on each member of the consistent-hash ring
+FLEET_RESIDENT, FLEET_LANES = 256, 64
+FLEET_T1 = (2e-4, 4e-4, 6e-4, 8e-4)
+FLEET_MEMBERS = ("s1", "s2")
+SERVE_TIMEOUT_S = 600.0
+
+
+class ServeCase:
+    """What phases 23-24 serve: the mechanism files, the composition, the
+    marker, the conditions and the widths (the module constants on the
+    card; a CPU rehearsal passes small ones)."""
+
+    def __init__(self, mech, therm, comp, marker, T, t1, lanes=SERVE_LANES,
+                 requests=SERVE_REQUESTS, buckets=SERVE_BUCKETS,
+                 fleet_resident=FLEET_RESIDENT, fleet_lanes=FLEET_LANES,
+                 fleet_t1=FLEET_T1, energy=None, linsolve="lu32p",
+                 jac_window=8, segment_steps=256, want_path="warp"):
+        self.mech, self.therm, self.comp, self.marker = mech, therm, comp, \
+            marker
+        self.T, self.t1, self.lanes, self.requests = T, t1, lanes, requests
+        self.buckets, self.fleet_resident = buckets, fleet_resident
+        self.fleet_lanes, self.fleet_t1 = fleet_lanes, fleet_t1
+        self.energy = energy            # (x (k, S), T (k,), t1, tau_ref)
+        self.linsolve, self.jac_window = linsolve, jac_window
+        self.segment_steps, self.want_path = segment_steps, want_path
+
+
+def serve_spec(case, resident, buckets, energy=True, **serve):
+    """The session spec of phases 23-24: the main path's BDF settings,
+    ``linsolve`` explicit (``auto`` resolves with an epoch's first rung,
+    and a small first rung takes ``lu``), the CH4 marker, counters on."""
+    solver = {"method": "bdf", "rtol": RTOL, "atol": ATOL,
+              "jac_window": case.jac_window, "setup_economy": True,
+              "segment_steps": case.segment_steps,
+              "linsolve": case.linsolve, "ignition_marker": case.marker,
+              "stats": True}
+    if energy:
+        solver["energy_modes"] = ["adiabatic_v"]
+    return {"mechanism": {"mech": case.mech, "therm": case.therm},
+            "solver": solver,
+            "serve": {"resident": int(resident), "buckets": list(buckets),
+                      "refill": 1, "poll_every": 1, "idle_timeout_s": 0.25,
+                      "request_timeout_s": SERVE_TIMEOUT_S, **serve}}
+
+
+def fire(client, reqs):
+    """Post the requests at once, one thread each; returns per request
+    ``(code, response, latency_s)`` in order and the wall from the first
+    post to the last answer."""
+    import threading
+
+    from batchreactor_tpu_torch.serving.client import ServeError
+
+    out = [None] * len(reqs)
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            resp, code = client.solve(reqs[i]), "ok"
+        except ServeError as e:
+            resp, code = e.response, e.code
+        except OSError as e:
+            resp, code = {"error": str(e)}, "transport"
+        out[i] = (code, resp, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return out, time.perf_counter() - t0
+
+
+def latency(results, wall):
+    """``serving.client.summarize`` of ``fire``'s results: counts, cond/s
+    over ``wall`` and the p50/p95/p99 latency of the answered requests."""
+    from batchreactor_tpu_torch.serving.client import summarize
+
+    return summarize([{"ok": c == "ok", "latency_s": s, "response": r}
+                      for c, r, s in results], wall)
+
+
+def served_lanes(results, species):
+    """tau and x (B, S) of the answers, in request order."""
+    tau = np.concatenate([np.asarray(r["tau"], dtype=float)
+                          for _, r, _ in results])
+    x = np.concatenate([np.stack([r["x"][s] for s in species], axis=1)
+                        for _, r, _ in results])
+    status = sum((r["solver_status"] for _, r, _ in results), [])
+    return tau, x, status
+
+
+def check_served(name, results, n_lanes):
+    bad = [(i, c) for i, (c, r, _) in enumerate(results)
+           if c != "ok" or r.get("provenance") != ["success"]
+           * len(r.get("t", []))]
+    lanes = sum(len(r["t"]) for c, r, _ in results if c == "ok")
+    if bad or lanes != n_lanes:
+        raise AssertionError(f"{name}: answers not all ok with every lane "
+                             f"success: {bad[:4]}, {lanes} lanes")
+
+
+def wait_for(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
+    """Phase 23: the serving main path in this process.  (a) the session's
+    warmup; (b) phase 3's lanes as concurrent HTTP requests: every lane
+    success, tau and x against phase 3, no capture, warp launches; (c) one
+    energy request beside a live ``/metrics`` scrape; (d) the refusals and
+    the drain; (e) two resident epochs on one card; (f) the daemon drained
+    by SIGTERM.  Returns the session (phase 24 holds the fleet's answers
+    to it)."""
+    import threading
+
+    import torch
+
+    from batchreactor_tpu_torch.resilience import inject
+    from batchreactor_tpu_torch.serving.client import SolveClient
+    from batchreactor_tpu_torch.serving.scheduler import Scheduler
+    from batchreactor_tpu_torch.serving.server import ServingServer
+    from batchreactor_tpu_torch.serving.session import (SolverSession,
+                                                        load_spec)
+    from batchreactor_tpu_torch.solver import graphs
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    t_phase = time.perf_counter()
+    B = case.lanes * case.requests
+    cap = max(case.buckets)
+    spec = load_spec(serve_spec(case, cap, case.buckets,
+                                energy=case.energy is not None,
+                                coalesce_s=SERVE_COALESCE_S,
+                                max_queue_lanes=4 * cap))
+    session = SolverSession(gm, th, spec, device=device)
+
+    # ---- (a) warmup -------------------------------------------------------
+    graphs.reset_counts()
+    session.warmup()
+    warm = dict(session.warmup_summary)
+    emit({"phase": "serving_warmup", "gpu": smi, **warm,
+          "graphs_captured": graphs.captures(),
+          "programs_warmed": len(session.warmed),
+          "rungs": sorted({w["rung"] for w in session.warmed})})
+
+    # ---- (b) phase 3's lanes as concurrent requests -------------------------
+    session.__enter__()
+    reqs = [{"id": f"b{i}", "t1": case.t1, "X": case.comp, "trace": True,
+             "T": [float(v) for v in case.T[i * case.lanes:
+                                            (i + 1) * case.lanes]]}
+            for i in range(case.requests)]
+    graphs.reset_counts()
+    lc.LAUNCHES = 0
+    lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    with ServingServer(session, Scheduler(session)) as srv:
+        client = SolveClient(srv.url, timeout=SERVE_TIMEOUT_S)
+        results, wall_b = fire(client, reqs)
+        health = client.healthz()["serving"]
+    by_b = dict(lc.LAUNCHES_BY_PATH)
+    by_phase["serving"] = by_b
+    captured = graphs.captures()
+    check_served("serving", results, B)
+    if captured or any(session.program_compiles().values()):
+        raise AssertionError(f"serving: {captured} graphs captured, "
+                             f"{session.program_compiles()} after warmup")
+    check_launches("serving", by_b, case.want_path)
+    tau_b, x_b, _ = served_lanes(results, th.species)
+    tau3 = np.asarray(out3["tau"])[:B]
+    x3 = np.stack([np.asarray(out3["x"][s])[:B] for s in th.species],
+                  axis=1)
+    tau_rel = np.abs(tau_b / tau3 - 1.0)
+    dx = np.abs(x_b - x3)
+    if not (tau_rel.max() <= 1e-3 and np.all(dx <= 1e-5 + 1e-3
+                                              * np.abs(x3))):
+        raise AssertionError(f"serving vs phase 3: tau max rel "
+                             f"{tau_rel.max()}, x max abs {dx.max()}")
+    bit_equal = int(((tau_b == tau3) & (x_b == x3).all(axis=1)).sum())
+    lat = latency(results, wall_b)
+    stages = {}
+    for _, r, _ in results:
+        for k, v in r["trace"]["segments"].items():
+            stages.setdefault(k, []).append(v)
+    emit({"phase": "serving", "gpu": smi, "lanes": B,
+          "requests": case.requests, "lanes_per_request": case.lanes,
+          "resident": cap, "buckets": list(case.buckets),
+          "linsolve": case.linsolve, "wall_s": wall_b,
+          "cond_per_s": B / wall_b, "phase3_wall_s": wall3,
+          "phase3_cond_per_s": B / wall3 if wall3 else None,
+          **{k: lat[k] for k in ("p50_ms", "p95_ms", "p99_ms")},
+          "tau_max_rel_vs_phase3": float(tau_rel.max()),
+          "x_max_abs_diff_vs_phase3": float(dx.max()),
+          "lanes_bit_equal_phase3": bit_equal,
+          "graphs_captured": captured,
+          "program_compiles": session.program_compiles(),
+          "lu32p_launches_by_path": by_b,
+          "server_stage_max_s": {k: max(v) for k, v in stages.items()},
+          "healthz_program_compiles": health["program_compiles"]})
+
+    # ---- (c) an energy request beside a live scrape -------------------------
+    if case.energy is not None:
+        x_e, T_e, t1_e, tau_ref = case.energy
+        comp_e = {s: [float(v) for v in x_e[:, k]]
+                  for k, s in enumerate(th.species) if x_e[:, k].any()}
+        req_e = {"id": "energy", "T": [float(v) for v in T_e], "X": comp_e,
+                 "t1": t1_e, "energy": "adiabatic_v"}
+        seen = {"inflight": 0, "scrapes": 0}
+        lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+        with ServingServer(session, Scheduler(session)) as srv:
+            client = SolveClient(srv.url, timeout=SERVE_TIMEOUT_S)
+            stop = threading.Event()
+
+            def scraper():
+                while not stop.is_set():
+                    try:
+                        text = client.metrics()
+                    except OSError:
+                        continue
+                    seen["scrapes"] += 1
+                    for ln in text.splitlines():
+                        if ln.startswith("br_sweep_serve_inflight_lanes ") \
+                                and float(ln.split()[-1]) > 0:
+                            seen["inflight"] += 1
+                    stop.wait(0.02)
+
+            scr = threading.Thread(target=scraper, daemon=True)
+            scr.start()
+            (res_e,), wall_e = fire(client, [req_e])
+            stop.set()
+            scr.join()
+        by_phase["serving_energy"] = dict(lc.LAUNCHES_BY_PATH)
+        check_served("serving energy", [res_e], T_e.shape[0])
+        delay = np.asarray([np.nan if v is None else v
+                            for v in res_e[1]["ignition_delay"]])
+        rel_e = np.abs(delay / tau_ref - 1.0)
+        if not rel_e.max() <= 1e-3 or not seen["inflight"]:
+            raise AssertionError(f"serving energy: delay max rel "
+                                 f"{rel_e.max()} against the energy path; "
+                                 f"in-flight scrapes {seen}")
+        emit({"phase": "serving_energy", "gpu": smi,
+              "lanes": T_e.shape[0], "t1": t1_e, "wall_s": wall_e,
+              "delay_max_rel_vs_energy_path": float(rel_e.max()),
+              "scrapes": seen["scrapes"],
+              "scrapes_with_inflight": seen["inflight"],
+              "lu32p_launches_by_path": by_phase["serving_energy"]})
+
+    # ---- (d) the refusals and the drain ---------------------------------------
+    small = [float(v) for v in case.T[:case.lanes // 2]]
+    t1_d = case.t1 / 8
+    sched = Scheduler(session, max_queue_lanes=REFUSE_QUEUE)
+    srv = ServingServer(session, sched).start()
+    client = SolveClient(srv.url, timeout=SERVE_TIMEOUT_S)
+    over, _ = fire(client, [{"id": "big", "T": [float(case.T[0])]
+                             * (REFUSE_QUEUE + 1), "X": case.comp,
+                             "t1": t1_d}])
+    stalls0 = session.recorder.snapshot()[2].get("serve_stalls", 0)
+    inject.arm(f"slow_request:delay={STALL_S},request=d0")
+    accepted = {}
+    th_acc = threading.Thread(target=lambda: accepted.update(r=fire(
+        client, [{"id": f"d{i}", "T": small, "X": case.comp, "t1": t1_d,
+                  "trace": True} for i in range(2)])))
+    th_acc.start()
+    wait_for(lambda: sum(sched.depth()) >= 2 * len(small), 60,
+             "both requests accepted")
+    closer = threading.Thread(target=srv.close)
+    closer.start()
+    wait_for(lambda: sched._draining, 10, "the drain flag")
+    late, _ = fire(client, [{"id": "late", "T": small, "X": case.comp,
+                             "t1": t1_d}])
+    th_acc.join()
+    closer.join()
+    inject.disarm()
+    acc_results, _ = accepted["r"]
+    stalls = session.recorder.snapshot()[2].get("serve_stalls", 0) - stalls0
+    stalled = acc_results[0][1]["trace"]["segments"].get("resolved", 0.0)
+    if not (over[0][0] == "overloaded" and late[0][0] == "draining"
+            and [c for c, _, _ in acc_results] == ["ok", "ok"]
+            and stalls == 1 and stalled >= STALL_S):
+        raise AssertionError(f"serving refusals: over {over[0][0]}, late "
+                             f"{late[0][0]}, accepted "
+                             f"{[c for c, _, _ in acc_results]}, stalls "
+                             f"{stalls}, stalled {stalled}")
+    emit({"phase": "serving_refusals", "gpu": smi,
+          "over_queue": over[0][0], "late_while_draining": late[0][0],
+          "accepted_answered": len(acc_results), "stalls": stalls,
+          "stalled_segment_s": stalled})
+    session.__exit__(None, None, None)
+
+    # ---- (e) two resident epochs on one card ----------------------------------
+    spec2 = load_spec(serve_spec(case, cap, case.buckets, energy=False,
+                                 resident_epochs=2, coalesce_s=0.5,
+                                 max_queue_lanes=4 * cap))
+    s2 = SolverSession(gm, th, spec2, device=device)
+    s2.warmup()
+    half = case.requests // 2
+    graphs.reset_counts()
+    with s2, ServingServer(s2, Scheduler(s2)) as srv:
+        client = SolveClient(srv.url, timeout=SERVE_TIMEOUT_S)
+        waves = {}
+        th1 = threading.Thread(target=lambda: waves.update(
+            a=fire(client, reqs[:half])))
+        th1.start()
+        time.sleep(0.7)
+        waves["b"] = fire(client, reqs[half:])
+        th1.join()
+        counters = s2.recorder.snapshot()[2]
+        gauges = s2.registry.gauges() if hasattr(s2.registry, "gauges") \
+            else {}
+    res2 = waves["a"][0] + waves["b"][0]
+    check_served("two epochs", res2, B)
+    tau2, _, status2 = served_lanes(res2, th.species)
+    rel2 = np.abs(tau2 / tau_b - 1.0)
+    if (not rel2.max() <= 1e-3 or counters.get("serve_epochs", 0) < 2
+            or graphs.captures()):
+        raise AssertionError(f"two epochs: tau max rel {rel2.max()} "
+                             f"against (b), epochs "
+                             f"{counters.get('serve_epochs')}, captured "
+                             f"{graphs.captures()}")
+    emit({"phase": "serving_two_epochs", "gpu": smi,
+          "resident_epochs": s2.resident_epochs,
+          "warmup": s2.warmup_summary,
+          "epochs_run": counters.get("serve_epochs"),
+          "epoch_spray_lanes": counters.get("epoch_spray", 0),
+          "tau_max_rel_vs_b": float(rel2.max()),
+          "lanes_bit_equal_b": int((tau2 == tau_b).sum()),
+          "wall_s": max(waves["a"][1], waves["b"][1] + 0.7),
+          "graphs_captured": graphs.captures(),
+          "gauges": {k: v for k, v in gauges.items()
+                     if k.startswith("lanes_running")}})
+    s2.release()
+    del s2
+
+    # ---- (f) the daemon, drained by SIGTERM ----------------------------------
+    phase_daemon(case, device, smi)
+    emit({"phase": "serving_walls", "seconds": time.perf_counter()
+          - t_phase})
+    return session
+
+
+def daemon_cmd(spec_path, flight_dir, device, *extra):
+    return [sys.executable, "-m", "batchreactor_tpu_torch.tools.serve",
+            "--spec", spec_path, "--flight-dir", flight_dir, "--device",
+            str(device), *extra]
+
+
+def daemon_env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def start_daemon(cmd, log_path, **env):
+    """The daemon as a child process, its standard error in ``log_path``
+    (a pipe nobody reads could fill and stall it)."""
+    with open(log_path, "w") as log:
+        return subprocess.Popen(cmd, cwd=HERE, env=daemon_env(**env),
+                                stdout=subprocess.PIPE, stderr=log,
+                                text=True)
+
+
+def tail(path, n=3000):
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+def read_startup(proc, log_path, timeout):
+    """The daemon's startup line (its ``serving`` block)."""
+    import threading
+
+    got = {}
+    t = threading.Thread(target=lambda: got.update(
+        line=proc.stdout.readline()), daemon=True)
+    t.start()
+    t.join(timeout)
+    if not got.get("line"):
+        proc.kill()
+        raise AssertionError(f"the daemon printed no startup line:\n"
+                             f"{tail(log_path)}")
+    return json.loads(got["line"])["serving"]
+
+
+def phase_daemon(case, device, smi):
+    """Phase 23 (f): ``python -m batchreactor_tpu_torch.tools.serve`` as a
+    child process, SIGTERM while two requests are stalled: exit 0, every
+    accepted request answered, a ``draining`` answer, a flight dump."""
+    import signal
+    import threading
+
+    from batchreactor_tpu_torch.serving.client import SolveClient
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = os.path.join(tmp, "serve.json")
+        with open(spec_path, "w") as f:
+            json.dump(serve_spec(case, case.fleet_resident,
+                                 (case.fleet_resident,), energy=False,
+                                 coalesce_s=0.0), f)
+        log = os.path.join(tmp, "daemon.log")
+        proc = start_daemon(
+            daemon_cmd(spec_path, tmp, device, "--no-warmup"), log,
+            BR_FAULT_INJECT=f"slow_request:delay={DAEMON_STALL_S},count=2")
+        try:
+            info = read_startup(proc, log, 180)
+            client = SolveClient(info["url"], timeout=SERVE_TIMEOUT_S)
+            reqs = [{"id": f"f{i}", "X": case.comp, "t1": case.t1 / 4,
+                     "T": [float(v) for v in case.T[i::3][:case.fleet_lanes]]}
+                    for i in range(3)]
+            box = {}
+            th = threading.Thread(target=lambda: box.update(
+                r=fire(client, reqs)))
+            th.start()
+
+            def stalled():
+                h = client.healthz()["serving"]
+                return h["inflight_lanes"] >= 2 * case.fleet_lanes or (
+                    "r" in box)
+            wait_for(stalled, 120, "the daemon's stalled requests")
+            proc.send_signal(signal.SIGTERM)
+            probes = []
+            pth = []
+            for i in range(20):
+                p = threading.Thread(target=lambda i=i: probes.append(fire(
+                    client, [{"id": f"late{i}", "X": case.comp,
+                              "t1": case.t1 / 4,
+                              "T": [float(case.T[0])]}])[0][0][0]))
+                p.start()
+                pth.append(p)
+                time.sleep(0.1)
+            th.join()
+            for p in pth:
+                p.join()
+            rc = proc.wait(timeout=120)
+            err = tail(log)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        results, _ = box["r"]
+        flights = [f for f in os.listdir(tmp) if f.startswith("flight_")]
+    codes = [c for c, _, _ in results]
+    if rc != 0 or codes != ["ok"] * 3 or "draining" not in probes \
+            or not flights:
+        raise AssertionError(f"daemon drain: rc {rc}, answers {codes}, "
+                             f"probes {probes}, flights {flights}:\n"
+                             f"{err[-3000:]}")
+    emit({"phase": "serving_daemon", "gpu": smi, "exit_code": rc,
+          "answered": codes, "probes": sorted(set(probes)),
+          "probes_draining": probes.count("draining"),
+          "flight_dumps": len(flights),
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_fleet(case, session, device, smi):
+    """Phase 24: two member daemons (child processes on the one card)
+    behind an in-process ``FleetRouter``; one member SIGKILLed mid-trace;
+    every request answered once and held against phase 23's session; the
+    router's ``/metrics`` and the stitched traces."""
+    import signal
+    import threading
+
+    from batchreactor_tpu_torch.fleet import FleetRouter, read_members
+    from batchreactor_tpu_torch.fleet.ring import HashRing, request_key
+    from batchreactor_tpu_torch.obs import build_report, read_jsonl
+    from batchreactor_tpu_torch.obs.stitch import stitch
+    from batchreactor_tpu_torch.serving import schema
+    from batchreactor_tpu_torch.serving.client import (SolveClient,
+                                                       with_trace_ctx)
+
+    t_phase = time.perf_counter()
+    ring = HashRing(FLEET_MEMBERS)
+    owners = {t1: ring.route(request_key({"t1": t1}))
+              for t1 in case.fleet_t1}
+    victim = owners[case.fleet_t1[0]]
+    (survivor,) = [m for m in FLEET_MEMBERS if m != victim]
+    n_req = 2 * len(case.fleet_t1)
+    Tf = case.T[::max(1, case.T.shape[0] // (n_req * case.fleet_lanes))]
+    reqs = [with_trace_ctx({
+        "id": f"q{i}", "X": case.comp,
+        "t1": case.fleet_t1[i % len(case.fleet_t1)], "trace": True,
+        "T": [float(v) for v in Tf[i * case.fleet_lanes:
+                                   (i + 1) * case.fleet_lanes]]})
+        for i in range(n_req)]
+    with tempfile.TemporaryDirectory() as tmp:
+        fleet_dir = os.path.join(tmp, "fleet")
+        obs_dir = os.path.join(tmp, "obs")
+        os.makedirs(obs_dir)
+        spec_path = os.path.join(tmp, "serve.json")
+        with open(spec_path, "w") as f:
+            json.dump(serve_spec(case, case.fleet_resident,
+                                 (case.fleet_resident,), energy=False,
+                                 coalesce_s=0.0), f)
+        logs = {name: os.path.join(tmp, f"{name}.log")
+                for name in FLEET_MEMBERS}
+        procs = {name: start_daemon(
+            daemon_cmd(spec_path, tmp, device, "--fleet-dir", fleet_dir,
+                       "--member-name", name, "--obs-out",
+                       os.path.join(obs_dir, f"{name}.jsonl")), logs[name])
+            for name in FLEET_MEMBERS}
+        router = None
+        try:
+            infos = {n: read_startup(p, logs[n], 240)
+                     for n, p in procs.items()}
+            wait_for(lambda: sum(m.routable for m in read_members(
+                fleet_dir)) == 2, 60, "two routable members")
+            router = FleetRouter(fleet_dir, dead_after_s=60.0,
+                                 refresh_s=0.0,
+                                 request_timeout=SERVE_TIMEOUT_S).start()
+            client = SolveClient(router.url, timeout=SERVE_TIMEOUT_S)
+            vclient = SolveClient(infos[victim]["url"], timeout=10.0)
+            # wave 1: one request per horizon, so both members answer;
+            # wave 2: the same horizons again, the victim killed once it
+            # holds accepted work
+            wave1, wall1 = fire(client, reqs[:len(case.fleet_t1)])
+            box = {}
+            th = threading.Thread(target=lambda: box.update(
+                r=fire(client, reqs[len(case.fleet_t1):])))
+            th.start()
+            wait_for(lambda: vclient.healthz()["serving"]["inflight_lanes"]
+                     > 0, 120, "the victim's accepted work")
+            procs[victim].send_signal(signal.SIGKILL)
+            th.join()
+            wave2, wall2 = box["r"]
+            results, wall = wave1 + wave2, wall1 + wall2
+            time.sleep(0.6)          # a heartbeat: the survivor's snapshot
+            metrics = router.metrics_text()
+            router_report = build_report(recorder=router.recorder)
+            procs[survivor].send_signal(signal.SIGTERM)
+            rcs = {n: p.wait(timeout=120) for n, p in procs.items()}
+            survivor_report = read_jsonl(os.path.join(obs_dir,
+                                                      f"{survivor}.jsonl"))
+            survivor_log = tail(logs[survivor])
+        finally:
+            if router is not None:
+                router.close()
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    codes = [c for c, _, _ in results]
+    hosts = {r["router"]["host"] for c, r, _ in wave1 if c == "ok"}
+    failovers = [r["id"] for c, r, _ in results
+                 if c == "ok" and r["router"]["failover"]]
+    check_served("fleet", results, n_req * case.fleet_lanes)
+    # every answer against the same lanes solved by phase 23's session
+    worst = 0.0
+    for _c, r, _s in results:
+        req = schema.validate_request(
+            {k: v for k, v in reqs[int(r["id"][1:])].items()
+             if k != "trace_ctx"})
+        y0, cfg = session.request_lanes(req)
+        ref = session._run(y0, cfg, t1=req.t1, rtol=RTOL, atol=ATOL,
+                           energy=None, live_source="sweep",
+                           admission=case.fleet_resident)
+        tau_ref = ref.observed["tau"].cpu().numpy()
+        if not (ref.status.cpu().numpy() == 1).all():
+            raise AssertionError("fleet: a reference lane failed")
+        tau_got = np.asarray(r["tau"], dtype=float)
+        # a lane whose marker never crossed before t1 has no delay: it
+        # must have none in both
+        both_nan = np.isnan(tau_got) & np.isnan(tau_ref)
+        rel = np.abs(tau_got[~both_nan] / tau_ref[~both_nan] - 1.0)
+        if rel.size:
+            worst = max(worst, float(rel.max()) if not np.isnan(
+                rel).any() else float("inf"))
+    traces = stitch([(survivor, survivor_report),
+                     ("router", router_report)])
+    by_req = {t["request"]: t for t in traces if t.get("router")}
+    fo_traces = [by_req[i] for i in failovers if i in by_req]
+    two_hops = all(len(t["hops"]) == 2 and t["hops"][0]["outcome"]
+                   == "transport" and "member_trace" in t["hops"][1]
+                   for t in fo_traces)
+    pids = {infos[n]["pid"] for n in FLEET_MEMBERS}
+    hosts_in_metrics = all(f'host="p{pid}"' in metrics for pid in pids)
+    if not (codes == ["ok"] * n_req and hosts == set(FLEET_MEMBERS)
+            and failovers and worst <= 1e-3
+            and set(by_req) == {r["id"] for r in reqs}
+            and fo_traces and two_hops and hosts_in_metrics
+            and rcs[survivor] == 0 and rcs[victim] in (-9, 137)):
+        raise AssertionError(f"fleet: answers {codes}, hosts {hosts}, "
+                             f"failovers {failovers}, tau max rel {worst}, "
+                             f"traces {sorted(by_req)}, two hops "
+                             f"{two_hops}, both hosts in /metrics "
+                             f"{hosts_in_metrics}, exit codes {rcs}:\n"
+                             f"{survivor_log}")
+    emit({"phase": "fleet", "gpu": smi, "members": list(FLEET_MEMBERS),
+          "route_owners": {str(k): v for k, v in owners.items()},
+          "killed": victim, "requests": n_req,
+          "lanes_per_request": case.fleet_lanes, "wall_s": wall,
+          "wave1_answered_by": sorted(hosts),
+          "wave2_answered_by": sorted({r["router"]["host"]
+                                       for _, r, _ in wave2}),
+          "failovers": failovers,
+          "tau_max_rel_vs_direct": worst,
+          "stitched_traces": len(by_req),
+          "failover_traces_two_hops": two_hops,
+          "exit_codes": rcs,
+          **{k: latency(results, wall)[k]
+             for k in ("p50_ms", "p95_ms", "p99_ms")},
+          "seconds": time.perf_counter() - t_phase})
+
+
+def main_serve_case(gm, T, x_e=None, T_e=None, tau_e=None):
+    """Phases 23-24 on the main path: GRI-3.0, phase 3's temperatures and
+    horizon, and phase 11's first B_CROSS lanes for the energy request."""
+    energy = None
+    if x_e is not None:
+        energy = (x_e[:B_CROSS], T_e[:B_CROSS], T1_E, tau_e[:B_CROSS])
+    return ServeCase(os.path.join(FIXTURES, "grimech.dat"),
+                     os.path.join(FIXTURES, "therm.dat"), COMP, "CH4", T,
+                     T1, energy=energy)
+
+
+def serving_main(bt, gm, th, device, smi):
+    """``--serving-only``: phase 3's sweep (cold, then warm), the energy
+    reference of phase 11's first B_CROSS lanes, then phases 23-24.
+    Prints no contract line."""
+    import torch
+
+    T = np.linspace(T_LO, T_HI, B_MAIN)
+    sweep(bt, gm, th, T, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep(bt, gm, th, T, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emit({"phase": "main_path", "gpu": smi, "wall_s": wall})
+    _, T_e, x_e = energy_conditions(gm, device)
+    ref_e = energy_sweep(bt, gm, th, x_e[:B_CROSS], T_e[:B_CROSS], device,
+                         linsolve="lu32p")
+    case = main_serve_case(gm, T, x_e, T_e, ref_e["ignition_delay"])
+    by_phase = {}
+    t0 = time.perf_counter()
+    session = phase_serving(bt, gm, th, case, out, wall, device, smi,
+                            by_phase)
+    t1 = time.perf_counter()
+    phase_fleet(case, session, device, smi)
+    emit({"phase": "walls", "serving_s": t1 - t0,
+          "fleet_s": time.perf_counter() - t1,
+          "launches_by_phase": by_phase})
+    print(smi, flush=True)
+    return 0
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms,
                       pipeline):
     """Where the main path's time goes in one gear: the sweep under
@@ -2265,6 +2961,7 @@ def main():
     # ---- phase 2: the kernel against its plain version ------------------
     profile_only = "--profile-only" in sys.argv[1:]
     telemetry_only = "--telemetry-only" in sys.argv[1:]
+    serving_only = "--serving-only" in sys.argv[1:]
     t0 = time.perf_counter()
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
@@ -2273,6 +2970,8 @@ def main():
         return profile_gears(bt, gm, th, device, smi)
     if telemetry_only:
         return telemetry_main(bt, gm, th, device, smi)
+    if serving_only:
+        return serving_main(bt, gm, th, device, smi)
     check_kernel(device)
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
@@ -2546,7 +3245,7 @@ def main():
           "seconds": time.perf_counter() - t0})
 
     # ---- phases 11-14: the energy path, SDIRK4, the Newton-mode A/B ------
-    phase_energy(bt, gm, th, device, smi, timing, by_phase)
+    energy_lanes = phase_energy(bt, gm, th, device, smi, timing, by_phase)
     Ts = T[::SDIRK_STRIDE]
     phase_sdirk(bt, gm, th, Ts, tau[::SDIRK_STRIDE], rep_main, device, smi,
                 by_phase)
@@ -2556,7 +3255,9 @@ def main():
     # ---- checkpointing and resilience, the multi-process tiers -----------
     walls = {}
     ckpt_dir = []
+    served = []
     out3 = {"status": out["status"], "tau": tau, "x": out["x"]}
+    case = main_serve_case(gm, T, *energy_lanes)
     for name, run in (
             ("padded_gas", lambda: phase_padded(bt, gm, th, T, tau, rep_main,
                                                 device, smi, by_phase)),
@@ -2573,7 +3274,10 @@ def main():
                                                   by_phase)),
             ("telemetry", lambda: phase_telemetry(
                 bt, gm, th, T, out3, counts3, wall, launches, device, smi,
-                by_phase))):
+                by_phase)),
+            ("serving", lambda: served.append(phase_serving(
+                bt, gm, th, case, out3, wall, device, smi, by_phase))),
+            ("fleet", lambda: phase_fleet(case, served[0], device, smi))):
         t0 = time.perf_counter()
         run()
         walls[name] = time.perf_counter() - t0

@@ -54,7 +54,12 @@ def test_port_files_found():
             "resilience/guard.py", "obs/counters.py", "obs/recorder.py",
             "obs/timeline.py", "obs/report.py", "obs/export.py",
             "obs/live.py", "obs/retrace.py", "utils/profiling.py",
-            "tools/obs_report.py"} <= names
+            "tools/obs_report.py", "obs/trace.py", "obs/slo.py",
+            "obs/stitch.py", "serving/schema.py", "serving/scheduler.py",
+            "serving/session.py", "serving/server.py",
+            "serving/client.py", "fleet/ring.py", "fleet/membership.py",
+            "fleet/replication.py", "fleet/router.py", "tools/serve.py",
+            "tools/serve_bench.py", "tools/serve_fleet.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
 
 
@@ -75,6 +80,15 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch,
                                    1200.0, 1e5, 1e-5,
                                    chem=bt.Chemistry(gaschem=True),
                                    thermo_obj=th, md=gm, **kw)
+    # the serving session and its daemon follow the same rule
+    from batchreactor_tpu_torch.serving.session import SolverSession
+
+    spec = {"mechanism": {"mech": mech, "therm": therm}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SolverSession.from_spec(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SolverSession(gm, th, SolverSession.from_spec(
+            spec, device="cpu").spec)
 
 
 def test_deferred_options_raise_not_implemented(fixtures_dir):
@@ -137,6 +151,39 @@ def test_no_deferral_table_names_a14():
         assert '"A14")' not in text, path
 
 
+def test_no_deferral_table_names_a15():
+    """Every option of ROADMAP A15 landed: no deferral table of the port
+    names it, and the streaming driver's table is empty."""
+    from batchreactor_tpu_torch.parallel import sweep
+
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert '"A15")' not in text, path
+    assert sweep._DEFERRED == ()
+
+
+#: the modules that must stay importable without a device stack: the
+#: request grammar, the scheduler, the client, the router plane and the
+#: trace/SLO/stitch planes (the reference's numpy-and-stdlib contract)
+DEVICE_FREE = ["serving/schema.py", "serving/scheduler.py",
+               "serving/client.py", "obs/trace.py", "obs/slo.py",
+               "obs/stitch.py"] + sorted(
+    p.relative_to(ROOT / "batchreactor_tpu_torch").as_posix()
+    for p in (ROOT / "batchreactor_tpu_torch" / "fleet").glob("*.py"))
+
+
+@pytest.mark.parametrize("rel", DEVICE_FREE)
+def test_serving_and_fleet_planes_import_neither_torch_nor_jax(rel):
+    path = ROOT / "batchreactor_tpu_torch" / rel
+    roots = _imported_roots(path)
+    assert not roots & {"torch", "jax", "jaxlib", "batchreactor_tpu",
+                        "triton"}, roots
+    assert roots <= {"numpy", "bisect", "collections", "dataclasses",
+                     "hashlib", "http", "json", "os", "random",
+                     "threading", "time", "urllib", "uuid",
+                     "concurrent"}, roots
+
+
 def test_c5_reference_options_raise_not_implemented_naming_their_item():
     """Every option of the JAX package's signatures that the port lacks
     raises NotImplementedError naming its ROADMAP item, never TypeError."""
@@ -160,10 +207,15 @@ def test_c5_reference_options_raise_not_implemented_naming_their_item():
     res = ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
                                    stats=True, recorder=Recorder())
     assert int(res.stats["n_accepted"][0]) == int(res.n_accepted[0])
-    for opt, item in (({"_feed": object()}, "A15"),):
-        with pytest.raises(NotImplementedError, match=item):
-            ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
-                                     **opt)
+    # the tenth slice's _feed runs on the streaming driver and raises the
+    # JAX package's ValueError without admission=
+    with pytest.raises(ValueError, match="admission"):
+        ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                                 _feed=lambda n, idle: None)
+    res = ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",
+                                   admission=1, segment_steps=16,
+                                   _feed=lambda n, idle: None)
+    assert int(res.status[0]) == 1
     # the eighth slice's options run, or raise the JAX package's
     # ValueError outside the streaming driver
     res = ensemble_solve_segmented(rhs, y0, 0.0, 1.0, {}, linsolve="lu",

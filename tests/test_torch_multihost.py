@@ -241,6 +241,15 @@ yd = torch.tensor([1.0, 0.5], dtype=torch.float64).expand(8, 2).clone()
 cd = {"k": torch.logspace(1.0, 2.0, 8, dtype=torch.float64)}
 if pid == 1:
     inject.arm("kill:chunk=3")   # dies before saving its second chunk
+else:
+    # start once process 1 holds chunk 3 (it claims it after saving chunk
+    # 1): otherwise a slow start of process 1 lets process 0 claim chunk 3
+    # first, and process 1 never reaches the chunk it is to die on
+    import os, time
+    claim = os.path.join(ck_dir, "chunk_00003.npz.claim")
+    deadline = time.time() + 120.0
+    while not os.path.exists(claim) and time.time() < deadline:
+        time.sleep(0.02)
 out = mh.elastic_checkpointed_sweep(_decay_rhs, yd, 0.0, 0.1, cd, ck_dir,
                                     process_id=pid, num_processes=n,
                                     chunk_size=2, heartbeat_s=0.2,

@@ -36,6 +36,16 @@ from batchreactor_tpu_torch.utils import profiling as prof
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_compiled_reference_programs():
+    """The JAX package's own telemetry test counts the programs its first
+    file-driven run compiles (``tests/test_obs.py``); this file runs the
+    same program, so it drops JAX's compiled programs when it ends rather
+    than leave them to a later file in the same worker."""
+    yield
+    jax.clear_caches()
+
 B = 8
 K = np.logspace(1.0, 3.0, B)
 Y0 = np.tile([1.0, 0.5], (B, 1))
