@@ -20,7 +20,7 @@ The JAX package's one Pallas kernel, the batched float32 LU behind
 Importing the package sets no default dtype and touches no device.
 """
 
-from . import energy, parallel, resilience, sensitivity
+from . import energy, obs, parallel, resilience, sensitivity
 from .api import (Chemistry, SensitivityProblem, SensitivitySolution,
                   batch_reactor, batch_reactor_sweep, get_solution_vector,
                   resolve_jac_window)
@@ -51,6 +51,7 @@ __all__ = [
     "get_solution_vector",
     "input_data",
     "mech_shape_class",
+    "obs",
     "pad_gas_mechanism",
     "pad_states",
     "pad_thermo",
@@ -59,3 +60,5 @@ __all__ = [
     "resolve_jac_window",
     "sensitivity",
 ]
+
+__version__ = "0.1.0"

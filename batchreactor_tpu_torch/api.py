@@ -58,8 +58,7 @@ from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
 from .parallel.sweep import (ensemble_solve_segmented, ignition_observer,
                              pad_to_bucket, resolve_admission, sweep_report,
                              unpad_result)
-from .solver.common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING,
-                            SUCCESS, check_deferred)
+from .solver.common import DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS
 from .solver.linalg import resolve_linsolve
 from .utils.composition import density, mole_to_mass
 
@@ -449,7 +448,11 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     fault), then the failed lanes alone at tighter tolerances
     (``resilience/quarantine.py``); ``out["provenance"]`` holds each
     lane's recovery code and ``out["report"]["quarantine"]`` the counts.
-    Its ``oracle=True`` rung waits for ROADMAP A16.
+    Its ``oracle=True`` rung hands the residue lane by lane to the native
+    CPU BDF (``resilience.quarantine.native_oracle``) over an RHS built
+    from a float64 CPU copy of the mechanism (a user-defined source keeps
+    the sweep's RHS on its device); isothermal sweeps only, as in the JAX
+    package.
 
     ``telemetry=True`` adds ``out["telemetry"]``, the ``br-obs-v1``
     report (``obs/``): the ``solve`` span with the driver's ``segment``/
@@ -530,13 +533,17 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     if mesh is not None:
         _check_mesh(mesh, "batch")
     qpol = normalize_quarantine(quarantine)
-    _quarantine.check_oracle(qpol)
     energy = resolve_energy(energy)
     if energy is None and atol_T is not None:
         raise ValueError(
             "atol_T weights the temperature row of a non-isothermal "
             "solve; pass energy= ('adiabatic_v'/'adiabatic_p') or drop "
             "the argument")
+    if energy is not None and qpol is not None and qpol.oracle:
+        raise ValueError(
+            "quarantine oracle=True cross-checks against the native CPU "
+            "BDF runtime, which is isothermal-only; drop the oracle rung "
+            "or the energy knob")
     if chem is None or thermo_obj is None:
         raise TypeError("batch_reactor_sweep needs chem= and thermo_obj=")
     mode, gm, sm = _sweep_mode(chem, md, gmd, smd, thermo_obj)
@@ -691,8 +698,26 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                 segment_steps=steps, max_segments=max(1, -(-ms // steps)),
                 max_attempts=ms)
 
+        oracle_fn = None
+        if qpol.oracle:
+            # the mechanism modes' oracle RHS runs on a float64 CPU copy
+            # (one evaluation per callback, no device round trip); a
+            # user-defined source may hold device tensors, so it keeps
+            # the sweep's RHS and device
+            if mode == "udf":
+                rhs_o, dev_o = rhs, None
+            else:
+                rhs_o = _make_rhs(mode, None, _on_device(gm_k, "cpu"),
+                                  _on_device(sm, "cpu"),
+                                  _on_device(th_k, "cpu"),
+                                  kc_compat, asv_quirk, exp32)
+                dev_o = "cpu"
+            oracle_fn = _quarantine.native_oracle(
+                rhs_o, 0.0, float(time), rtol=rtol, atol=atol,
+                max_steps=max_steps, device=dev_o)
         res, prov = _quarantine.resolve(res, y0s, cfgs, subset,
-                                        policy=qpol, recorder=rec)
+                                        policy=qpol, oracle=oracle_fn,
+                                        recorder=rec)
 
     ng = len(species)
     y_end = res.y.cpu().numpy()
@@ -734,9 +759,6 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                   "linsolve": linsolve, "jac_window": jac_window,
                   "timeline": timeline, "live_port": bound_port})
     return out
-
-
-_RUN_DEFERRED = (("backend", None, "A16"),)
 
 
 @functools.lru_cache(maxsize=32)
@@ -793,9 +815,78 @@ def _run_solve(builder, bundle, y0, T, Asv, t1, *, rtol, atol, n_save,
                                             res.stats.items()})
 
 
+def _run_native(mode, udf, bundle, y0, T, Asv, t1, *, rtol, atol, n_save,
+                max_steps, method, jac_window, segmented, kc_compat,
+                asv_quirk, exp32):
+    """``backend="cpu"``: one condition on the native CVODE-class BDF
+    (``native/br_native.cpp``; ``batchreactor_tpu/api.py::_solve_native``
+    and the cpu branch of its ``_run_solve``).  Gas, surface and coupled
+    chemistry run all-native; a user-defined source integrates the port's
+    torch RHS in float64 on the CPU through the callback.  Returns
+    :func:`_run_solve`'s tuple, ``stats`` None (the runtime counts only
+    accepted and rejected steps)."""
+    from . import native
+
+    # the native runtime manages its own iteration matrix, integrator and
+    # exponentials: an explicit knob would report a configuration that
+    # never ran
+    for name, val, default in (("jac_window", jac_window, None),
+                               ("method", method, "bdf"),
+                               ("segmented", segmented, None),
+                               ("exp32", exp32, False)):
+        if val != default:
+            raise ValueError(
+                f"{name} is a torch-backend knob; backend='cpu' (the native "
+                f"BDF runtime) does not honor it — drop the argument or use "
+                f"backend='torch'")
+    gm, sm, thermo = bundle
+    kw = dict(rtol=rtol, atol=atol, max_steps=int(max_steps),
+              n_save=int(n_save))
+    if mode == "gas":
+        res = native.solve_gas_bdf(gm, thermo, float(T), y0, 0.0, float(t1),
+                                   kc_compat=kc_compat, **kw)
+    elif mode in ("surf", "gas+surf"):
+        res = native.solve_surf_bdf(
+            sm, thermo, float(T), float(Asv), y0, 0.0, float(t1),
+            gm=gm if mode == "gas+surf" else None, asv_quirk=asv_quirk,
+            kc_compat=kc_compat, **kw)
+    else:
+        rhs = _make_rhs(mode, udf, gm, sm, thermo, kc_compat, asv_quirk,
+                        exp32)
+        cfg = {"T": torch.full((1,), float(T), dtype=torch.float64),
+               "Asv": torch.full((1,), float(Asv), dtype=torch.float64)}
+        res = native.solve_bdf(lambda t, y: rhs(t, y[None], cfg)[0], y0,
+                               0.0, float(t1), **kw)
+    y0_np = y0.detach().cpu().numpy()
+    ts = np.concatenate([[0.0], res.ts])
+    ys = np.concatenate([y0_np[None, :], res.ys])
+    truncated = res.n_accepted > res.ts.shape[0]
+    if truncated:
+        # a full buffer ends at the true final state
+        ts = np.concatenate([ts, [res.t]])
+        ys = np.concatenate([ys, res.y[None, :]])
+    return (res.status, res.t, res.y, ts, ys, truncated, res.n_accepted,
+            res.n_rejected, None)
+
+
+def _solve_one(backend, mode, udf, bundle, y0, T, Asv, t1, *, kc_compat,
+               asv_quirk, exp32, stats=False, recorder=None, watch=None,
+               **solve_kw):
+    """One condition on the requested backend: ``"torch"`` (the sweep
+    driver, :func:`_run_solve`) or ``"cpu"`` (:func:`_run_native`)."""
+    if backend == "cpu":
+        return _run_native(mode, udf, bundle, y0, T, Asv, t1,
+                           kc_compat=kc_compat, asv_quirk=asv_quirk,
+                           exp32=exp32, **solve_kw)
+    return _run_solve(_segmented_builder(mode, udf, kc_compat, asv_quirk,
+                                         exp32),
+                      bundle, y0, T, Asv, t1, stats=stats,
+                      recorder=recorder, watch=watch, **solve_kw)
+
+
 def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
                       kc_compat, asv_quirk, exp32, device, solve_kw,
-                      telemetry=False):
+                      backend="torch", telemetry=False):
     """Dict-in/dict-out form: ``(accepted_times, {species: final x})``, or
     with ``telemetry`` ``(accepted_times, fractions, report)``.  Gas
     (``md`` a GasMechanism) or surface (``md`` a SurfaceMechanism), never
@@ -828,10 +919,11 @@ def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
         if telemetry:
             stack.enter_context(watch)
             stack.enter_context(rec.span("solve"))
-        status, t_end, y_end, ts, _, _, _, _, run_stats = _run_solve(
-            _segmented_builder(mode, None, kc_compat, asv_quirk, exp32),
-            (gm, sm, thermo_obj), y0, T, Asv, time, stats=telemetry,
-            recorder=rec, watch=watch if telemetry else None, **solve_kw)
+        status, t_end, y_end, ts, _, _, _, _, run_stats = _solve_one(
+            backend, mode, None, (gm, sm, thermo_obj), y0, T, Asv, time,
+            kc_compat=kc_compat, asv_quirk=asv_quirk, exp32=exp32,
+            stats=telemetry, recorder=rec,
+            watch=watch if telemetry else None, **solve_kw)
     if status != "Success":
         raise RuntimeError(
             f"batch_reactor integration failed with {status} at "
@@ -844,7 +936,7 @@ def _programmatic_run(inlet_comp, T, p, time, *, Asv, chem, thermo_obj, md,
         return ts, x_out, build_report(
             recorder=rec, solver_stats=run_stats, watch=watch,
             meta={"entry": "batch_reactor", "mode": mode,
-                  "backend": "torch", "method": solve_kw["method"]})
+                  "backend": backend, "method": solve_kw["method"]})
     return ts, x_out
 
 
@@ -868,7 +960,8 @@ def _host_tree(d):
 def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
                      sens_params, sens_qoi, sens_grid, rtol, atol,
                      max_steps, kc_compat, asv_quirk, exp32, method,
-                     jac_window, segmented, telemetry=False, recorder=None):
+                     jac_window, segmented, backend="torch", telemetry=False,
+                     recorder=None):
     """Solve with sensitivities (``sens="forward"|"adjoint"``), one lane;
     returns a :class:`SensitivitySolution`, or with ``telemetry`` the
     triple ``(solution, solver_stats, watch)`` the file-driven caller
@@ -883,6 +976,10 @@ def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
         raise ValueError(
             "sens='forward'/'adjoint' needs a mechanism-driven run: "
             "user-defined chemistry has no named mechanism parameters")
+    if backend != "torch":
+        raise ValueError(
+            f"sens={sens!r} runs on the torch backend only (the native BDF "
+            f"runtime has no sensitivity support); got backend={backend!r}")
     if method != "bdf":
         raise ValueError(
             f"sens={sens!r} rides the BDF step machinery; method={method!r}"
@@ -1030,7 +1127,7 @@ def _sensitivity_run(sens, mode, id_, y0, cfg, surf_species, *,
 
 def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
                      kc_compat, asv_quirk, exp32, verbose, device, solve_kw,
-                     sens_kw=None, telemetry=False):
+                     sens_kw=None, backend="torch", telemetry=False):
     """Parse the XML, solve, write the profile files next to it and
     return the status string; with ``sens`` (normalized by
     :func:`_normalize_sens`) return the :class:`SensitivityProblem` or the
@@ -1050,7 +1147,7 @@ def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
         ini_covg=id_.smd.ini_covg if id_.smd is not None else None)
 
     def meta(**extra):
-        return {"entry": "batch_reactor", "mode": mode, "backend": "torch",
+        return {"entry": "batch_reactor", "mode": mode, "backend": backend,
                 "method": solve_kw["method"],
                 "input": os.path.basename(input_file), **extra}
 
@@ -1077,8 +1174,8 @@ def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
             asv_quirk=asv_quirk, exp32=exp32, rtol=solve_kw["rtol"],
             atol=solve_kw["atol"], max_steps=solve_kw["max_steps"],
             method=solve_kw["method"], jac_window=solve_kw["jac_window"],
-            segmented=solve_kw["segmented"], telemetry=telemetry,
-            recorder=rec, **sens_kw)
+            segmented=solve_kw["segmented"], backend=backend,
+            telemetry=telemetry, recorder=rec, **sens_kw)
         if telemetry:
             sol, stats, watch = sol
             return sol, build_report(recorder=rec, solver_stats=stats,
@@ -1090,11 +1187,11 @@ def _file_driven_run(input_file, lib_dir, chem, sens=None, *, n_save,
             stack.enter_context(watch)
         with rec.span("solve"):
             (status, t_end, _, ts, ys, truncated, n_acc, n_rej,
-             run_stats) = _run_solve(
-                _segmented_builder(mode, chem.udf, kc_compat, asv_quirk,
-                                   exp32),
-                (id_.gmd, id_.smd, id_.thermo), y0, id_.T, id_.Asv, id_.tf,
-                stats=telemetry, recorder=rec if telemetry else None,
+             run_stats) = _solve_one(
+                backend, mode, chem.udf, (id_.gmd, id_.smd, id_.thermo), y0,
+                id_.T, id_.Asv, id_.tf, kc_compat=kc_compat,
+                asv_quirk=asv_quirk, exp32=exp32, stats=telemetry,
+                recorder=rec if telemetry else None,
                 watch=watch if telemetry else None, **solve_kw)
     if verbose:
         # the reference prints every accepted time (@printf("%4e\n",t));
@@ -1129,7 +1226,7 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
                   asv_quirk=True, verbose=True, segmented=None, method="bdf",
                   jac_window=None, sens_params=None, sens_qoi=None,
                   sens_grid=512, exp32=False, telemetry=False, device=None,
-                  **deferred):
+                  backend="torch"):
     """Simulate an isothermal constant-volume batch reactor.
 
     File-driven:   ``batch_reactor(input_file, lib_dir, surfchem=,
@@ -1148,6 +1245,16 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
     attempts; ``False`` in one segment of ``max_steps``.  ``method`` is
     ``"bdf"`` or ``"sdirk"``; ``jac_window`` follows
     :func:`resolve_jac_window`.
+
+    ``backend`` is ``"torch"`` (the default: the sweep driver on
+    ``device``) or ``"cpu"``: the native C++ CVODE-class BDF
+    (``native/br_native.cpp``), which needs no GPU and runs on the host
+    whatever the mechanism's device (``device`` defaults to the CPU
+    there).  Gas, surface and coupled chemistry run all-native; a
+    user-defined source integrates the torch RHS through a callback.  The
+    native runtime has none of ``jac_window``, ``method="sdirk"``,
+    ``segmented``, ``exp32`` or ``sens="forward"|"adjoint"``: each
+    raises ``ValueError`` with ``backend="cpu"``.
 
     ``sens`` (file-driven forms): ``False`` solves; ``True`` returns the
     problem unsolved as a :class:`SensitivityProblem`; ``"forward"`` solves
@@ -1168,15 +1275,23 @@ def batch_reactor(*args, sens=False, surfchem=False, gaschem=False, Asv=1.0,
     from the file-driven forms (``(solution, report)`` with ``sens``) and
     ``(times, fractions, report)`` from the programmatic one; render it
     with ``tools/obs_report.py``.  Off, every return shape is unchanged."""
-    check_deferred(deferred, _RUN_DEFERRED)
     sens = _normalize_sens(sens)
+    if backend not in ("torch", "cpu"):
+        raise ValueError(f"unknown backend {backend!r}; use 'torch' or "
+                         f"'cpu'")
+    if backend == "cpu":
+        if device is not None and torch.device(device).type != "cpu":
+            raise ValueError(
+                f"backend='cpu' runs the native runtime on the host; drop "
+                f"device={device!r} or use backend='torch'")
+        device = "cpu"
     if method not in ("bdf", "sdirk"):
         raise ValueError(f"unknown method {method!r}; use 'sdirk'/'bdf'")
     solve_kw = dict(rtol=rtol, atol=atol, n_save=n_save, max_steps=max_steps,
                     method=method, jac_window=jac_window,
                     segmented=segmented)
     chem_kw = dict(kc_compat=kc_compat, asv_quirk=asv_quirk, exp32=exp32,
-                   device=device, solve_kw=solve_kw)
+                   device=device, solve_kw=solve_kw, backend=backend)
     if args and isinstance(args[0], dict):
         if len(args) != 4:
             raise TypeError(

@@ -185,3 +185,17 @@ def create_thermo(species, therm_file, device=None):
          "molwt": molwt, "species": tuple(s.upper() for s in species),
          "composition": tuple(tuple(sorted(c.items())) for c in comps)},
         device)
+
+
+def element_matrix(table, elements=None):
+    """(elements, (E, S) element-count matrix) from ``table.composition``,
+    for conservation tests (``batchreactor_tpu/models/thermo.py::
+    element_matrix``); host numpy, whatever the table's device."""
+    comps = [dict(c) for c in table.composition]
+    if elements is None:
+        elements = sorted({e for c in comps for e in c})
+    mat = np.zeros((len(elements), len(comps)))
+    for k, comp in enumerate(comps):
+        for e, cnt in comp.items():
+            mat[elements.index(e), k] = cnt
+    return elements, mat

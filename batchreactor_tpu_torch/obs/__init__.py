@@ -32,7 +32,7 @@ the SLO monitor and fleet stitching (:mod:`.trace`, :mod:`.slo`,
 :mod:`.stitch`) are fed by the serving scheduler and the fleet router.
 """
 
-from . import counters, live, timeline  # noqa: F401
+from . import counters, live, slo, stitch, timeline, trace  # noqa: F401
 from .export import (from_jsonl, read_jsonl, to_jsonl, to_prometheus,
                      write_jsonl)
 from .live import (FlightRecorder, LiveRegistry, MetricsServer, arm_flight,
@@ -41,6 +41,10 @@ from .live import (FlightRecorder, LiveRegistry, MetricsServer, arm_flight,
 from .recorder import Recorder, null_span
 from .report import build_report, diff, render, stats_totals
 from .retrace import CompileWatch
+from .slo import DEFAULT_OBJECTIVES, Objective, SloMonitor, evaluate_traces
+from .stitch import load_fleet, merge_reports, render_fleet
+from .stitch import stitch as stitch_traces
+from .trace import STAGES, TRACE_VERSION, RequestTrace
 
 __all__ = [
     "Recorder",
@@ -57,6 +61,20 @@ __all__ = [
     "read_jsonl",
     "live",
     "timeline",
+    "trace",
+    "RequestTrace",
+    "STAGES",
+    "TRACE_VERSION",
+    "slo",
+    "stitch",
+    "Objective",
+    "SloMonitor",
+    "DEFAULT_OBJECTIVES",
+    "evaluate_traces",
+    "load_fleet",
+    "merge_reports",
+    "render_fleet",
+    "stitch_traces",
     "LiveRegistry",
     "MetricsServer",
     "FlightRecorder",

@@ -14,8 +14,8 @@ corrupt one instead of crashing, ``retry=`` re-solves failed or wedged
 chunks with exponential backoff and a per-chunk attempt ledger in the
 manifest, ``chunk_budget_s=`` bounds each chunk's device wait, and
 ``quarantine=`` re-solves non-success lanes before a chunk is saved, with
-per-lane provenance in the chunk.  ``oracle=`` waits for ROADMAP A16
-(``NotImplementedError``).
+per-lane provenance in the chunk; its oracle rung re-solves the residue
+lane by lane on the native CPU BDF.
 
 Telemetry (``obs/``): ``recorder=`` gets ``chunk_solve``, ``chunk_load``
 and ``chunk_save`` spans, ``fault`` events and the fault counters
@@ -39,7 +39,7 @@ import torch
 
 from ..obs.live import flight_dump, flight_note_counters
 from ..obs.recorder import Recorder
-from ..solver.common import SolveResult, check_deferred
+from ..solver.common import SolveResult
 from ..solver.graphs import tree_map
 from .sweep import ensemble_solve, ensemble_solve_segmented
 
@@ -50,9 +50,6 @@ _FIELDS = ("t", "y", "status", "n_accepted", "n_rejected", "ts", "ys",
 #: resume treats any of them as "this chunk does not exist" and re-solves
 _CORRUPT_ERRORS = (zipfile.BadZipFile, OSError, EOFError, KeyError,
                    ValueError)
-
-# (keyword, default, ROADMAP item) of checkpointed_sweep's deferred options
-_DEFERRED = (("oracle", None, "A16"),)
 
 #: chunk counters since they were last set to 0: ``chunks_solved`` (chunk
 #: solves that completed, retries not counted twice) and ``chunks_corrupt``
@@ -369,6 +366,25 @@ def _solve_chunk(rhs, y0c, t0, t1, cfgc, solve_kw, recorder=None):
     return ensemble_solve(rhs, y0c, t0, t1, cfgc, **kw)
 
 
+def _sweep_oracle(oracle, qpol, rhs, t0, t1, solve_kw):
+    """The quarantine's oracle rung of a checkpointed sweep: ``oracle`` as
+    given, else with ``qpol.oracle`` the native BDF over the sweep's RHS
+    (``resilience.quarantine.native_oracle``; with ``rhs_bundle`` the RHS
+    the builder makes from the bundle), at the sweep's tolerances and step
+    budget.  Module-level so the elastic and multihost tiers build the
+    same oracle."""
+    if oracle is not None or qpol is None or not qpol.oracle:
+        return oracle
+    from ..resilience.quarantine import native_oracle
+
+    bundle = solve_kw.get("rhs_bundle")
+    return native_oracle(
+        rhs(bundle)[0] if bundle is not None else rhs, t0, t1,
+        rtol=float(solve_kw.get("rtol", 1e-6)),
+        atol=float(solve_kw.get("atol", 1e-10)),
+        max_steps=int(solve_kw.get("max_steps", 200_000)))
+
+
 def _resolve_run_kw(solve_kw, y0s, B):
     """``solve_kw`` as the chunks run it: ``linsolve="auto"`` resolved
     once with the whole sweep's lane count (as ``batch_reactor_sweep``
@@ -452,22 +468,23 @@ class _ChunkBudget:
             self._ratios.append(float(wall_s) / float(rel_cost))
 
 
-def _wait_chunk(res, budget_s, label):
+def _wait_chunk(res, budget_s, label, recorder=None):
     """Wait for the chunk's device work, bounded by ``budget_s`` (None:
-    unbounded)."""
+    unbounded); ``recorder`` gets a breach's ``hung_fetch`` fault event
+    and ``fetch_timeouts`` counter, before the flight recorder dumps."""
     if budget_s is None:
         _sync(res)
     else:
         from ..resilience.watchdog import block_with_deadline
 
-        block_with_deadline(res.y, budget_s, label=label)
+        block_with_deadline(res.y, budget_s, recorder, label=label)
 
 
 def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
                            chunk_size, resident, refill, refill_spec,
                            solve_kw, chunk_log, retry, qpol, ledger,
                            load_chunk, save_async, subset_solve, rec,
-                           recorder):
+                           recorder, oracle):
     """``checkpointed_sweep``'s admission backlog mode: every pending
     (not-on-disk) chunk's lanes form ONE backlog streamed through the
     resident admission program, and a chunk's ``.npz`` is written the
@@ -533,7 +550,8 @@ def _stream_pending_chunks(rhs, y0s, t0, t1, cfgs, ckpt_dir, parts, *,
         if qpol is not None:
             res, _ = _quarantine.resolve(res, y0s[lo:hi], chunk_cfgs,
                                          subset_solve, policy=qpol,
-                                         recorder=rec, lane_offset=lo)
+                                         oracle=oracle, recorder=rec,
+                                         lane_offset=lo)
         att = res.n_accepted.numpy() + res.n_rejected.numpy()
         if chunk_log is not None:
             retry_note = f" (attempt {attempt})" if attempt else ""
@@ -688,12 +706,15 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
       ``BR_CHUNK_BUDGET_S``) bounds each chunk's device wait; a breach is
       a ``WedgeError``.
     * ``quarantine=`` (None/True/dict/``QuarantinePolicy``) re-solves
-      non-success lanes (``resilience/quarantine.py``) before the chunk is
-      saved; per-lane provenance persists in the npz (``prov``).
+      non-success lanes (``resilience/quarantine.py``: the same-settings
+      pass, the tighter fallback, and with ``oracle=True`` the native CPU
+      BDF) before the chunk is saved; per-lane provenance persists in the
+      npz (``prov``).  ``oracle=`` overrides the oracle the policy builds
+      (:func:`_sweep_oracle`) with any callable of
+      ``resilience.quarantine.resolve``'s ``oracle`` contract.
 
     ``energy=`` declares a non-isothermal sweep: it pins the fingerprint
     (the chunk state grows the T column) and is not forwarded.
-    ``oracle=`` waits for ROADMAP A16.
 
     ``recorder`` (an ``obs.Recorder``) collects the chunks' telemetry:
     ``chunk_solve`` spans (lanes, attempt, mean attempts per lane),
@@ -715,11 +736,9 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
     from ..resilience.watchdog import WedgeError, reset_backend
     from .sweep import resolve_admission
 
-    check_deferred({"oracle": oracle}, _DEFERRED)
     rec = recorder if recorder is not None else Recorder()
     retry = normalize_retry(retry)
     qpol = normalize_quarantine(quarantine)
-    _quarantine.check_oracle(qpol)
     energy = resolve_energy(solve_kw.pop("energy", None))
     resident_req, refill_spec = resolve_admission(
         admission, refill, n_lanes=int(y0s.shape[0]))
@@ -787,6 +806,7 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
               "fingerprint": _sweep_fingerprint(rhs, y0s, cfgs, fp_kw)}
     ledger = _Ledger(ckpt_dir, pinned, ensure_manifest(ckpt_dir, pinned))
     run_kw = _resolve_run_kw(solve_kw, y0s, B)
+    oracle_fn = _sweep_oracle(oracle, qpol, rhs, t0, t1, run_kw)
 
     def _rel_cost(lo, hi):
         if cost_sorted is not None:
@@ -803,7 +823,7 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
                     res = _solve_chunk(rhs, y0c, t0, t1, cfgc, run_kw,
                                        recorder)
                     _wait_chunk(res, budget.budget_for(_rel_cost(lo, hi)),
-                                f"chunk{i}")
+                                f"chunk{i}", rec)
                     wall = time.perf_counter() - t_start
                     att = (res.n_accepted + res.n_rejected).to(
                         torch.float64)
@@ -910,7 +930,8 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
                 refill=refill, refill_spec=refill_spec, solve_kw=run_kw,
                 chunk_log=chunk_log, retry=retry, qpol=qpol, ledger=ledger,
                 load_chunk=_load_chunk, save_async=_save_async,
-                subset_solve=_subset_solve, rec=rec, recorder=recorder)
+                subset_solve=_subset_solve, rec=rec, recorder=recorder,
+                oracle=oracle_fn)
         else:
             for i, lo in enumerate(range(0, B, chunk_size)):
                 hi = min(lo + chunk_size, B)
@@ -928,7 +949,8 @@ def checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *, chunk_size=512,
                     if qpol is not None:
                         res, _ = _quarantine.resolve(
                             res, y0s[lo:hi], chunk_cfgs, _subset_solve,
-                            policy=qpol, recorder=rec, lane_offset=lo)
+                            policy=qpol, oracle=oracle_fn, recorder=rec,
+                            lane_offset=lo)
                     res = host_result(res)
                     if chunk_log is not None:
                         att = res.n_accepted.numpy() + res.n_rejected.numpy()

@@ -230,7 +230,8 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
     chunks over.  The directory interoperates with a single-process
     ``checkpointed_sweep`` resume.  No attempt ledger is written
     (concurrent manifest rewrites would race); the claim files carry the
-    ownership history.  ``oracle=`` waits for ROADMAP A16.
+    ownership history.  ``oracle=`` (or ``quarantine={"oracle": True}``)
+    arms the quarantine's oracle rung as in ``checkpointed_sweep``.
 
     ``recorder`` (an ``obs.Recorder``) gets the reference's fault events
     and counters (``chunk_solve_error``, ``dead_host_reassign``,
@@ -252,15 +253,13 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
                                      normalize_quarantine, normalize_retry,
                                      retryable)
     from ..resilience.watchdog import WedgeError, reset_backend
-    from ..solver.common import check_deferred
     from .checkpoint import (_CORRUPT_ERRORS, _ChunkBudget,
                              _check_segmented_knobs, _concat_results,
                              _resolve_run_kw, _solve_chunk,
-                             _sweep_fingerprint, _wait_chunk,
+                             _sweep_fingerprint, _sweep_oracle, _wait_chunk,
                              ensure_manifest, host_result, load_result,
                              resolve_chunk_budget, save_result)
 
-    check_deferred({"oracle": oracle}, (("oracle", None, "A16"),))
     if not (0 <= int(process_id) < int(num_processes)):
         raise ValueError(f"process_id {process_id} outside "
                          f"[0, {num_processes})")
@@ -271,7 +270,6 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
         dead_after_s = 6.0 * float(heartbeat_s)
     retry = normalize_retry(retry)
     qpol = normalize_quarantine(quarantine)
-    _quarantine.check_oracle(qpol)
     budget = _ChunkBudget(resolve_chunk_budget(chunk_budget_s))
     B = int(y0s.shape[0])
     n_chunks = -(-B // int(chunk_size))
@@ -281,6 +279,7 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
               "fingerprint": _sweep_fingerprint(rhs, y0s, cfgs, solve_kw)}
     ensure_manifest(ckpt_dir, pinned)
     run_kw = _resolve_run_kw(solve_kw, y0s, B)
+    oracle_fn = _sweep_oracle(oracle, qpol, rhs, t0, t1, run_kw)
     hb = Heartbeat(_heartbeat_path(ckpt_dir, process_id), heartbeat_s,
                    name="br-elastic-heartbeat")
     hb.beat()
@@ -382,7 +381,7 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
                 res = _solve_chunk(rhs, y0s[lo:hi], t0, t1, chunk_cfgs,
                                    run_kw, recorder)
                 _wait_chunk(res, budget.budget_for(hi - lo),
-                            f"elastic-chunk{i}")
+                            f"elastic-chunk{i}", recorder)
                 break
             except RETRYABLE as e:
                 last = attempt == attempts - 1 or not retryable(e)
@@ -412,6 +411,7 @@ def elastic_checkpointed_sweep(rhs, y0s, t0, t1, cfgs, ckpt_dir, *,
         if qpol is not None:
             res, _ = _quarantine.resolve(res, y0s[lo:hi], chunk_cfgs,
                                          _subset_solve, policy=qpol,
+                                         oracle=oracle_fn,
                                          recorder=recorder, lane_offset=lo)
         # test-only: the killed-process simulation exits here, after the
         # solve and before the save, so the chunk file stays missing and

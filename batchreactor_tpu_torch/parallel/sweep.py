@@ -77,8 +77,9 @@ graphs captured under the ``sweep-segment``/``sweep-compact`` labels;
 ``live=`` (an ``obs.LiveRegistry``) gets an in-flight publish at each
 status poll and is retired on return.
 
-Functions take the device of the tensors they are given.  Not ported yet
-(``NotImplementedError``): the serving hook ``_feed`` (ROADMAP A15).
+Functions take the device of the tensors they are given.  The serving
+hook ``_feed`` (with ``admission=``) appends lanes to the streaming
+driver's backlog while it runs; the serving scheduler feeds it.
 """
 
 import contextlib

@@ -16,7 +16,8 @@
   liveness.  CUDA runtime errors are never retried in-process (ROADMAP
   C6, :func:`~.policy.retryable`).
 * **lane quarantine** (:mod:`.quarantine`) — non-success lanes re-solve
-  in a same-settings pass, then a tighter-tolerance pass; results carry a
+  in a same-settings pass, then a tighter-tolerance pass, then optionally
+  lane by lane on the native CPU BDF (the oracle); results carry a
   per-lane ``provenance``.
 * **fault injection** (:mod:`.inject`) — deterministic simulation of a
   hung wait, a killed process, a corrupt chunk file and a NaN lane.

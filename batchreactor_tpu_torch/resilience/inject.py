@@ -22,8 +22,8 @@ wedges):
     NaN``, ``status -> DT_UNDERFLOW``): the numerical blowup the
     quarantine re-solves.
 ``slow_request[:delay=S][,request=ID][,count=N]``
-    parsed for the serving scheduler, which the port does not have yet
-    (ROADMAP A15): nothing consumes it.
+    the serving scheduler holds request ``ID`` (any request without one)
+    ``S`` seconds between its admission and its harvest.
 
 Plans arm from ``BR_FAULT_INJECT`` (semicolon-separated specs, parsed
 once on first use) or programmatically via :func:`arm`; each spec fires

@@ -102,8 +102,9 @@ class QuarantinePolicy:
     transient corruption bit for bit), then in a tighter-tolerance,
     bigger-budget fallback pass (``rtol_factor``/``atol_factor`` scale the
     tolerances down, ``max_steps_factor`` raises the attempt budget).
-    ``oracle=True``, the native CPU cross-check, waits for ROADMAP A16:
-    the sweeps raise ``NotImplementedError`` on it."""
+    ``oracle=True`` hands the residue lane by lane to the native CPU BDF
+    (``quarantine.native_oracle``); the sweeps build that oracle
+    themselves."""
 
     retry_pass: bool = True
     rtol_factor: float = 0.01

@@ -14,9 +14,10 @@ result.  :func:`resolve` chases it with an escalation ladder driven by
 2. **fallback pass** — the survivors of pass 1 re-solve alone with
    tolerances tightened by ``rtol_factor``/``atol_factor`` and the step
    budget raised by ``max_steps_factor``.
-3. **oracle pass** — the native CPU cross-check waits for ROADMAP A16:
-   ``oracle=`` and ``QuarantinePolicy(oracle=True)`` raise
-   ``NotImplementedError``.
+3. **oracle pass** (optional) — the residue goes lane by lane to the
+   native CPU BDF (:func:`native_oracle`, ``native/``), the CVODE-class
+   runtime both packages share.  A lane that only the oracle solves is a
+   solver problem worth a ticket, and its provenance says so.
 
 Lanes that survive every pass keep their primary-attempt fields and are
 marked ``failed``.  Live (never-quarantined) lanes are untouched: their
@@ -30,23 +31,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..solver.common import SUCCESS, SolveResult, check_deferred
+from ..solver.common import SUCCESS, SolveResult
 from ..solver.graphs import tree_map
 
 #: per-lane provenance codes (int8); index into PROVENANCE_NAMES
 PRIMARY, RETRY, FALLBACK, ORACLE, FAILED = 0, 1, 2, 3, 4
 PROVENANCE_NAMES = ("primary", "retry", "fallback", "oracle", "failed")
-
-# (keyword, default, ROADMAP item) of the oracle rung
-_ORACLE_DEFERRED = (("oracle", None, "A16"),)
-
-
-def check_oracle(policy, oracle=None):
-    """Raise ``NotImplementedError`` naming A16 for the oracle rung: an
-    ``oracle=`` callable or a policy with ``oracle=True``."""
-    check_deferred({"oracle": oracle}, _ORACLE_DEFERRED)
-    if policy is not None and policy.oracle:
-        check_deferred({"oracle": True}, _ORACLE_DEFERRED)
 
 
 def _take(res, idx):
@@ -81,6 +71,22 @@ def provenance_counts(prov):
             if int((prov == c).sum())}
 
 
+def _set_lane(res, lane, out):
+    """``res`` with lane ``lane``'s state, time, status and step counts
+    taken from the oracle's result ``out``; every other field keeps the
+    primary attempt's value, as in the JAX package."""
+    def put(x, value):
+        x = x.clone()
+        x[lane] = torch.as_tensor(value, dtype=x.dtype, device=x.device)
+        return x
+
+    return dataclasses.replace(
+        res, t=put(res.t, float(out.t)), y=put(res.y, np.asarray(out.y)),
+        status=put(res.status, SUCCESS),
+        n_accepted=put(res.n_accepted, int(out.n_accepted)),
+        n_rejected=put(res.n_rejected, int(out.n_rejected)))
+
+
 def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None,
             recorder=None, lane_offset=0):
     """Run the quarantine escalation ladder over ``res``'s failed lanes.
@@ -89,7 +95,12 @@ def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None,
     lanes; ``pass_name`` is ``"retry"`` (unchanged settings, called with
     the FULL batch so the re-solve is the primary program bit for bit) or
     ``"fallback"`` (the quarantined subset only; the caller applies
-    ``policy.fallback_kwargs``).
+    ``policy.fallback_kwargs``).  ``oracle(y0_lane, cfg_lane)`` (optional,
+    :func:`native_oracle`) gets each lane that both passes leave failed,
+    as its (n,) state and a dict of its scalar conditions, and returns a
+    ``native.NativeResult``-like object (``t``, ``y``, ``status``,
+    ``n_accepted``, ``n_rejected``) or None; a status other than
+    ``"Success"`` or None leaves the lane failed.
 
     Returns ``(res, provenance)``: ``res`` with recovered lanes merged in
     and ``provenance`` attached (always, even all-primary, so the schema
@@ -97,7 +108,6 @@ def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None,
     ``obs.Recorder``) gets the ``lanes_quarantined``/``lanes_recovered``/
     ``lanes_unrecovered`` counters and ``fault`` events naming the lanes
     (offset by ``lane_offset``, a chunk's first lane)."""
-    check_oracle(policy, oracle)
     status0 = res.status.cpu().numpy()
     B = int(status0.shape[0])
     prov = np.zeros(B, dtype=np.int8)
@@ -125,6 +135,14 @@ def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None,
                               pending[ok])
             prov[pending[ok]] = code
         pending = pending[~ok]
+    if oracle is not None and pending.size:
+        for lane in pending.tolist():
+            out = oracle(y0s[lane], {k: v[lane] for k, v in cfgs.items()})
+            if out is None or out.status != "Success":
+                continue
+            res = _set_lane(res, lane, out)
+            prov[lane] = ORACLE
+        pending = pending[prov[pending] != ORACLE]
     prov[pending] = FAILED
     if bad.size and recorder is not None:
         recovered = int(bad.size - pending.size)
@@ -138,7 +156,36 @@ def resolve(res, y0s, cfgs, solve_subset, *, policy, oracle=None,
     return res, prov
 
 
-def native_oracle(*args, **kwargs):
-    """The native CPU BDF cross-check of the JAX package waits for ROADMAP
-    A16 (the native runtime's bindings)."""
-    check_deferred({"oracle": native_oracle}, _ORACLE_DEFERRED)
+def native_oracle(rhs, t0, t1, *, rtol=1e-6, atol=1e-10,
+                  max_steps=200_000, device=None, n_save=0):
+    """The per-lane oracle of :func:`resolve` over the native BDF
+    (``native.solve_bdf``): ``rhs(t, y, cfg)`` is a sweep's batched torch
+    RHS, called with a batch of one (``y`` (1, n), each ``cfg`` entry
+    (1,)) on ``device`` (None: the device of the lane's state, so an RHS
+    whose mechanism lies on the GPU costs one host-device round trip per
+    evaluation).  ``n_save`` keeps that many accepted steps in the
+    result's ``ts``/``ys``.
+
+    Unlike the JAX package, which warns and skips the oracle when the
+    native runtime cannot be built and treats an exception inside a lane
+    as "no answer", the port raises: ``native.NativeUnavailable`` here,
+    and a lane's exception from the oracle call."""
+    from ..native import bindings
+
+    bindings.load_library()
+
+    def oracle(y0_lane, cfg_lane):
+        dev = torch.device(device) if device is not None else (
+            y0_lane.device if isinstance(y0_lane, torch.Tensor)
+            else torch.device("cpu"))
+        cfg1 = {k: torch.as_tensor(v, device=dev).reshape(1)
+                for k, v in cfg_lane.items()}
+
+        def f(t, y):
+            return rhs(t, y.to(dev)[None], cfg1)[0]
+
+        return bindings.solve_bdf(f, y0_lane, float(t0), float(t1),
+                                  rtol=rtol, atol=atol, max_steps=max_steps,
+                                  n_save=n_save)
+
+    return oracle

@@ -5,6 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py            # add --profile for the time breakdown
     python3 chip_smoke.py --profile-only   # only the breakdown, both gears
     python3 chip_smoke.py --serving-only   # phase 3, then phases 23-24
+    python3 chip_smoke.py --native-only    # phases 3 and 5, then phase 25
 
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
@@ -101,7 +102,15 @@ paths through its own entry points:
   member's requests failed over, each answer against the same lanes
   solved by phase 23's session, both hosts in the router's ``/metrics``,
   the traces stitched (a failover one trace of two hops), exit codes 0
-  and -9.
+  and -9;
+- the native CPU runtime (phase 25): ``native/br_native.cpp`` built with
+  g++, ``native.solve_gas_bdf`` on 8 main-path lanes against phase 3's
+  delays and ``batch_reactor(backend="cpu")`` against phase 5; phase 3's
+  lanes through ``checkpointed_sweep(..., quarantine={"oracle": True})``
+  equal to phase 20 (a) to the bit; then one chunk whose two lanes fail
+  every device pass (``lu32p``), answered by the quarantine's oracle rung
+  (``native_oracle`` over the sweep's RHS on the card) within 1e-3 of
+  phase 3; and ``tools/fault_smoke.py`` on the card in a child process.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a CUDA graph adds its captured launches on every replay.
@@ -110,8 +119,9 @@ the same in their own process and report their counts.
 ``--profile`` adds a phase that runs the gas main path once more in each
 gear under ``torch.profiler`` and prints where its time goes (per layer
 and per kernel); ``--profile-only`` runs only that,
-``--telemetry-only`` only phase 3's sweep and phase 22, and
-``--serving-only`` only phase 3's sweep and phases 23-24 (these three
+``--telemetry-only`` only phase 3's sweep and phase 22,
+``--serving-only`` only phase 3's sweep and phases 23-24, and
+``--native-only`` only phase 3's sweep, phase 5 and phase 25 (these four
 print no contract line).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
@@ -209,11 +219,19 @@ B_SENS = 640
 # wait of phase 20 (d) is held HANG_S s against a DEADLINE_S s deadline
 CKPT_CHUNK = 256
 DEADLINE_S, HANG_S = 5.0, 30.0
+# the native runtime (phase 25): native.solve_gas_bdf on every
+# NATIVE_STRIDE-th main-path temperature (8 lanes, lane 0 first); the
+# oracle rung on chunk ORACLE_CHUNK of phase 20's chunking, whose local
+# lanes ORACLE_LANES fail every device pass
+NATIVE_STRIDE = 128
+ORACLE_CHUNK, ORACLE_LANES = 1, (40, 200)
 # the adjoint ranking (phase 17): every 128th main-path temperature (8
 # lanes; the Python loop of stage solves, not the lanes, sets its wall);
 # the forward-against-adjoint check runs every 16th of the 64 coolest
-# temperatures to T1 / 4, before they ignite
+# temperatures to T1_SENS_CROSS, before they ignite (T1 / 8: cut from
+# T1 / 4 to keep the script under 1000 s)
 SENS_LANES = 8
+T1_SENS_CROSS = T1 / 8
 # lane 0 of phase 17 (1500 K) in the JAX package's reference configuration
 # on the CPU (python scripts/sens_reference.py): d ln tau / d ln A_i of the
 # CH4 half-crossing delay (tau 5.692e-4 s) for the 325 GRI-3.0 reactions in
@@ -615,6 +633,39 @@ def time_kernel(M, same_pivots=True):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "share_of_bound": bound_ms / ms, "bytes": bytes_moved,
             "flops": flops, **witness}
+
+
+def file_driven_h2o2(bt, **kw):
+    """``batch_reactor`` on the h2o2 XML (10 s to equilibrium) in a
+    temporary directory: (status, the profile's rows as dicts)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = os.path.join(tmp, "batch.xml")
+        with open(xml, "w") as f:
+            f.write("<batch><gas_mech>h2o2.dat</gas_mech>"
+                    "<molefractions>H2=0.25,O2=0.25,N2=0.5</molefractions>"
+                    "<T>1173.0</T><p>1e5</p><time>10.0</time></batch>")
+        status = bt.batch_reactor(xml, FIXTURES, gaschem=True, verbose=False,
+                                  **kw)
+        with open(os.path.join(tmp, "gas_profile.csv")) as f:
+            lines = f.read().splitlines()
+    head = lines[0].split(",")
+    return status, [dict(zip(head, map(float, ln.split(","))))
+                    for ln in lines[1:]]
+
+
+def phase_file_driven(bt):
+    """Phase 5: the file-driven entry point on h2o2; returns its last
+    profile row."""
+    t0 = time.perf_counter()
+    status, rows = file_driven_h2o2(bt)
+    row = rows[-1]
+    if status != "Success" or abs(row["H2O"] - 2 / 7) > 1e-4 or abs(
+            row["O2"] - 1 / 7) > 1e-4:
+        raise AssertionError(f"file-driven h2o2: {status} {row}")
+    emit({"phase": "file_driven", "status": status, "t_end": row["t"],
+          "x_H2O": row["H2O"], "x_O2": row["O2"], "rows": len(rows),
+          "seconds": time.perf_counter() - t0})
+    return row
 
 
 def sweep(bt, gm, th, T, device, t1=T1, **kw):
@@ -1222,7 +1273,8 @@ def phase_adjoint(gm, th, T, device, smi):
     lane, ``grid_size=512``, ``segments=8``, ``grid_refine=2``, ``auto`` ->
     ``inv32``.  Lane 0's coefficients d ln tau / d ln A against the JAX
     package's on the CPU (``scripts/sens_reference.py``) within 1e-2 of the
-    largest; then on 4 lanes (every 16th of the coolest 64) to T1 / 4 at
+    largest; then on 4 lanes (every 16th of the coolest 64) to
+    T1_SENS_CROSS at
     rtol 1e-8 / atol 1e-12 the adjoint gradient of the final H2O over the
     18 ``*CH4*`` reactions against the forward tangents' H2O row, within
     1e-3 of the largest |grad| (the JAX package's own tier, also on a
@@ -1270,7 +1322,7 @@ def phase_adjoint(gm, th, T, device, smi):
 
     # the forward-against-adjoint tier of the JAX package's own tests
     Tc = T[:64:16]
-    t1c = T1 / 4
+    t1c = T1_SENS_CROSS
     y0c, cfgc, _, _, _, _ = main_path_lanes(gm, th, Tc, device)
     spec18, theta18, rt18, jt18 = ch4_theta(gm, th, "*CH4*")
     h2o = sp.index("H2O")
@@ -1344,9 +1396,9 @@ def gear_run(fn):
 
 
 def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
-    """Phase 18: the main path's sweep in both gears, blocking (cold, then
-    warm) and pipelined at poll_every 1 and 4 (each cold, its graphs
-    dropped first, then warm), every lane equal to the bit; then blocking
+    """Phase 18: the main path's sweep in both gears, blocking and
+    pipelined at poll_every 1 and 4 (each cold, its graphs dropped first,
+    then warm), every lane equal to the bit; then blocking
     against pipelined on 64 lanes each of the coupled (f64 ``lu``), energy
     (the jvp T column) and SDIRK4 (``inv32``) paths."""
     from batchreactor_tpu_torch.parallel import ensemble_solve_segmented
@@ -1361,8 +1413,9 @@ def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
         return gear_run(lambda: ensemble_solve_segmented(
             rhs, y0s, 0.0, T1, cfg, **kw, **gear))
 
-    runs = {"blocking_cold": main(pipeline=False),
-            "blocking_warm": main(pipeline=False)}
+    # the blocking gear captures nothing, so its first run is its warm
+    # run (phase 3 built every kernel and program it needs)
+    runs = {"blocking_warm": main(pipeline=False)}
     for pe in (1, 4):
         graphs.clear_programs()
         runs[f"pipelined_poll{pe}_cold"] = main(pipeline=True, poll_every=pe)
@@ -2794,6 +2847,337 @@ def serving_main(bt, gm, th, device, smi):
     return 0
 
 
+def native_tau(res, y0, marker):
+    """The main path's ignition delay (``ignition_observer``, CH4 below
+    half its initial value, interpolated) over a native trajectory: the
+    initial row, then every accepted step of ``res`` (``n_save`` rows)."""
+    import torch
+
+    from batchreactor_tpu_torch.parallel import ignition_observer
+
+    obs, init = ignition_observer(marker, mode="half")
+    acc = {k: torch.full((1,), v, dtype=torch.float64)
+           for k, v in init.items()}
+    ts = np.concatenate([[0.0], res.ts])
+    ys = np.concatenate([np.asarray(y0)[None, :], res.ys])
+    for t, y in zip(ts, ys):
+        acc = obs(torch.tensor([t]), torch.from_numpy(y[None, :]), acc)
+    return float(acc["tau"][0])
+
+
+def poison(res, lanes):
+    """``res`` with ``lanes`` failed as a NaN blowup (y NaN, status
+    DT_UNDERFLOW), as ``resilience.inject.poison_lanes`` does."""
+    import dataclasses
+
+    import torch
+
+    from batchreactor_tpu_torch.solver.common import DT_UNDERFLOW
+
+    idx = torch.as_tensor(lanes, dtype=torch.long, device=res.y.device)
+    y, status = res.y.clone(), res.status.clone()
+    y[idx] = float("nan")
+    status[idx] = DT_UNDERFLOW
+    return dataclasses.replace(res, y=y, status=status)
+
+
+def start_fault_smoke(before=None):
+    """Start ``tools/fault_smoke.py`` on the card in a child process, its
+    output in a temporary directory; ``before`` names the phase it runs
+    beside (None: phase 25 waits for it at once)."""
+    tmp = tempfile.mkdtemp(prefix="br_fault_smoke_")
+    with open(os.path.join(tmp, "child.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "batchreactor_tpu_torch.tools.fault_smoke",
+             "--out", os.path.join(tmp, "fault_events.jsonl"),
+             "--scrape-out", os.path.join(tmp, "fault_scrape.prom"),
+             "--flight-dir", tmp], cwd=tmp, stdout=log,
+            stderr=subprocess.STDOUT, env={**os.environ, "PYTHONPATH": HERE})
+    return {"proc": proc, "dir": tmp, "t0": time.perf_counter(),
+            "t0_wall": time.time(), "before": before}
+
+
+def stop_fault_smoke(kid, grace_s=20.0):
+    """SIGTERM the fault smoke child if it still runs, SIGKILL past the
+    grace; True when it had to be stopped."""
+    proc = kid["proc"]
+    if proc.poll() is not None:
+        return False
+    proc.terminate()
+    try:
+        proc.wait(grace_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    return True
+
+
+def finish_fault_smoke(kid, timeout=300.0):
+    """Wait for the fault smoke child (``timeout`` s from its start): its
+    exit code, the fault kinds of its ``fault_events.jsonl``, its wall
+    (from its start to its events file, which it writes last) and the
+    tail of its log."""
+    left = timeout - (time.perf_counter() - kid["t0"])
+    try:
+        kid["proc"].wait(max(left, 1.0))
+        timed_out = False
+    except subprocess.TimeoutExpired:
+        timed_out = stop_fault_smoke(kid)
+    wall = time.perf_counter() - kid["t0"]
+    kinds = set()
+    out = os.path.join(kid["dir"], "fault_events.jsonl")
+    if os.path.exists(out):
+        wall = os.path.getmtime(out) - kid["t0_wall"]
+        with open(out) as f:
+            kinds = {json.loads(ln).get("attrs", {}).get("kind")
+                     for ln in f if '"fault"' in ln}
+    with open(os.path.join(kid["dir"], "child.log")) as f:
+        tail = f.read()[-3000:]
+    return {"rc": kid["proc"].returncode, "timed_out": timed_out,
+            "wall_s": wall, "kinds": sorted(k for k in kinds if k),
+            "tail": tail}
+
+
+def phase_native(bt, gm, th, T, out3, file_row, dir_a, device, smi,
+                 by_phase, fault_kid=None):
+    """Phase 25: the native runtime (``native/br_native.cpp``, g++) beside
+    the CUDA main path.  (a) The build from the checkout.  (b)
+    ``native.solve_gas_bdf`` on every NATIVE_STRIDE-th main-path lane,
+    status and tau against phase 3's (1e-3, phase 20 (a)'s bound), the
+    host wall per lane; ``batch_reactor(backend="cpu")`` on phase 5's
+    h2o2 input against phase 5.  (c1) ``checkpointed_sweep`` over phase
+    3's lanes in chunks of CKPT_CHUNK with ``quarantine={"oracle": True}``
+    and no fault: every lane equal to phase 20 (a)'s to the bit
+    (``dir_a``; without it the reference sweep runs here).  (c2) Chunk
+    ORACLE_CHUNK through ``resilience.quarantine.resolve`` with a
+    ``solve_subset`` that runs the device solve (``lu32p``) and fails
+    ORACLE_LANES on every pass, and ``native_oracle`` over the sweep's
+    RHS on the card as the oracle: the two lanes' provenance ``oracle``,
+    their native tau within 1e-3 of phase 3's, the other lanes equal to
+    the chunk's device result to the bit, the oracle's seconds per lane
+    (and one lane again over a float64 CPU copy of the mechanism).  (d)
+    ``tools/fault_smoke.py`` in a child process on the card: exit 0 and
+    the four fault classes in its ``fault_events.jsonl`` (``fault_kid``:
+    the child ``start_fault_smoke`` started before an earlier phase)."""
+    import torch
+
+    from batchreactor_tpu_torch import native
+    from batchreactor_tpu_torch.native import bindings
+    from batchreactor_tpu_torch.ops.rhs import make_gas_rhs
+    from batchreactor_tpu_torch.parallel import checkpoint as ck
+    from batchreactor_tpu_torch.parallel import checkpointed_sweep
+    from batchreactor_tpu_torch.resilience import (QuarantinePolicy,
+                                                   fallback_kwargs)
+    from batchreactor_tpu_torch.resilience import quarantine as qr
+
+    walls = {}
+    # (a) the build
+    t0 = time.perf_counter()
+    native.load_library()
+    walls["a_build"] = time.perf_counter() - t0
+    build_s = bindings.BUILD_INFO.get("seconds")
+
+    # (b) the native BDF on the main path's lanes, and backend="cpu"
+    marker = list(gm.species).index("CH4")
+    idx = np.arange(0, B_MAIN, NATIVE_STRIDE)
+    y0s_b, _, _, _, _, _ = main_path_lanes(gm, th, T[idx], device)
+    y0_np = y0s_b.cpu().numpy()
+    lane_s, tau_n, stat_n, steps_n = [], [], [], []
+    for k, i in enumerate(idx):
+        t0 = time.perf_counter()
+        r = native.solve_gas_bdf(gm, th, float(T[i]), y0_np[k], 0.0, T1,
+                                 rtol=RTOL, atol=ATOL, n_save=8192)
+        lane_s.append(time.perf_counter() - t0)
+        stat_n.append(r.status)
+        steps_n.append(r.n_accepted)
+        tau_n.append(native_tau(r, y0_np[k], marker))
+    tau_n = np.asarray(tau_n)
+    rel_b = np.abs(tau_n / out3["tau"][idx] - 1.0)
+    if not (all(s == "Success" for s in stat_n)
+            and np.all(out3["status"][idx] == 1) and rel_b.max() <= 1e-3):
+        raise AssertionError(f"native: (b) status {stat_n}, tau max rel "
+                             f"{rel_b.max()} against phase 3")
+    t0 = time.perf_counter()
+    status_cpu, rows_cpu = file_driven_h2o2(bt, backend="cpu")
+    walls["b_backend_cpu"] = time.perf_counter() - t0
+    last = rows_cpu[-1]
+    keys = [k for k in file_row if k not in ("t", "T", "p", "rho")]
+    dx = max(abs(last[k] - file_row[k]) - 1e-3 * abs(file_row[k])
+             for k in keys)
+    if status_cpu != "Success" or last["t"] != file_row["t"] or dx > 1e-5:
+        raise AssertionError(f"native: (b) backend='cpu' {status_cpu} "
+                             f"{last} against phase 5 {file_row}")
+
+    # (c1) the oracle rung armed beside the CUDA sweep, no fault
+    rhs, y0s, cfg, kw = ckpt_setup(gm, th, T, device)
+    tmp = tempfile.mkdtemp(prefix="br_native_")
+    if dir_a is None:
+        dir_a = os.path.join(tmp, "a")
+        checkpointed_sweep(rhs, y0s, 0.0, T1, cfg, dir_a,
+                           chunk_size=CKPT_CHUNK, **kw)
+    ref = ckpt_fields(checkpointed_sweep(rhs, y0s, 0.0, T1, cfg, dir_a,
+                                         chunk_size=CKPT_CHUNK, **kw))
+    ck.reset_counts()
+    res_c1, _, by_phase["native_c1"], walls["c1"] = timed(
+        lambda: checkpointed_sweep(rhs, y0s, 0.0, T1, cfg,
+                                   os.path.join(tmp, "c1"),
+                                   chunk_size=CKPT_CHUNK,
+                                   quarantine={"oracle": True}, **kw))
+    check_launches("native (c1)", by_phase["native_c1"], "warp")
+    c1 = ckpt_fields(res_c1)
+    eq_c1 = lanes_equal(ref, c1)
+    prov_c1 = res_c1.provenance.numpy()
+    if not (eq_c1.all() and ck.COUNTS["chunks_solved"] == B_MAIN
+            // CKPT_CHUNK and not prov_c1.any()):
+        raise AssertionError(f"native: (c1) {int(eq_c1.sum())} lanes equal "
+                             f"to phase 20 (a), {ck.COUNTS}, provenance "
+                             f"{np.unique(prov_c1)}")
+
+    # (c2) two lanes of one chunk fail every device pass; the oracle
+    # answers them
+    lo = ORACLE_CHUNK * CKPT_CHUNK
+    sel = slice(lo, lo + CKPT_CHUNK)
+    y0c, cfgc = y0s[sel], {k: v[sel] for k, v in cfg.items()}
+    run_kw = ck._resolve_run_kw(kw, y0s, B_MAIN)
+    qpol = QuarantinePolicy(oracle=True)
+    bad_T = set(float(v) for v in T[lo + np.asarray(ORACLE_LANES)])
+
+    def device_solve(y, c, solve_kw):
+        r = ck._solve_chunk(rhs, y, 0.0, T1, c, solve_kw)
+        hit = [j for j, v in enumerate(c["T"].tolist()) if v in bad_T]
+        return poison(r, hit)
+
+    passes = []
+
+    def solve_subset(y, c, pass_name):
+        passes.append((pass_name, int(y.shape[0])))
+        return device_solve(y, c, run_kw if pass_name == "retry"
+                            else fallback_kwargs(qpol, run_kw))
+
+    base = qr.native_oracle(rhs, 0.0, T1, rtol=RTOL, atol=ATOL,
+                            n_save=8192)
+    answers = []
+
+    def oracle(y0_lane, cfg_lane):
+        t0 = time.perf_counter()
+        out = base(y0_lane, cfg_lane)
+        answers.append((time.perf_counter() - t0, float(cfg_lane["T"]),
+                        out, y0_lane.cpu().numpy()))
+        return out
+
+    torch.cuda.synchronize()
+    t_c2 = time.perf_counter()
+    # the chunk's device solve, then the ladder over its failed lanes
+    clean, _, by_prim = counted(
+        lambda: ck._solve_chunk(rhs, y0c, 0.0, T1, cfgc, run_kw))
+    (res_c2, prov), _, by_res = counted(lambda: qr.resolve(
+        poison(clean, list(ORACLE_LANES)), y0c, cfgc, solve_subset,
+        policy=qpol, oracle=oracle))
+    by_phase["native_c2"] = {p: by_prim[p] + by_res[p] for p in by_prim}
+    torch.cuda.synchronize()
+    walls["c2"] = time.perf_counter() - t_c2
+    check_launches("native (c2)", by_phase["native_c2"], "warp")
+    others = np.setdiff1d(np.arange(CKPT_CHUNK), ORACLE_LANES)
+    eq_c2 = lanes_equal(lane_fields(clean), lane_fields(res_c2))
+    tau_o = np.asarray([native_tau(out, y0, marker)
+                        for _, _, out, y0 in answers])
+    rel_c2 = np.abs(tau_o / out3["tau"][lo + np.asarray(ORACLE_LANES)]
+                    - 1.0)
+    if not (np.all(prov[list(ORACLE_LANES)] == qr.ORACLE)
+            and not prov[others].any() and eq_c2[others].all()
+            and len(answers) == len(ORACLE_LANES)
+            and rel_c2.max() <= 1e-3
+            and passes == [("retry", CKPT_CHUNK),
+                           ("fallback", len(ORACLE_LANES))]):
+        raise AssertionError(
+            f"native: (c2) provenance {prov[list(ORACLE_LANES)]}, others "
+            f"equal {int(eq_c2[others].sum())} of {len(others)}, oracle "
+            f"answers {len(answers)}, tau max rel {rel_c2}, passes "
+            f"{passes}")
+    # the same oracle over a float64 CPU copy of the mechanism (what the
+    # entry points that hold the mechanism build)
+    cpu_oracle = qr.native_oracle(make_gas_rhs(gm.to("cpu"), th.to("cpu")),
+                                  0.0, T1, rtol=RTOL, atol=ATOL,
+                                  device="cpu", n_save=8192)
+    j = ORACLE_LANES[0]
+    t0 = time.perf_counter()
+    out_cpu = cpu_oracle(y0c[j], {k: v[j] for k, v in cfgc.items()})
+    oracle_cpu_s = time.perf_counter() - t0
+    rel_cpu = abs(native_tau(out_cpu, y0c[j].cpu().numpy(), marker)
+                  / out3["tau"][lo + j] - 1.0)
+    if out_cpu.status != "Success" or not rel_cpu <= 1e-3:
+        raise AssertionError(f"native: (c2) CPU-copy oracle {out_cpu.status}"
+                             f", tau rel {rel_cpu}")
+
+    # (d) the fault smoke on the card, in a child process (started here,
+    # or earlier by the caller so that it runs beside a host-bound phase)
+    kid = fault_kid or start_fault_smoke()
+    d = finish_fault_smoke(kid)
+    walls["d_fault_smoke"] = d["wall_s"]
+    want = {"hung_fetch", "corrupt_chunk", "lane_quarantine",
+            "dead_host_reassign"}
+    if d["timed_out"] or d["rc"] != 0 or not want <= set(d["kinds"]):
+        raise AssertionError(f"native: (d) fault_smoke rc {d['rc']}, kinds "
+                             f"{d['kinds']}:\n{d['tail']}")
+    emit({"phase": "native", "gpu": smi,
+          "host": "the card's machine, host CPU (one thread)",
+          "a_build_s": build_s, "a_load_s": walls["a_build"],
+          "b_lanes": idx.tolist(), "b_status": stat_n,
+          "b_wall_s_per_lane": lane_s,
+          "b_wall_s_per_lane_mean": float(np.mean(lane_s)),
+          "b_accepted": steps_n, "b_tau_max_rel_vs_phase3":
+              float(rel_b.max()),
+          "b_backend_cpu_h2o2": {"status": status_cpu, "t_end": last["t"],
+                                 "x_H2O": last["H2O"], "x_O2": last["O2"],
+                                 "rows": len(rows_cpu),
+                                 "max_excess_over_bound": dx},
+          "c1_lanes_bit_equal_phase20a": int(eq_c1.sum()),
+          "c1_wall_s": walls["c1"],
+          "c1_lu32p_launches_by_path": by_phase["native_c1"],
+          "c2_chunk": ORACLE_CHUNK, "c2_lanes": [lo + j for j in
+                                                 ORACLE_LANES],
+          "c2_passes": passes,
+          "c2_provenance": [qr.PROVENANCE_NAMES[int(prov[j])]
+                            for j in ORACLE_LANES],
+          "c2_oracle_s_per_lane": [a[0] for a in answers],
+          "c2_oracle_rhs_calls": [a[2].n_rhs for a in answers],
+          "c2_oracle_accepted": [a[2].n_accepted for a in answers],
+          "c2_oracle_tau_rel_vs_phase3": rel_c2.tolist(),
+          "c2_oracle_s_cpu_copy_rhs": oracle_cpu_s,
+          "c2_oracle_cpu_copy_accepted": out_cpu.n_accepted,
+          "c2_others_bit_equal": int(eq_c2[others].sum()),
+          "c2_wall_s": walls["c2"],
+          "c2_lu32p_launches_by_path": by_phase["native_c2"],
+          "d_rc": d["rc"], "d_fault_kinds": d["kinds"],
+          "d_started_before_phase": kid["before"],
+          "walls_s": walls})
+
+
+def native_main(bt, gm, th, device, smi):
+    """``--native-only``: phase 3's sweep (cold, then warm), phase 5, then
+    phase 25 (its reference checkpointed sweep runs there).  Prints no
+    contract line."""
+    import torch
+
+    T = np.linspace(T_LO, T_HI, B_MAIN)
+    sweep(bt, gm, th, T, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sweep(bt, gm, th, T, device)
+    torch.cuda.synchronize()
+    emit({"phase": "main_path", "gpu": smi,
+          "wall_s": time.perf_counter() - t0})
+    file_row = phase_file_driven(bt)
+    by_phase = {}
+    t0 = time.perf_counter()
+    phase_native(bt, gm, th, T, {"status": out["status"], "tau": out["tau"]},
+                 file_row, None, device, smi, by_phase)
+    emit({"phase": "walls", "native_s": time.perf_counter() - t0,
+          "launches_by_phase": by_phase})
+    print(smi, flush=True)
+    return 0
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms,
                       pipeline):
     """Where the main path's time goes in one gear: the sweep under
@@ -2962,6 +3346,7 @@ def main():
     profile_only = "--profile-only" in sys.argv[1:]
     telemetry_only = "--telemetry-only" in sys.argv[1:]
     serving_only = "--serving-only" in sys.argv[1:]
+    native_only = "--native-only" in sys.argv[1:]
     t0 = time.perf_counter()
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
@@ -2972,6 +3357,8 @@ def main():
         return telemetry_main(bt, gm, th, device, smi)
     if serving_only:
         return serving_main(bt, gm, th, device, smi)
+    if native_only:
+        return native_main(bt, gm, th, device, smi)
     check_kernel(device)
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
@@ -3085,23 +3472,7 @@ def main():
         "seconds": time.perf_counter() - t0})
 
     # ---- phase 5: the file-driven entry point ---------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        xml = os.path.join(tmp, "batch.xml")
-        with open(xml, "w") as f:
-            f.write("<batch><gas_mech>h2o2.dat</gas_mech>"
-                    "<molefractions>H2=0.25,O2=0.25,N2=0.5</molefractions>"
-                    "<T>1173.0</T><p>1e5</p><time>10.0</time></batch>")
-        t0 = time.perf_counter()
-        status = bt.batch_reactor(xml, FIXTURES, gaschem=True, verbose=False)
-        with open(os.path.join(tmp, "gas_profile.csv")) as f:
-            lines = f.read().splitlines()
-    row = dict(zip(lines[0].split(","), map(float, lines[-1].split(","))))
-    if status != "Success" or abs(row["H2O"] - 2 / 7) > 1e-4 or abs(
-            row["O2"] - 1 / 7) > 1e-4:
-        raise AssertionError(f"file-driven h2o2: {status} {row}")
-    emit({"phase": "file_driven", "status": status, "t_end": row["t"],
-          "x_H2O": row["H2O"], "x_O2": row["O2"], "rows": len(lines) - 1,
-          "seconds": time.perf_counter() - t0})
+    file_row = phase_file_driven(bt)
 
     # ---- phase 6: the coupled path -------------------------------------
     # linsolve="auto" resolves to the float64 lu for a state with coverages
@@ -3256,6 +3627,7 @@ def main():
     walls = {}
     ckpt_dir = []
     served = []
+    kids = []
     out3 = {"status": out["status"], "tau": tau, "x": out["x"]}
     case = main_serve_case(gm, T, *energy_lanes)
     for name, run in (
@@ -3263,7 +3635,10 @@ def main():
                                                 device, smi, by_phase)),
             ("sens_forward", lambda: phase_sens_forward(gm, th, device,
                                                         smi, by_phase)),
-            ("adjoint", lambda: phase_adjoint(gm, th, T, device, smi)),
+            # phase 25 (d)'s fault smoke runs in a child process beside
+            # the host-bound adjoint loop
+            ("adjoint", lambda: (kids.append(start_fault_smoke("adjoint")),
+                                 phase_adjoint(gm, th, T, device, smi))),
             ("gears", lambda: phase_gears(bt, gm, th, sm, T, device, smi,
                                           by_phase)),
             ("stream", lambda: phase_stream(gm, th, device, smi,
@@ -3277,9 +3652,17 @@ def main():
                 by_phase)),
             ("serving", lambda: served.append(phase_serving(
                 bt, gm, th, case, out3, wall, device, smi, by_phase))),
-            ("fleet", lambda: phase_fleet(case, served[0], device, smi))):
+            ("fleet", lambda: phase_fleet(case, served[0], device, smi)),
+            ("native", lambda: phase_native(bt, gm, th, T, out3, file_row,
+                                            ckpt_dir[0], device, smi,
+                                            by_phase, fault_kid=kids[0]))):
         t0 = time.perf_counter()
-        run()
+        try:
+            run()
+        except BaseException:
+            for kid in kids:
+                stop_fault_smoke(kid)
+            raise
         walls[name] = time.perf_counter() - t0
     emit({"phase": "walls", "new_phases_s": walls,
           "total_s": time.perf_counter() - t_start})

@@ -189,6 +189,65 @@ def test_nan_lane_quarantine_provenance_matches_jax(tmp_path, h2o2,
     _equal(port_clean[1], got)   # the retry pass re-solves unchanged
 
 
+# ----------------------------------------------------- the oracle rung
+BAD_LANES = (5, 6)   # both in chunk 1: its fallback pass runs 2 lanes
+
+
+def _bad_rhs(h):
+    """The h2o2 RHS, NaN for the lanes marked ``cfg["bad"]`` whenever it
+    is called on more than one lane: those lanes fail every device pass
+    (the full-chunk retry, and the two-lane fallback), and the oracle,
+    which calls it one lane at a time, solves them."""
+    rhs = h["rhs_t"]
+
+    def bad_rhs(t, y, cfg):
+        dy = rhs(t, y, cfg)
+        if y.shape[0] > 1:
+            dy = torch.where(cfg["bad"][:, None] > 0, float("nan"), dy)
+        return dy
+
+    return bad_rhs
+
+
+def _oracle_cfg(h):
+    bad = torch.zeros(B, dtype=torch.float64)
+    bad[list(BAD_LANES)] = 1.0
+    return {"T": torch.tensor(h["T"]), "bad": bad}
+
+
+@pytest.mark.parametrize("tier", ["checkpointed", "elastic"])
+def test_oracle_rung_answers_lanes_every_pass_fails(tmp_path, h2o2,
+                                                    port_clean, tier):
+    """``quarantine={"oracle": True}`` on h2o2 in chunks of 4: the two
+    lanes that fail every device pass come back from the native oracle
+    with provenance ``oracle``, their state within 10 rtol of the clean
+    sweep's; every other lane equals the clean sweep to the bit."""
+    from batchreactor_tpu_torch.parallel import multihost as mh
+
+    kw = dict(chunk_size=4, jac=h2o2["jac_t"], linsolve="lu",
+              quarantine={"oracle": True})
+    rec_args = (_bad_rhs(h2o2), h2o2["y0_t"], 0.0, T1, _oracle_cfg(h2o2),
+                str(tmp_path / "o"))
+    if tier == "checkpointed":
+        got = ck.checkpointed_sweep(*rec_args, **kw)
+    else:
+        got = mh.elastic_checkpointed_sweep(*rec_args, process_id=0,
+                                            num_processes=1,
+                                            heartbeat_s=0.2, **kw)
+    clean = port_clean[1]
+    prov = got.provenance.numpy()
+    assert [quarantine.PROVENANCE_NAMES[c] for c in prov[list(BAD_LANES)]
+            ] == ["oracle", "oracle"]
+    assert int((prov != 0).sum()) == 2
+    assert bool((got.status == SUCCESS).all())
+    live = np.setdiff1d(np.arange(B), BAD_LANES)
+    np.testing.assert_array_equal(got.y.numpy()[live],
+                                  clean.y.numpy()[live])
+    np.testing.assert_allclose(got.y.numpy()[list(BAD_LANES)],
+                               clean.y.numpy()[list(BAD_LANES)],
+                               rtol=10 * RTOL, atol=1e-12)
+
+
 # ----------------------------------------------------- recovery paths
 def test_resume_survives_a_corrupt_chunk(tmp_path):
     clean = _decay_sweep(tmp_path / "clean")
@@ -292,11 +351,17 @@ def test_deferred_options_name_their_items(tmp_path):
                           str(tmp_path / "r"), chunk_size=2, linsolve="lu",
                           recorder=rec)
     assert rec.by_name()["chunk_solve"]["count"] == 2
-    for kw, item in (({"oracle": object()}, "A16"),
-                     ({"quarantine": {"oracle": True}}, "A16")):
-        with pytest.raises(NotImplementedError, match=item):
-            ck.checkpointed_sweep(_decay_rhs, y0, 0.0, 0.1, cfg,
-                                  str(tmp_path / "d"), chunk_size=4, **kw)
+    # oracle= and the policy's oracle rung landed (ROADMAP A16): armed,
+    # with no failed lane, the sweep equals the quarantine-off sweep
+    plain = ck.checkpointed_sweep(_decay_rhs, y0, 0.0, 0.1, cfg,
+                                  str(tmp_path / "p"), chunk_size=4)
+    for i, kw in enumerate(({"oracle": object(), "quarantine": True},
+                            {"quarantine": {"oracle": True}})):
+        res = ck.checkpointed_sweep(_decay_rhs, y0, 0.0, 0.1, cfg,
+                                    str(tmp_path / f"d{i}"), chunk_size=4,
+                                    **kw)
+        _equal(plain, res)
+        assert not res.provenance.any()
     with pytest.raises(ValueError, match="segmented-path knobs"):
         ck.checkpointed_sweep(_decay_rhs, y0, 0.0, 0.1, cfg,
                               str(tmp_path / "e"), chunk_size=4,

@@ -59,8 +59,13 @@ def test_port_files_found():
             "serving/session.py", "serving/server.py",
             "serving/client.py", "fleet/ring.py", "fleet/membership.py",
             "fleet/replication.py", "fleet/router.py", "tools/serve.py",
-            "tools/serve_bench.py", "tools/serve_fleet.py"} <= names
+            "tools/serve_bench.py", "tools/serve_fleet.py",
+            "native/__init__.py", "native/bindings.py", "tools/obs_gate.py",
+            "tools/obs_trace.py", "tools/obs_slo.py", "tools/obs_fleet.py",
+            "tools/fault_smoke.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
+    assert (ROOT / "batchreactor_tpu_torch" / "native"
+            / "br_native.cpp").is_file()
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(monkeypatch,
@@ -99,10 +104,13 @@ def test_deferred_options_raise_not_implemented(fixtures_dir):
                           device="cpu")
     kw = dict(chem=bt.Chemistry(gaschem=True), thermo_obj=th, md=gm,
               device="cpu")
-    for opt, item in (({"quarantine": {"oracle": True}}, "A16"),):
-        with pytest.raises(NotImplementedError, match=item):
-            bt.batch_reactor_sweep({"H2": 1.0}, 1200.0, 1e5, 1e-6, **kw,
-                                   **opt)
+    # what the eleventh slice ported runs: the quarantine's oracle rung
+    # (no lane fails here, so it is armed and never asked)
+    out = bt.batch_reactor_sweep({"H2": 0.3, "O2": 0.2, "N2": 0.5}, 1200.0,
+                                 1e5, 1e-7, **kw,
+                                 quarantine={"oracle": True})
+    assert out["report"]["counts"] == {"success": 1}
+    assert out["report"]["quarantine"] == {}
     # what the ninth slice ported runs: telemetry, the timeline and the
     # live endpoint (an ephemeral port)
     for opt in ({"telemetry": True}, {"telemetry": True, "timeline": 8},
@@ -160,6 +168,95 @@ def test_no_deferral_table_names_a15():
         text = path.read_text()
         assert '"A15")' not in text, path
     assert sweep._DEFERRED == ()
+
+
+def test_no_deferral_table_names_a16():
+    """Every option of ROADMAP A16 landed: no deferral table of the port
+    names it, and the one table left (the streaming driver's) is empty:
+    ``check_deferred`` is called nowhere else."""
+    from batchreactor_tpu_torch.parallel import sweep
+
+    callers = set()
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert '"A16")' not in text, path
+        if "check_deferred(" in text:
+            callers.add(path.relative_to(ROOT / "batchreactor_tpu_torch")
+                        .as_posix())
+    assert callers == {"solver/common.py", "parallel/sweep.py"}
+    assert sweep._DEFERRED == ()
+
+
+def _exported(path):
+    """The public names a package ``__init__`` binds: its relative
+    imports, its module-level assignments, ``__version__`` and the entries
+    of ``__all__`` (a starred tuple of the module expanded)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names, seqs = set(), {}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level:
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name):
+                    names.add(target.id)
+                    if isinstance(node.value, (ast.Tuple, ast.List)):
+                        seqs[target.id] = node.value.elts
+    for elt in seqs.get("__all__", ()):
+        if isinstance(elt, ast.Starred):
+            names |= {e.value for e in seqs[elt.value.id]}
+        else:
+            names.add(elt.value)
+    return {n for n in names if not n.startswith("_")
+            or n == "__version__"}
+
+
+#: what the port leaves out of the JAX package's namespaces on purpose:
+#: the AOT registry (ROADMAP "Not ported, with reason") and the static
+#: analysis package (ROADMAP A17)
+C10_EXCEPTIONS = {
+    "aot": {"WarmupResult", "bundle_shape_signature", "cache_stats",
+            "configure_cache", "enforce_capacity", "load_manifest",
+            "manifest_path", "mechanism_fingerprint", "merge_manifests",
+            "pin_keys", "program_key", "reset_persistent_cache",
+            "spec_keys", "touch_keys", "warmup"},
+}
+C10_MISSING_PACKAGES = {"analysis"}
+
+
+def test_c10_every_init_exports_the_jax_names():
+    """ROADMAP C10: each package ``__init__`` of the port binds every
+    public name of the JAX package's (compared by AST), except the
+    deliberate omissions above; and the names import."""
+    jax_root = ROOT / "batchreactor_tpu"
+    missing_pkgs = set()
+    for init in sorted(jax_root.rglob("__init__.py")):
+        rel = init.parent.relative_to(jax_root).as_posix()
+        port = ROOT / "batchreactor_tpu_torch" / rel / "__init__.py"
+        if not port.exists():
+            missing_pkgs.add(rel)
+            continue
+        lacking = _exported(init) - _exported(port)
+        assert lacking == C10_EXCEPTIONS.get(rel, set()), (rel, lacking)
+    assert missing_pkgs == C10_MISSING_PACKAGES
+    import importlib
+
+    for rel, names in (("aot", ("POW2", "bucket_ladder",
+                                "normalize_buckets", "resolve_bucket")),
+                       ("io", ("InputData", "input_data",
+                               "parse_composition_text", "write_profiles")),
+                       ("parallel", ("pad_to_bucket", "resolve_admission")),
+                       ("obs", ("trace", "slo", "stitch", "RequestTrace",
+                                "STAGES", "TRACE_VERSION",
+                                "DEFAULT_OBJECTIVES", "Objective",
+                                "SloMonitor", "evaluate_traces",
+                                "load_fleet", "merge_reports",
+                                "render_fleet", "stitch_traces"))):
+        mod = importlib.import_module(f"batchreactor_tpu_torch.{rel}")
+        for name in names:
+            assert getattr(mod, name) is not None, (rel, name)
+    assert bt.obs.stitch_traces is bt.obs.stitch.stitch
+    assert bt.__version__ == "0.1.0" and "obs" in bt.__all__
 
 
 #: the modules that must stay importable without a device stack: the

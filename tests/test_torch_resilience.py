@@ -291,12 +291,167 @@ def test_api_validates_resilience_knobs_as_jax(h2o2):
                                    chem=bt.Chemistry(gaschem=True),
                                    thermo_obj=th_t, md=gm_t, device="cpu",
                                    **kw)
-    # the oracle rung waits for A16
-    with pytest.raises(NotImplementedError, match="A16"):
+    # the oracle rung runs (ROADMAP A16): armed, with no failed lane to
+    # hand it, the sweep is the quarantine-off sweep
+    out = bt.batch_reactor_sweep(H2O2_X, [1200.0], 1e5, 1e-5,
+                                 chem=bt.Chemistry(gaschem=True),
+                                 thermo_obj=th_t, md=gm_t, device="cpu",
+                                 quarantine={"oracle": True})
+    assert out["report"]["counts"] == {"success": 1}
+    assert out["provenance"].tolist() == [0]
+
+
+def test_api_oracle_is_isothermal_only_as_jax(h2o2):
+    """The native BDF runtime is isothermal: an energy sweep with the
+    oracle rung raises the JAX package's error."""
+    gm_j, th_j, gm_t, th_t = h2o2
+    q = {"quarantine": {"oracle": True}, "energy": "adiabatic_v"}
+    with pytest.raises(ValueError, match="isothermal-only"):
+        br.batch_reactor_sweep(H2O2_X, [1200.0], 1e5, 1e-5,
+                               chem=br.Chemistry(gaschem=True),
+                               thermo_obj=th_j, md=gm_j, **q)
+    with pytest.raises(ValueError, match="isothermal-only"):
         bt.batch_reactor_sweep(H2O2_X, [1200.0], 1e5, 1e-5,
                                chem=bt.Chemistry(gaschem=True),
-                               thermo_obj=th_t, md=gm_t, device="cpu",
-                               quarantine={"oracle": True})
+                               thermo_obj=th_t, md=gm_t, device="cpu", **q)
+
+
+# ------------------------------------------------- the oracle rung
+ORACLE_T = np.linspace(1100.0, 1400.0, 4)
+ORACLE_BAD = (1, 2)
+ORACLE_T1 = 1e-4
+
+
+def _poison_t(res, T, bad_T, pkg):
+    """``res`` with the lanes whose temperature is in ``bad_T`` failed as
+    a NaN blowup (y NaN, status DT_UNDERFLOW), in ``pkg``'s arrays."""
+    import dataclasses
+
+    hit = np.isin(np.asarray(T), list(bad_T))
+    if pkg == "torch":
+        from batchreactor_tpu_torch.solver.common import DT_UNDERFLOW
+
+        m = torch.as_tensor(hit)
+        return dataclasses.replace(
+            res, y=torch.where(m[:, None], float("nan"), res.y),
+            status=torch.where(m, DT_UNDERFLOW, res.status))
+    import jax.numpy as jnp
+
+    from batchreactor_tpu.solver.sdirk import DT_UNDERFLOW as DT_J
+
+    m = jnp.asarray(hit)
+    return dataclasses.replace(
+        res, y=jnp.where(m[:, None], jnp.nan, res.y),
+        status=jnp.where(m, DT_J, res.status))
+
+
+def _oracle_case(h2o2, pkg):
+    """The quarantine ladder over 4 h2o2 lanes, lanes ORACLE_BAD failed
+    on every device pass, with the package's ``native_oracle``: (result,
+    provenance, the passes asked)."""
+    import jax.numpy as jnp
+
+    from batchreactor_tpu.ops.rhs import make_gas_jac as jac_j
+    from batchreactor_tpu.ops.rhs import make_gas_rhs as rhs_j
+    from batchreactor_tpu.parallel import ensemble_solve as solve_j
+    from batchreactor_tpu.parallel import sweep_solution_vectors as svv_j
+    from batchreactor_tpu.resilience import quarantine as quarantine_j
+    from batchreactor_tpu_torch.ops.rhs import make_gas_jac, make_gas_rhs
+    from batchreactor_tpu_torch.parallel import ensemble_solve
+    from batchreactor_tpu_torch.resilience import quarantine as qr
+
+    gm_j, th_j, gm_t, th_t = h2o2
+    sp = list(gm_t.species)
+    X = np.zeros((len(ORACLE_T), len(sp)))
+    for k, v in H2O2_X.items():
+        X[:, sp.index(k)] = v
+    bad_T = {float(ORACLE_T[i]) for i in ORACLE_BAD}
+    passes = []
+    if pkg == "torch":
+        T = torch.tensor(ORACLE_T)
+        y0 = bt.get_solution_vector(X, th_t.molwt, T, 1e5)
+        rhs, jac = make_gas_rhs(gm_t, th_t), make_gas_jac(gm_t, th_t)
+
+        def solve(y, c, rtol=1e-6, atol=1e-10, max_steps=200_000):
+            return ensemble_solve(rhs, y, 0.0, ORACLE_T1, c, jac=jac,
+                                  linsolve="lu", rtol=rtol, atol=atol,
+                                  max_steps=max_steps)
+        mod, cfg = qr, {"T": T}
+        take_T = lambda c: c["T"].numpy()  # noqa: E731
+    else:
+        T = jnp.asarray(ORACLE_T)
+        y0 = svv_j(jnp.asarray(X), th_j.molwt, T, 1e5)
+        rhs, jac = rhs_j(gm_j, th_j), jac_j(gm_j, th_j)
+
+        def solve(y, c, rtol=1e-6, atol=1e-10, max_steps=200_000):
+            return solve_j(rhs, y, 0.0, ORACLE_T1, c, jac=jac,
+                           linsolve="lu", rtol=rtol, atol=atol,
+                           max_steps=max_steps)
+        mod, cfg = quarantine_j, {"T": T}
+        take_T = lambda c: np.asarray(c["T"])  # noqa: E731
+    pol = (QuarantinePolicy if pkg == "torch"
+           else policy_j.QuarantinePolicy)(oracle=True)
+
+    def subset(y, c, pass_name):
+        passes.append((pass_name, int(y.shape[0])))
+        kw = ({} if pass_name == "retry" else
+              {"rtol": 1e-6 * pol.rtol_factor, "atol": 1e-10 * pol.atol_factor,
+               "max_steps": int(200_000 * pol.max_steps_factor)})
+        return _poison_t(solve(y, c, **kw), take_T(c), bad_T, pkg)
+
+    res0 = _poison_t(solve(y0, cfg), ORACLE_T, bad_T, pkg)
+    oracle = mod.native_oracle(rhs, 0.0, ORACLE_T1, rtol=1e-6, atol=1e-10)
+    res, prov = mod.resolve(res0, y0, cfg, subset, policy=pol,
+                            oracle=oracle)
+    return res, np.asarray(prov), passes
+
+
+def test_resolve_oracle_rung_matches_jax(h2o2):
+    """Lanes that fail every device pass reach the oracle in both
+    packages: the same passes asked, the same provenance, every lane
+    successful, the oracle lanes' state at the rtol scale of the JAX
+    package's and their native step counts equal."""
+    from batchreactor_tpu_torch.resilience import quarantine as qr
+
+    res_t, prov_t, passes_t = _oracle_case(h2o2, "torch")
+    res_j, prov_j, passes_j = _oracle_case(h2o2, "jax")
+    assert passes_t == passes_j == [("retry", 4), ("fallback", 2)]
+    np.testing.assert_array_equal(prov_t, prov_j)
+    assert [qr.PROVENANCE_NAMES[c] for c in prov_t] == [
+        "primary", "oracle", "oracle", "primary"]
+    assert bool((res_t.status == SUCCESS).all())
+    bad = list(ORACLE_BAD)
+    np.testing.assert_allclose(res_t.y.numpy()[bad],
+                               np.asarray(res_j.y)[bad], rtol=1e-9,
+                               atol=1e-15)
+    np.testing.assert_array_equal(res_t.n_accepted.numpy()[bad],
+                                  np.asarray(res_j.n_accepted)[bad])
+    np.testing.assert_array_equal(res_t.t.numpy(), np.asarray(res_j.t))
+
+
+def test_native_oracle_raises_where_jax_warns(h2o2, tmp_path, monkeypatch):
+    """The port differs from the JAX package on purpose (ROADMAP A16): a
+    runtime that cannot build raises ``NativeUnavailable`` (the JAX
+    package warns and skips the rung), and an exception inside a lane's
+    solve propagates (the JAX package reads it as "no answer")."""
+    from batchreactor_tpu_torch.native import NativeUnavailable, bindings
+    from batchreactor_tpu_torch.resilience import quarantine as qr
+
+    y0 = torch.tensor([1.0, 0.5], dtype=torch.float64)
+
+    def broken(t, y, cfg):
+        raise ArithmeticError("lane blew up")
+
+    oracle = qr.native_oracle(broken, 0.0, 1.0)
+    with pytest.raises(ArithmeticError, match="lane blew up"):
+        oracle(y0, {"k": torch.tensor(1.0, dtype=torch.float64)})
+    bad = tmp_path / "br_native.cpp"
+    bad.write_text("not C++\n")
+    monkeypatch.setattr(bindings, "_lib", None)
+    monkeypatch.setattr(bindings, "_SRC", str(bad))
+    monkeypatch.setattr(bindings, "_BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(NativeUnavailable):
+        qr.native_oracle(_decay_rhs, 0.0, 1.0)
 
 
 def test_api_quarantine_fallback_matches_jax(h2o2):

@@ -28,6 +28,12 @@ torch.set_num_threads(1)
 PKGS = {"jax": (j_trace, j_slo, j_stitch, JRecorder, j_build_report),
         "torch": (t_trace, t_slo, t_stitch, TRecorder, t_build_report)}
 
+#: the one ``perf_counter`` base of the scripted fleet's member traces in
+#: both packages: an offset such as ``(t + 0.01) - t`` rounds by the size
+#: of ``t``, so reports built at two clock readings would carry histogram
+#: sums that differ in the last bits
+CLOCK_BASE = 1000.0
+
 
 def _scripted_trace(T, rid="r1", ctx=None, stall=False):
     """A trace with every mark at a scripted offset (the injected clock)."""
@@ -149,10 +155,15 @@ def _fleet_reports(pkg, skew_s=0.0):
                      {"member": "m1", "hop": 1, "send_wall": t0 + 1.0,
                       "recv_wall": t0 + 1.05, "outcome": "ok"}])
 
+    def pinned(rid):
+        tr = T.RequestTrace(rid, lanes=1)
+        tr.marks["submitted"] = CLOCK_BASE
+        return tr
+
     def member(rid, tid, hop, wall, total, parent):
         rec = Rec()
         rec.counter("serve_answered", 1)
-        tr = T.RequestTrace(rid, lanes=1)
+        tr = pinned(rid)
         tr.adopt(tid, parent_span=parent, hop=hop)
         t_sub = tr.at("submitted")
         tr.mark("coalesced", at=t_sub + 0.01)
@@ -168,7 +179,7 @@ def _fleet_reports(pkg, skew_s=0.0):
         return rec
 
     m2 = member("fo", "t-fo", 2, t0 + 0.08 + skew_s, 0.2, "route:2")
-    lone = T.RequestTrace("lone", lanes=1)
+    lone = pinned("lone")
     lone.mark("resolved", at=lone.at("submitted") + 0.4)
     lone_attrs = lone.to_attrs()
     lone_attrs["wall_start"] = round(t0 + 2.0, 6)
