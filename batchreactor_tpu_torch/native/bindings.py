@@ -54,7 +54,7 @@ def library_path():
     return os.path.join(_BUILD_DIR, f"libbr_native-{h.hexdigest()[:12]}.so")
 
 
-def _build(so):
+def _build_locked(so):
     """g++ into a temporary name, then rename: the hash-named target is
     trusted by existence alone, so a partial file from an interrupted
     build must never land there."""
@@ -187,7 +187,7 @@ def load_library():
             return _lib
         so = library_path()
         if not os.path.exists(so):
-            _build(so)
+            _build_locked(so)
         try:
             lib = ctypes.CDLL(so)
         except OSError as e:

@@ -234,8 +234,13 @@ def _hash_callable(h, fn, depth=0):
             pass
 
 
-#: knobs that change a chunk's schema: they pin the resume fingerprint
-SCHEMA_KNOBS = ("energy",)
+#: knobs that change a chunk's schema (the keys or shapes a chunk npz
+#: stores): they pin the resume fingerprint.  ``stats`` adds the
+#: ``stat_*`` counters, a non-None ``timeline`` their ``stat_timeline_*``
+#: rings, a non-None ``energy`` the trailing T column.  The tier-C
+#: fingerprint audit (``analysis/contracts.py``) checks that none of them
+#: is exempted below and that toggling each moves the hash.
+SCHEMA_KNOBS = ("stats", "timeline", "energy")
 
 #: segmented-gear, watchdog and admission knobs: results-neutral, so a
 #: resume under another value serves the same chunks

@@ -125,8 +125,9 @@ _STREAM_LOCK = threading.Lock()
 
 def reset_stream_counts():
     """Set every streaming counter to 0."""
-    for k in STREAM_COUNTS:
-        STREAM_COUNTS[k] = 0
+    with _STREAM_LOCK:
+        for k in STREAM_COUNTS:
+            STREAM_COUNTS[k] = 0
 
 
 def resolve_pipeline_defaults(pipeline=None, poll_every=None):
@@ -1669,7 +1670,8 @@ class _TrajectoryDrainer:
                     self._stream.wait_event(event)
                     self._drain(seg, snap)
             except BaseException as e:  # noqa: BLE001 — re-raised by close
-                self._exc = e
+                with self._lock:
+                    self._exc = e
 
     def _host(self, *tensors):
         """Copies to the host; on the drain stream, then waited for."""
@@ -1698,9 +1700,11 @@ class _TrajectoryDrainer:
             b_idx = np.searchsorted(cum, pos, side="right")
             c_idx = pos - (cum - take)[b_idx]
             dst = self.saved[b_idx] + c_idx
-            self.all_ts[b_idx, dst] = ts_np
-            self.all_ys[b_idx, dst] = ys_np
-        self.saved += take
+            # all_ts, all_ys and saved belong to the worker until close()
+            # joins it; the sweep's thread reads them only after that
+            self.all_ts[b_idx, dst] = ts_np  # brlint: disable=unguarded-shared-mutation
+            self.all_ys[b_idx, dst] = ys_np  # brlint: disable=unguarded-shared-mutation
+        self.saved += take  # brlint: disable=unguarded-shared-mutation
         with self._lock:
             self._drained[seg] = ts_np
             self._done_upto = seg

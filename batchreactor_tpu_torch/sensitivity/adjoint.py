@@ -67,7 +67,9 @@ def _stage_newton(fns, base, t_s, hg, theta, cfg, max_iter=12):
         dn = torch.sqrt(torch.mean(torch.square(dz / scale), dim=-1))
         z = torch.where(done[:, None], z, z + dz)
         done = done | (dn < 1e-3) | ~torch.isfinite(dn)
-        if bool(done.all()):
+        # the adjoint runs eagerly and is never captured: its Newton loop
+        # may stop on the host
+        if bool(done.all()):  # brlint: disable=host-sync-call
             break
     return z
 
@@ -141,7 +143,9 @@ def _fixed_grid_solve(fns, y0, t_prev, t_next, theta_flat, cfg, segments):
     def segment(y, theta_flat, tps, tns):
         ys = []
         for k in range(L):
-            if bool((tns[:, k] > tps[:, k]).any()):
+            # eager (never captured): a grid slot no lane reaches is
+            # skipped on the host
+            if bool((tns[:, k] > tps[:, k]).any()):  # brlint: disable=host-sync-call
                 y = _sdirk_step(fns, y, tps[:, k], tns[:, k], theta_flat,
                                 cfg)
             ys.append(y)

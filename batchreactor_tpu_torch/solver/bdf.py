@@ -412,7 +412,9 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         div = ~live
         for it in range(max_newton):
             active = ~conv & ~div
-            if not fixed and not host_any(active):
+            # the blocking gear's early exit (fixed=False); a captured
+            # window passes fixed=True and never evaluates host_any
+            if not fixed and not host_any(active):  # brlint: disable=host-sync-call
                 break
             count("newton_iters")
             if stats:
@@ -710,7 +712,8 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         nf = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(jac_window):
             active = ~nf & (c["status"] == RUNNING)
-            if not fixed and not host_any(active):
+            # the blocking gear's early exit; fixed=True never reaches it
+            if not fixed and not host_any(active):  # brlint: disable=host-sync-call
                 break
             stale = None if reuse is None else (reuse | (i > 0))
             c2, nf2 = step_once(c, k, J, pre, stale_pre=stale, fixed=fixed)

@@ -58,11 +58,30 @@ COUNTS = {"replays": 0, "host_syncs": 0, "newton_iters": 0}
 RECORDER_NAMES = {"host_syncs": "blocking_syncs", "replays": "graph_replays",
                   "newton_iters": "newton_iters_executed"}
 
+# guards COUNTS and CAPTURES: the mesh's host threads replay and count at
+# the same time
+_COUNTS_LOCK = threading.Lock()
 # the tally of the graph being captured (None outside a capture): counts
 # made by the captured code, replayed with the graph
 _tally = threading.local()
 # the recorder of this thread's run (None: off)
 _sink = threading.local()
+# whether this thread captures its graphs in debug mode
+_debug = threading.local()
+
+
+@contextlib.contextmanager
+def debug_capture():
+    """Capture this thread's graphs in debug mode, keeping each graph
+    beside its executable, for the block, so :meth:`Program.captured`'s
+    graph can write itself as a DOT file (``debug_dump``): the contract
+    engine reads the kernel nodes."""
+    prev = getattr(_debug, "value", False)
+    _debug.value = True
+    try:
+        yield
+    finally:
+        _debug.value = prev
 
 
 @contextlib.contextmanager
@@ -80,7 +99,8 @@ def recording(recorder):
 def add_count(name, k=1):
     """Add ``k`` to :data:`COUNTS` ``[name]`` (and to the recording
     recorder, if any)."""
-    COUNTS[name] += k
+    with _COUNTS_LOCK:
+        COUNTS[name] += k
     rec = getattr(_sink, "value", None)
     if rec is not None:
         rec.counter(RECORDER_NAMES[name], k)
@@ -88,9 +108,10 @@ def add_count(name, k=1):
 
 def reset_counts():
     """Set every counter of this module to 0."""
-    CAPTURES.clear()
-    for k in COUNTS:
-        COUNTS[k] = 0
+    with _COUNTS_LOCK:
+        CAPTURES.clear()
+        for k in COUNTS:
+            COUNTS[k] = 0
 
 
 def captures():
@@ -282,6 +303,13 @@ class Program:
 
             linalg_cuda.add_launches(launches)
 
+    def captured(self, name):
+        """``(graph, tally, lu32p launches by path)`` of step ``name``'s
+        capture, or None (not captured: on the CPU, or not run yet)."""
+        if name not in self._graphs:
+            return None
+        return (self._graphs[name],) + self._tallies[name]
+
     def _capture(self, name):
         """Warm the step up once on a side stream (its output discarded:
         the state does not change), allocate the buffers of entries it
@@ -301,9 +329,16 @@ class Program:
             if key not in self.state:
                 self.state[key] = tree_map(torch.empty_like, val)
         del warm
-        graph = torch.cuda.CUDAGraph()
+        if getattr(_debug, "value", False):
+            # keep the cudaGraph_t beside its executable (instantiated at
+            # the first replay), so debug_dump can print it
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            graph.enable_debug_mode()
+        else:
+            graph = torch.cuda.CUDAGraph()
         tally = {}
-        linalg_cuda.CAPTURED_BY_PATH.update(warp=0, cta=0)
+        captured = linalg_cuda.captured_by_path()
+        captured.update(warp=0, cta=0)
         _tally.value = tally
         try:
             with torch.cuda.graph(graph, pool=self._pool,
@@ -316,11 +351,11 @@ class Program:
             _tally.value = None
         if self._pool is None:
             self._pool = graph.pool()
-        launches = {k: v for k, v in linalg_cuda.CAPTURED_BY_PATH.items()
-                    if v}
+        launches = {k: v for k, v in captured.items() if v}
         self._tallies[name] = (tally, launches)
         self._graphs[name] = graph
-        CAPTURES[name] = CAPTURES.get(name, 0) + 1
+        with _COUNTS_LOCK:
+            CAPTURES[name] = CAPTURES.get(name, 0) + 1
         notify_watches("compile", step=name,
                        seconds=time.perf_counter() - t0)
         return graph

@@ -19,6 +19,10 @@ npad) float32 with unit-lower L in place, piv (B, npad) int32 LAPACK-style
 
 * :func:`lu32p_factor` takes the plain version only for a tensor on the
   CPU; for a CUDA tensor it launches one of the two kernels or raises.
+  Both run as the operator ``brtorch::lu32p_factor`` (a
+  ``torch.library.custom_op``: the plain version is its CPU kernel, the
+  launch its CUDA kernel), so the kernel has a name in an op log, in
+  ``torch.profiler`` and in a captured graph.
 * :func:`lu32p_factor_plain` follows the Pallas algorithm step by step
   (8-wide panels, masked argmax, delayed swaps, unit-lower TRSM for the U12
   strip, trailing float32 matmul).  The CPU tests hold it against the JAX
@@ -66,10 +70,11 @@ PANEL_WARP_NPAD_MAX = 128
 LAUNCHES = 0
 #: the same launches by kernel: ``warp`` (npad <= 64) and ``cta``
 LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
-#: launches recorded into the CUDA graph being captured, by path; the
-#: graph adds them to the counts above on every replay
-#: (``solver/graphs.py``), so a count is a launch the card ran
-CAPTURED_BY_PATH = {"warp": 0, "cta": 0}
+# launches recorded into the CUDA graph this thread is capturing, by path
+# (per thread: the mesh's host threads capture at the same time); the
+# graph adds them to the counts above on every replay
+# (``solver/graphs.py``), so a count is a launch the card ran
+_captured = threading.local()
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -82,10 +87,21 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 #: what the last build printed (``-Xptxas -v``: registers, shared memory)
 #: and how long it took, for ``chip_smoke.py``
 BUILD_INFO = {}
+
+
+def captured_by_path():
+    """This thread's capture tally, ``{"warp": n, "cta": n}``: the
+    launches recorded into the graph being captured (``graphs.Program``
+    sets it to 0 before a capture and reads it after)."""
+    tally = getattr(_captured, "value", None)
+    if tally is None:
+        tally = _captured.value = {"warp": 0, "cta": 0}
+    return tally
 
 
 def padded_n(n):
@@ -131,7 +147,8 @@ def launch_config(batch, npad):
 
 
 def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    # the build runs at the library's first load, outside any step
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"  # brlint: disable=env-read-in-trace
     cand = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand
@@ -271,15 +288,30 @@ def lu32p_factor(A):
 
     A CPU tensor goes through :func:`lu32p_factor_plain`; a CUDA tensor
     (float64, the Newton matrix's dtype) launches the Hopper kernel or
-    raises."""
+    raises.  Both go through the operator ``brtorch::lu32p_factor``
+    (:data:`OP`), so an op log, ``torch.profiler`` and a captured graph
+    name the kernel on either device (the contract ``bdf-step-lu32p``)."""
     if A.ndim != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"lu32p_factor needs (B, n, n), got {tuple(A.shape)}")
-    if A.device.type == "cpu":
-        return lu32p_factor_plain(A)
-    if A.device.type != "cuda":
+    if A.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lu32p_factor runs on cpu or cuda, not {A.device}")
-    if A.dtype != torch.float64:
+    if A.device.type == "cuda" and A.dtype != torch.float64:
         raise TypeError(f"the lu32p kernel takes float64, not {A.dtype}")
+    return OP(A)
+
+
+@torch.library.custom_op("brtorch::lu32p_factor", mutates_args=(),
+                         device_types="cpu")
+def OP(A: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operator behind :func:`lu32p_factor` (which validates its
+    input): the plain version on the CPU, the kernel on CUDA."""
+    return lu32p_factor_plain(A)
+
+
+@OP.register_kernel("cuda")
+def _lu32p_launch(A):
+    """Launch the kernel that npad selects on A's current stream; inside a
+    capture, count the launch for the graph's tally instead."""
     B, n = A.shape[0], A.shape[-1]
     npad = padded_n(n)
     cfg = launch_config(B, npad)
@@ -292,7 +324,7 @@ def lu32p_factor(A):
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         if torch.cuda.is_current_stream_capturing():
-            CAPTURED_BY_PATH[cfg["path"]] += 1
+            captured_by_path()[cfg["path"]] += 1
         else:
             add_launches({cfg["path"]: 1})
         err = lib.lu32p_factor(A.data_ptr(), LU.data_ptr(), piv.data_ptr(),
@@ -306,11 +338,13 @@ def lu32p_factor(A):
 
 def add_launches(by_path):
     """Count kernel launches, ``{path: launches}``: one where the wrapper
-    launches, a captured graph's tally where the graph is replayed."""
+    launches, a captured graph's tally where the graph is replayed (the
+    mesh's host threads replay at the same time, hence the lock)."""
     global LAUNCHES
-    for path, k in by_path.items():
-        LAUNCHES += k
-        LAUNCHES_BY_PATH[path] += k
+    with _count_lock:
+        for path, k in by_path.items():
+            LAUNCHES += k
+            LAUNCHES_BY_PATH[path] += k
 
 
 def lu32p_solve(lu_piv, b):

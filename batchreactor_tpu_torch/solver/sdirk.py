@@ -234,7 +234,9 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         hg = (h * _GAMMA)[:, None]
         for it in range(max_newton):
             active = ~conv & ~div
-            if not fixed and not host_any(active):
+            # the blocking gear's early exit (fixed=False); a captured
+            # window passes fixed=True and never evaluates host_any
+            if not fixed and not host_any(active):  # brlint: disable=host-sync-call
                 break
             count("newton_iters")
             if stats:
@@ -370,8 +372,9 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
                 c["status"] == RUNNING)
         for i in range(jac_window):
             c = step_once(c, J, fixed)
+            # the blocking gear's early exit; fixed=True never reaches it
             if (not fixed and i + 1 < jac_window
-                    and not host_any(c["status"] == RUNNING)):
+                    and not host_any(c["status"] == RUNNING)):  # brlint: disable=host-sync-call
                 break
         return c
 

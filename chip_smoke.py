@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --profile-only   # only the breakdown, both gears
     python3 chip_smoke.py --serving-only   # phase 3, then phases 23-24
     python3 chip_smoke.py --native-only    # phases 3 and 5, then phase 25
+    python3 chip_smoke.py --analysis-only  # phase 26 alone
 
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
@@ -41,7 +42,8 @@ paths through its own entry points:
   (``species_buckets``/``reaction_buckets``: the kernel's CTA path, npad
   96) against phase 3's delays (phase 15);
 - forward sensitivities, ``ensemble_solve_forward`` on 640 lanes of
-  phase 3's temperature range over ln A of the 18 ``*CH4*`` reactions
+  phase 3's temperature range to T1 / 2 over ln A of the 18 ``*CH4*``
+  reactions
   (every tangent solve through the warp kernel's factor) against a
   plain twin and a float64 ``lu`` run, with the peak device memory
   (phase 16);
@@ -110,19 +112,28 @@ paths through its own entry points:
   equal to phase 20 (a) to the bit; then one chunk whose two lanes fail
   every device pass (``lu32p``), answered by the quarantine's oracle rung
   (``native_oracle`` over the sweep's RHS on the card) within 1e-3 of
-  phase 3; and ``tools/fault_smoke.py`` on the card in a child process.
+  phase 3; and ``tools/fault_smoke.py`` on the card in a child process;
+- static analysis (phase 26, ``chip_smoke.py --analysis-only`` in a
+  child process started beside phase 17 and joined in its slot):
+  ``tools/brlint.py``'s tier A and concurrency lint over the checkout
+  (clean), the contract tier on ``cuda`` (every registered step program
+  captured on the h2o2 fixture at B = 8, every obligation held on the
+  captured graphs, ``bdf-step-lu32p``'s graph containing the ``lu32p``
+  kernel), and the ``lu32p`` window's replay against the same steps run
+  eagerly with the plain version.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a CUDA graph adds its captured launches on every replay.
-The child processes of phases 20-21 (``chip_smoke.py --child ARGS``) do
-the same in their own process and report their counts.
+The child processes of phases 20-21 (``chip_smoke.py --child ARGS``) and
+26 (``--analysis-only``) do the same in their own process and report
+their counts.
 ``--profile`` adds a phase that runs the gas main path once more in each
 gear under ``torch.profiler`` and prints where its time goes (per layer
 and per kernel); ``--profile-only`` runs only that,
 ``--telemetry-only`` only phase 3's sweep and phase 22,
-``--serving-only`` only phase 3's sweep and phases 23-24, and
-``--native-only`` only phase 3's sweep, phase 5 and phase 25 (these four
-print no contract line).  Each phase prints one JSON line; any failure
+``--serving-only`` only phase 3's sweep and phases 23-24,
+``--native-only`` only phase 3's sweep, phase 5 and phase 25, and
+``--analysis-only`` only phase 26 (these five print no contract line).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
@@ -215,6 +226,8 @@ CLIMB_LANES, CLIMB_RESIDENT, CLIMB_CEILING = 1024, 256, 1024
 # path's range, cut from 1024 to keep the script under 1000 s;
 # B * n stays above the lu32p gate (640 x 53 >= 32768)
 B_SENS = 640
+# ... over T1 / 2 (cut from T1 to keep the script under 1000 s)
+T1_SENS = T1 / 2
 # the checkpointed main path (phases 20-21): chunks of 256 lanes; the hung
 # wait of phase 20 (d) is held HANG_S s against a DEADLINE_S s deadline
 CKPT_CHUNK = 256
@@ -228,10 +241,10 @@ ORACLE_CHUNK, ORACLE_LANES = 1, (40, 200)
 # the adjoint ranking (phase 17): every 128th main-path temperature (8
 # lanes; the Python loop of stage solves, not the lanes, sets its wall);
 # the forward-against-adjoint check runs every 16th of the 64 coolest
-# temperatures to T1_SENS_CROSS, before they ignite (T1 / 8: cut from
-# T1 / 4 to keep the script under 1000 s)
+# temperatures to T1_SENS_CROSS, before they ignite (T1 / 16: cut from
+# T1 / 4 and T1 / 8 to keep the script under 1000 s)
 SENS_LANES = 8
-T1_SENS_CROSS = T1 / 8
+T1_SENS_CROSS = T1 / 16
 # lane 0 of phase 17 (1500 K) in the JAX package's reference configuration
 # on the CPU (python scripts/sens_reference.py): d ln tau / d ln A_i of the
 # CH4 half-crossing delay (tau 5.692e-4 s) for the 325 GRI-3.0 reactions in
@@ -421,58 +434,61 @@ def embedded(A9, n):
     return A
 
 
-def check_kernel(device, batches=(1, 1024, 4096),
-                 sizes=(1, 9, 13, 53, 64, 65, 66, 120, 176, 240)):
+def check_kernel(device, batches=(1, 1024),
+                 sizes=(1, 9, 13, 53, 64, 65, 66, 120, 176, 240),
+                 extra=((4096, 9), (4096, 53))):
     """Phase 2: both paths of the lu32p kernel against its plain version on
     the card, and the contract cases on both paths (at n = 70 for the CTA
-    path)."""
+    path).  ``extra`` holds B = 4096 at the sizes the driven paths factor
+    there (n = 9: phase 9's UDF path on h2o2; n = 53: phase 19's 4096-lane
+    GRI-3.0 reference sweep, also the ``main_b4096`` timing case); the
+    other sizes at B = 4096 were cut to keep the script under 1000 s."""
     import torch
 
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
     gen = torch.Generator().manual_seed(0)
     cases = []
-    for B in batches:
-        for n in sizes:
-            tol = 64 * n * EPS32
-            path = lc.launch_config(B, lc.padded_n(n))["path"]
-            # well-separated pivots: pivots equal, LU equal to roundoff
-            A = separated(B, n, gen, device)
-            LU_k, piv_k = lc.lu32p_factor(A)
-            LU_p, piv_p = lc.lu32p_factor_plain(A)
-            torch.cuda.synchronize()
-            piv_ok = bool(torch.equal(piv_k, piv_p))
-            scale = LU_p.abs().amax(dim=(1, 2), keepdim=True)
-            lu_err = float(((LU_k - LU_p).abs() / scale).max())
-            del A, LU_k, LU_p
-            # general random matrices: componentwise backward error and
-            # |L| <= 1 on every lane, solve error against cond(A) eps on the
-            # first 1024 (cond takes an SVD per lane)
-            G = torch.randn((B, n, n), generator=gen,
-                            dtype=torch.float64).to(device)
-            b = torch.randn((B, n), generator=gen,
-                            dtype=torch.float64).to(device)
-            fac = lc.lu32p_factor(G)
-            bwd, l_max = (float(v.max()) for v in
-                          lc.lu32p_backward_error(G, *fac))
-            m = min(B, 1024)
-            x = lc.lu32p_solve((fac[0][:m], fac[1][:m]), b[:m]).double()
-            x_ref = torch.linalg.solve(G[:m], b[:m])
-            rel = ((x - x_ref).abs().amax(dim=1)
-                   / x_ref.abs().amax(dim=1))
-            cond = torch.linalg.cond(G[:m])
-            solve_ok = bool(torch.all(rel <= 4 * n * cond * EPS32))
-            del G, fac
-            ok = (piv_ok and lu_err <= tol and bwd <= tol and l_max <= 1.0
-                  and solve_ok)
-            cases.append({"B": B, "n": n, "path": path, "piv_equal": piv_ok,
-                          "lu_rel_err": lu_err, "backward_err": bwd,
-                          "max_abs_L": l_max, "tol": tol,
-                          "solve_ok": solve_ok,
-                          "solve_lanes": m})
-            if not ok:
-                emit({"phase": "kernel", "failed": cases[-1]})
-                raise AssertionError(f"lu32p kernel disagrees: {cases[-1]}")
+    for B, n in [(B, n) for B in batches for n in sizes] + list(extra):
+        tol = 64 * n * EPS32
+        path = lc.launch_config(B, lc.padded_n(n))["path"]
+        # well-separated pivots: pivots equal, LU equal to roundoff
+        A = separated(B, n, gen, device)
+        LU_k, piv_k = lc.lu32p_factor(A)
+        LU_p, piv_p = lc.lu32p_factor_plain(A)
+        torch.cuda.synchronize()
+        piv_ok = bool(torch.equal(piv_k, piv_p))
+        scale = LU_p.abs().amax(dim=(1, 2), keepdim=True)
+        lu_err = float(((LU_k - LU_p).abs() / scale).max())
+        del A, LU_k, LU_p
+        # general random matrices: componentwise backward error and
+        # |L| <= 1 on every lane, solve error against cond(A) eps on the
+        # first 1024 (cond takes an SVD per lane)
+        G = torch.randn((B, n, n), generator=gen,
+                        dtype=torch.float64).to(device)
+        b = torch.randn((B, n), generator=gen,
+                        dtype=torch.float64).to(device)
+        fac = lc.lu32p_factor(G)
+        bwd, l_max = (float(v.max()) for v in
+                      lc.lu32p_backward_error(G, *fac))
+        m = min(B, 1024)
+        x = lc.lu32p_solve((fac[0][:m], fac[1][:m]), b[:m]).double()
+        x_ref = torch.linalg.solve(G[:m], b[:m])
+        rel = ((x - x_ref).abs().amax(dim=1)
+               / x_ref.abs().amax(dim=1))
+        cond = torch.linalg.cond(G[:m])
+        solve_ok = bool(torch.all(rel <= 4 * n * cond * EPS32))
+        del G, fac
+        ok = (piv_ok and lu_err <= tol and bwd <= tol and l_max <= 1.0
+              and solve_ok)
+        cases.append({"B": B, "n": n, "path": path, "piv_equal": piv_ok,
+                      "lu_rel_err": lu_err, "backward_err": bwd,
+                      "max_abs_L": l_max, "tol": tol,
+                      "solve_ok": solve_ok,
+                      "solve_lanes": m})
+        if not ok:
+            emit({"phase": "kernel", "failed": cases[-1]})
+            raise AssertionError(f"lu32p kernel disagrees: {cases[-1]}")
     # contract cases
     Z = torch.tensor([[[0.0, 1.0, 0.0], [2.0, 0.0, 1.0], [0.0, 3.0, 1.0]]],
                      dtype=torch.float64, device=device)
@@ -1186,7 +1202,7 @@ def max_rel_to_lane(a, ref):
 
 def phase_sens_forward(gm, th, device, smi, by_phase):
     """Phase 16: ``ensemble_solve_forward`` on B_SENS of phase 3's
-    temperatures (its range at a smaller depth) with
+    temperatures (its range at a smaller depth) to T1_SENS with
     theta = ln A of the 18 reactions matching ``*CH4*`` (P = 18),
     ``jac_window=1``, ``auto`` -> ``lu32p`` (warp path, npad 56): every
     lane successful, the steps and final states of a plain
@@ -1209,7 +1225,7 @@ def phase_sens_forward(gm, th, device, smi, by_phase):
 
     def fwd(n_lanes=B_SENS, **kw):
         return ensemble_solve_forward(
-            rt, y0s[:n_lanes], 0.0, T1, theta,
+            rt, y0s[:n_lanes], 0.0, T1_SENS, theta,
             {k: v[:n_lanes] for k, v in cfg.items()}, rtol=RTOL, atol=ATOL,
             jac=jac, **kw)
 
@@ -1220,7 +1236,7 @@ def phase_sens_forward(gm, th, device, smi, by_phase):
     peak = torch.cuda.max_memory_allocated()
     check_launches("sens_forward", by_phase["sens_forward"], "warp")
     plain, _, by_plain, wall_plain = timed(lambda: ensemble_solve(
-        lambda t, y, c: rt(t, y, theta, c), y0s, 0.0, T1, cfg, rtol=RTOL,
+        lambda t, y, c: rt(t, y, theta, c), y0s, 0.0, T1_SENS, cfg, rtol=RTOL,
         atol=ATOL, jac=jac))
     ok = bool((res.status == 1).all()) and bool((plain.status == 1).all())
     same_steps = (torch.equal(res.n_accepted, plain.n_accepted)
@@ -1238,7 +1254,7 @@ def phase_sens_forward(gm, th, device, smi, by_phase):
             f"{same_steps}, finite {finite}, final y rel {y_rel}, tangents "
             f"vs lu {s_rel}")
     emit({"phase": "sens_forward", "gpu": smi, "B": B_SENS, "P": S.shape[1],
-          "reactions": "*CH4*", "t1": T1,
+          "reactions": "*CH4*", "t1": T1_SENS,
           "linsolve": resolve_linsolve("auto", device=device, batch=B_SENS,
                                        n=y0s.shape[1]),
           "jac_window": 1, "wall_s": wall, "cond_per_s": B_SENS / wall,
@@ -1398,9 +1414,9 @@ def gear_run(fn):
 def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
     """Phase 18: the main path's sweep in both gears, blocking and
     pipelined at poll_every 1 and 4 (each cold, its graphs dropped first,
-    then warm), every lane equal to the bit; then blocking
-    against pipelined on 64 lanes each of the coupled (f64 ``lu``), energy
-    (the jvp T column) and SDIRK4 (``inv32``) paths."""
+    then warm), every lane equal to the bit; then (:func:`gear_checks`)
+    blocking against pipelined on 64 lanes each of the coupled (f64
+    ``lu``), energy (the jvp T column) and SDIRK4 (``inv32``) paths."""
     from batchreactor_tpu_torch.parallel import ensemble_solve_segmented
     from batchreactor_tpu_torch.solver import graphs
 
@@ -1449,7 +1465,16 @@ def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
     by_phase["gears"] = runs["pipelined_poll4_warm"][
         "lu32p_launches_by_path"]
 
-    # the 64-lane checks, blocking against pipelined through the API
+    checks = gear_checks(bt, gm, th, sm, T, device)
+    emit({"phase": "gears", "gpu": smi, "B": B_MAIN, "segment_steps": 256,
+          "bit_exact_fields": list(ref), "main_path": report,
+          "newton_iters_blocking": needed, "checks_64": checks})
+
+
+def gear_checks(bt, gm, th, sm, T, device):
+    """Phase 18's 64-lane checks, blocking against pipelined through the
+    API, on the coupled, energy and SDIRK4 paths (every GEAR_STRIDE-th
+    lane): statuses, step counts and every field equal to the bit."""
     def both(name, fn, keys):
         b = gear_run(lambda: fn(pipeline=False))
         p = gear_run(lambda: fn())
@@ -1485,9 +1510,7 @@ def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
                                    t1=T1_SDIRK_GEARS, method="sdirk",
                                    jac_window=None, setup_economy=False, **g),
         ("t", "status", "tau"))
-    emit({"phase": "gears", "gpu": smi, "B": B_MAIN, "segment_steps": 256,
-          "bit_exact_fields": list(ref), "main_path": report,
-          "newton_iters_blocking": needed, "checks_64": checks})
+    return checks
 
 
 def phase_stream(gm, th, device, smi, by_phase):
@@ -2912,6 +2935,15 @@ def stop_fault_smoke(kid, grace_s=20.0):
     return True
 
 
+def drop_kid(kid):
+    """Stop a child started by :func:`start_fault_smoke` or
+    :func:`start_analysis` and remove its temporary directory."""
+    import shutil
+
+    stop_fault_smoke(kid)
+    shutil.rmtree(kid["dir"], ignore_errors=True)
+
+
 def finish_fault_smoke(kid, timeout=300.0):
     """Wait for the fault smoke child (``timeout`` s from its start): its
     exit code, the fault kinds of its ``fault_events.jsonl``, its wall
@@ -2926,13 +2958,16 @@ def finish_fault_smoke(kid, timeout=300.0):
     wall = time.perf_counter() - kid["t0"]
     kinds = set()
     out = os.path.join(kid["dir"], "fault_events.jsonl")
-    if os.path.exists(out):
-        wall = os.path.getmtime(out) - kid["t0_wall"]
-        with open(out) as f:
-            kinds = {json.loads(ln).get("attrs", {}).get("kind")
-                     for ln in f if '"fault"' in ln}
-    with open(os.path.join(kid["dir"], "child.log")) as f:
-        tail = f.read()[-3000:]
+    try:
+        if os.path.exists(out):
+            wall = os.path.getmtime(out) - kid["t0_wall"]
+            with open(out) as f:
+                kinds = {json.loads(ln).get("attrs", {}).get("kind")
+                         for ln in f if '"fault"' in ln}
+        with open(os.path.join(kid["dir"], "child.log")) as f:
+            tail = f.read()[-3000:]
+    finally:
+        drop_kid(kid)
     return {"rc": kid["proc"].returncode, "timed_out": timed_out,
             "wall_s": wall, "kinds": sorted(k for k in kinds if k),
             "tail": tail}
@@ -3178,6 +3213,203 @@ def native_main(bt, gm, th, device, smi):
     return 0
 
 
+def state_deviation(got, want):
+    """Largest deviation between two nests of tensors of one structure:
+    floats as max |a - b| over max |b| per leaf, every other dtype as the
+    count of unequal entries."""
+    from batchreactor_tpu_torch.solver import graphs
+
+    worst, unequal = 0.0, 0
+    for a, b in zip(graphs.tree_leaves(got), graphs.tree_leaves(want)):
+        if a.dtype.is_floating_point:
+            scale = float(b.abs().max()) if b.numel() else 0.0
+            dev = float((a - b).abs().max()) if b.numel() else 0.0
+            worst = max(worst, dev / scale if scale > 0 else dev)
+        else:
+            unequal += int((a != b).sum())
+    return worst, unequal
+
+
+def phase_analysis(device, smi, by_phase):
+    """Phase 26: static analysis on the card.  (a) The static tiers over
+    the checkout (``tools/brlint.py`` by path: tier A and the concurrency
+    lint over the package and this script, in a child process beside (b)
+    and (c)) must be clean.  (b) The contract tier on ``cuda``: every
+    registered contract's programs captured on the h2o2 fixture at B = 8,
+    every obligation evaluated on the captured graphs, none may fail, and
+    ``bdf-step-lu32p``'s graphs must contain the ``lu32p`` kernel (their
+    DOT dumps' kernel nodes and the capture tally).  (c) The
+    ``bdf-step-lu32p`` segment program's ``begin`` and ``window`` captured
+    and replayed once, against the same steps run eagerly with
+    ``lu32p_factor_plain``: every float of the solver's carry within the
+    warp path's phase-2 bound 64 n eps32 of its lane-batch maximum, every
+    integer equal."""
+    walls = {}
+    t_static = time.perf_counter()
+    kid = subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "batchreactor_tpu_torch",
+                                      "tools", "brlint.py"),
+         os.path.join(HERE, "batchreactor_tpu_torch"),
+         os.path.join(HERE, "chip_smoke.py"), "--concurrency", "--json"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        summary = analysis_on_card(smi, by_phase, walls)
+    finally:
+        try:
+            out, err = kid.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            kid.kill()
+            out, err = kid.communicate()
+    walls["static_s"] = time.perf_counter() - t_static
+    if kid.returncode != 0:
+        raise AssertionError(f"analysis: the static tiers exit "
+                             f"{kid.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    doc = json.loads(out)
+    emit({"phase": "analysis", "gpu": smi,
+          "static": {"findings": len(doc["findings"]),
+                     "suppressed": doc["suppressed"]}, **summary,
+          "lu32p_launches_by_path": by_phase["analysis"], "walls": walls})
+
+
+def analysis_on_card(smi, by_phase, walls):
+    """Phase 26 (b) and (c) (:func:`phase_analysis`); returns their
+    summary."""
+    import torch
+
+    from batchreactor_tpu_torch.analysis import contracts as C
+    from batchreactor_tpu_torch.solver import graphs, linalg
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    # ---- (b) the contract tier on the card ------------------------------
+    census = []
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    findings, _, by_phase["analysis"] = counted(
+        lambda: C.run_contracts(device="cuda", census=census))
+    walls["contracts_s"] = time.perf_counter() - t0
+    for entry in census:
+        emit({"phase": "analysis_contract", "gpu": smi, **{
+            k: entry[k] for k in ("name", "obligations", "findings",
+                                  "seconds")},
+            "programs": [{k: p[k] for k in ("tag", "captured", "nodes",
+                                            "kernels", "ops",
+                                            "lu32p_launches", "seconds")}
+                         for p in entry["programs"]]})
+    if findings:
+        raise AssertionError("analysis: the contract tier on cuda found:\n"
+                             + "\n".join(f.render() for f in findings))
+    lu = [p for e in census if e["name"] == "bdf-step-lu32p"
+          for p in e["programs"]]
+    if not lu or not all(p["captured"] and p["lu32p_launches"].get(
+            "warp", 0) > 0 for p in lu):
+        raise AssertionError(f"analysis: bdf-step-lu32p's captures {lu}")
+    if by_phase["analysis"]["warp"] <= 0:
+        raise AssertionError(f"analysis: lu32p launches "
+                             f"{by_phase['analysis']}")
+
+    # ---- (c) the lu32p window: replayed graph against the eager plain twin
+    t0 = time.perf_counter()
+    h = C.Harness(device="cuda")
+    prog = h.segment_program(linsolve="lu32p")
+    twin = h.segment_program(linsolve="lu32p")
+    for name in ("begin", "window"):
+        prog.run(name)
+    kernel, plain = linalg.lu32p_factor, lc.lu32p_factor_plain
+    linalg.lu32p_factor = plain
+    try:
+        for name in ("begin", "window"):
+            twin.state.update(twin.steps[name](twin.state))
+    finally:
+        linalg.lu32p_factor = kernel
+    torch.cuda.synchronize()
+    n = h.y0.shape[1]
+    bound = 64 * n * EPS32
+    worst, unequal = state_deviation(prog.state["w"], twin.state["w"])
+    walls["replay_s"] = time.perf_counter() - t0
+    if not (worst <= bound and unequal == 0):
+        raise AssertionError(f"analysis: the replayed lu32p window differs "
+                             f"from its eager plain twin: {worst} of the "
+                             f"lane-batch max (bound {bound}), {unequal} "
+                             f"unequal integers")
+    nodes = {}
+    for entry in census:
+        for p in entry["programs"]:
+            for k, v in p["nodes"].items():
+                nodes[k] = nodes.get(k, 0) + v
+    return {"contracts": len(census),
+            "obligations": sum(e["obligations"] for e in census),
+            "programs": sum(len(e["programs"]) for e in census),
+            "captured_programs": sum(p["captured"] for e in census
+                                     for p in e["programs"]),
+            "graph_nodes": nodes,
+            "replay_vs_plain": {"max_rel": worst, "bound": bound,
+                                "unequal_integers": unequal, "n": n,
+                                "B": h.B}}
+
+
+def start_analysis():
+    """Start phase 26 (``chip_smoke.py --analysis-only``) in a child
+    process, its output in a temporary directory: it runs beside the
+    host-bound adjoint loop of phase 17, and :func:`finish_analysis`
+    joins it in phase 26's slot and removes the directory."""
+    tmp = tempfile.mkdtemp(prefix="br_analysis_")
+    with open(os.path.join(tmp, "child.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--analysis-only"], cwd=HERE, stdout=log,
+            stderr=subprocess.STDOUT)
+    return {"proc": proc, "dir": tmp, "t0": time.perf_counter()}
+
+
+def finish_analysis(kid, smi, by_phase, timeout=900.0):
+    """Phase 26's slot: wait for the child :func:`start_analysis` started
+    (``timeout`` s from its start; SIGTERM past it), which must exit 0;
+    re-emit its phase lines and take its ``lu32p`` launches (counted in
+    the child, from 0, around its contract tier)."""
+    left = timeout - (time.perf_counter() - kid["t0"])
+    try:
+        kid["proc"].wait(max(left, 1.0))
+        timed_out = False
+    except subprocess.TimeoutExpired:
+        timed_out = stop_fault_smoke(kid)
+    wall = time.perf_counter() - kid["t0"]
+    try:
+        with open(os.path.join(kid["dir"], "child.log")) as f:
+            text = f.read()
+    finally:
+        drop_kid(kid)
+    rows = []
+    for ln in text.splitlines():
+        if ln.startswith("{"):
+            try:
+                rows.append(json.loads(ln))
+            except ValueError:
+                pass
+    walls = [r for r in rows if r.get("phase") == "walls"]
+    if timed_out or kid["proc"].returncode != 0 or not walls:
+        raise AssertionError(f"analysis: the child exited "
+                             f"{kid['proc'].returncode} (timed out "
+                             f"{timed_out}):\n{text[-4000:]}")
+    for r in rows:
+        if r.get("phase") in ("analysis_contract", "analysis"):
+            emit({**r, "child_wall_s": wall} if r["phase"] == "analysis"
+                 else r)
+    by_phase["analysis"] = walls[-1]["launches_by_phase"]["analysis"]
+
+
+def analysis_main(device, smi):
+    """``--analysis-only``: phase 26 alone (after phase 1's build).
+    Prints no contract line."""
+    by_phase = {}
+    t0 = time.perf_counter()
+    phase_analysis(device, smi, by_phase)
+    emit({"phase": "walls", "analysis_s": time.perf_counter() - t0,
+          "launches_by_phase": by_phase})
+    print(smi, flush=True)
+    return 0
+
+
 def profile_main_path(bt, gm, th, T, device, warm_wall, factor_event_ms,
                       pipeline):
     """Where the main path's time goes in one gear: the sweep under
@@ -3347,6 +3579,8 @@ def main():
     telemetry_only = "--telemetry-only" in sys.argv[1:]
     serving_only = "--serving-only" in sys.argv[1:]
     native_only = "--native-only" in sys.argv[1:]
+    if "--analysis-only" in sys.argv[1:]:
+        return analysis_main(device, smi)
     t0 = time.perf_counter()
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
@@ -3635,9 +3869,10 @@ def main():
                                                 device, smi, by_phase)),
             ("sens_forward", lambda: phase_sens_forward(gm, th, device,
                                                         smi, by_phase)),
-            # phase 25 (d)'s fault smoke runs in a child process beside
-            # the host-bound adjoint loop
+            # phase 25 (d)'s fault smoke and phase 26 run in child
+            # processes beside the host-bound adjoint loop
             ("adjoint", lambda: (kids.append(start_fault_smoke("adjoint")),
+                                 kids.append(start_analysis()),
                                  phase_adjoint(gm, th, T, device, smi))),
             ("gears", lambda: phase_gears(bt, gm, th, sm, T, device, smi,
                                           by_phase)),
@@ -3655,13 +3890,14 @@ def main():
             ("fleet", lambda: phase_fleet(case, served[0], device, smi)),
             ("native", lambda: phase_native(bt, gm, th, T, out3, file_row,
                                             ckpt_dir[0], device, smi,
-                                            by_phase, fault_kid=kids[0]))):
+                                            by_phase, fault_kid=kids[0])),
+            ("analysis", lambda: finish_analysis(kids[1], smi, by_phase))):
         t0 = time.perf_counter()
         try:
             run()
         except BaseException:
             for kid in kids:
-                stop_fault_smoke(kid)
+                drop_kid(kid)
             raise
         walls[name] = time.perf_counter() - t0
     emit({"phase": "walls", "new_phases_s": walls,

@@ -239,8 +239,11 @@ def test_pipelined_gear_one_graph_per_step_and_replays_equal(cuda):
         for f in ("t", "y", "status", "n_accepted", "n_rejected", "h"):
             assert torch.equal(getattr(res, f).cpu(),
                                getattr(ref, f).cpu()), f
-        assert torch.equal(res.observed["tau"].cpu(),
-                           ref.observed["tau"].cpu())
+        # equal to the bit, NaN (a lane that has not crossed) where the
+        # blocking gear has NaN: torch.equal reads NaN != NaN
+        torch.testing.assert_close(res.observed["tau"].cpu(),
+                                   ref.observed["tau"].cpu(), rtol=0, atol=0,
+                                   equal_nan=True)
 
 
 def test_graph_capture_failure_raises(cuda):
@@ -255,3 +258,21 @@ def test_graph_capture_failure_raises(cuda):
     prog.set(x=torch.ones(4, device=cuda))
     with pytest.raises(RuntimeError):
         prog.run("bad")
+
+
+def test_contract_tier_on_the_card(cuda, capsys):
+    """``brlint --tier C --device cuda`` (ROADMAP A17): every registered
+    contract's programs captured on the h2o2 fixture, every obligation
+    held on the captured graphs, and ``bdf-step-lu32p``'s graphs holding
+    the kernel (``chip_smoke.py`` phase 26 is the same run)."""
+    import json
+
+    from batchreactor_tpu_torch.analysis import cli
+
+    rc = cli.main(["--tier", "C", "--device", "cuda", "--json"])
+    doc = json.loads(capsys.readouterr().out)
+    assert rc == 0, doc["findings"]
+    lu = [c for c in doc["contracts"] if c["name"] == "bdf-step-lu32p"][0]
+    assert lu["programs"] and all(
+        p["captured"] and p["lu32p_launches"].get("warp", 0) > 0
+        for p in lu["programs"])

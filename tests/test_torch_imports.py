@@ -62,7 +62,11 @@ def test_port_files_found():
             "tools/serve_bench.py", "tools/serve_fleet.py",
             "native/__init__.py", "native/bindings.py", "tools/obs_gate.py",
             "tools/obs_trace.py", "tools/obs_slo.py", "tools/obs_fleet.py",
-            "tools/fault_smoke.py"} <= names
+            "tools/fault_smoke.py", "envknobs.py", "analysis/__init__.py",
+            "analysis/core.py", "analysis/reachability.py",
+            "analysis/rules_ast.py", "analysis/concurrency.py",
+            "analysis/contracts.py", "analysis/census.py",
+            "analysis/cli.py", "tools/brlint.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
     assert (ROOT / "batchreactor_tpu_torch" / "native"
             / "br_native.cpp").is_file()
@@ -187,6 +191,44 @@ def test_no_deferral_table_names_a16():
     assert sweep._DEFERRED == ()
 
 
+def test_no_deferral_table_names_a17():
+    """ROADMAP A17 landed: no deferral table of the port names it, every
+    module of the JAX package's ``analysis/`` that has a PyTorch meaning
+    has its counterpart, and the tier-A engine and the concurrency lint
+    import neither torch nor jax."""
+    for path in PORT_FILES:
+        assert '"A17")' not in path.read_text(), path
+    jax_mods = {p.name for p in (ROOT / "batchreactor_tpu" / "analysis")
+                .glob("*.py")}
+    port_mods = {p.name for p in (ROOT / "batchreactor_tpu_torch"
+                                  / "analysis").glob("*.py")}
+    assert jax_mods - port_mods == {"jaxpr_audit.py", "costmodel.py",
+                                    "budgets.py"}
+    heavy = {"torch", "jax", "jaxlib", "batchreactor_tpu", "numpy"}
+    for rel in ("envknobs.py", "analysis/__init__.py", "analysis/core.py",
+                "analysis/reachability.py", "analysis/rules_ast.py",
+                "analysis/concurrency.py", "analysis/cli.py",
+                "tools/brlint.py"):
+        roots = _imported_roots(ROOT / "batchreactor_tpu_torch" / rel)
+        assert not roots & heavy, (rel, roots)
+    # the contract engine imports torch lazily, inside its harness
+    tree = ast.parse((ROOT / "batchreactor_tpu_torch" / "analysis"
+                      / "contracts.py").read_text())
+    top = {a.name.split(".")[0] for n in tree.body
+           if isinstance(n, ast.Import) for a in n.names}
+    assert not top & heavy, top
+    # the census lives in the analysis package: the modules whose programs
+    # it records import nothing of it
+    for path in PORT_FILES:
+        rel = path.relative_to(ROOT / "batchreactor_tpu_torch").as_posix()
+        if rel.startswith("analysis/") or rel == "tools/brlint.py":
+            continue
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                assert "analysis" not in (node.module or "").split("."), rel
+
+
 def _exported(path):
     """The public names a package ``__init__`` binds: its relative
     imports, its module-level assignments, ``__version__`` and the entries
@@ -211,17 +253,20 @@ def _exported(path):
             or n == "__version__"}
 
 
-#: what the port leaves out of the JAX package's namespaces on purpose:
-#: the AOT registry (ROADMAP "Not ported, with reason") and the static
-#: analysis package (ROADMAP A17)
+#: what the port leaves out of the JAX package's namespaces on purpose
+#: (ROADMAP "Not ported, with reason"): the AOT registry, and the static
+#: analysis package's jaxpr tiers (the cost model, the budgets)
 C10_EXCEPTIONS = {
     "aot": {"WarmupResult", "bundle_shape_signature", "cache_stats",
             "configure_cache", "enforce_capacity", "load_manifest",
             "manifest_path", "mechanism_fingerprint", "merge_manifests",
             "pin_keys", "program_key", "reset_persistent_cache",
             "spec_keys", "touch_keys", "warmup"},
+    "analysis": {"Budget", "BUDGET_RULES", "CostProbe", "check_budget",
+                 "Cost", "contract_cost_table", "cost_jaxpr",
+                 "estimate_rung", "fits_hbm", "lu32p_vmem_bytes"},
 }
-C10_MISSING_PACKAGES = {"analysis"}
+C10_MISSING_PACKAGES = set()
 
 
 def test_c10_every_init_exports_the_jax_names():
