@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --serving-only   # phase 3, then phases 23-24
     python3 chip_smoke.py --native-only    # phases 3 and 5, then phase 25
     python3 chip_smoke.py --analysis-only  # phase 26 alone
+    python3 chip_smoke.py --northstar-only # phase 27 alone
 
 It builds every kernel of the port's paths from the checkout's sources
 (``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
@@ -120,20 +121,32 @@ paths through its own entry points:
   captured on the h2o2 fixture at B = 8, every obligation held on the
   captured graphs, ``bdf-step-lu32p``'s graph containing the ``lu32p``
   kernel), and the ``lu32p`` window's replay against the same steps run
-  eagerly with the plain version.
+  eagerly with the plain version;
+- the north-star map (phase 27): ``tools/northstar_baseline.py`` on an
+  8 x 8 sample of the map (the native BDF, one lane at a time) in a child
+  process that cannot see the card, started beside phase 17; then
+  ``tools/northstar_sweep.py``'s ``run_sweep`` at full width, 64 T x 64
+  phi = 4096 GRI-3.0 lanes over phi 0.6-1.6 with float32 rate
+  exponentials, in chunks of 512 sorted by the baseline's lane costs
+  (every lane ``success``, tau within 1e-3 of the native BDF on 8 spot
+  lanes, warp launches), its resume (every chunk loaded, nothing
+  launched, every lane equal to the bit), and the map's diagonal with
+  float64 exponentials (status equal, tau within 1e-3).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after; a CUDA graph adds its captured launches on every replay.
 The child processes of phases 20-21 (``chip_smoke.py --child ARGS``) and
 26 (``--analysis-only``) do the same in their own process and report
-their counts.
+their counts; phase 27's baseline child runs on the host only.
 ``--profile`` adds a phase that runs the gas main path once more in each
 gear under ``torch.profiler`` and prints where its time goes (per layer
 and per kernel); ``--profile-only`` runs only that,
 ``--telemetry-only`` only phase 3's sweep and phase 22,
 ``--serving-only`` only phase 3's sweep and phases 23-24,
-``--native-only`` only phase 3's sweep, phase 5 and phase 25, and
-``--analysis-only`` only phase 26 (these five print no contract line).  Each phase prints one JSON line; any failure
+``--native-only`` only phase 3's sweep, phase 5 and phase 25,
+``--analysis-only`` only phase 26, and ``--northstar-only`` only phase
+27, its baseline alone on the host first (these six print no contract
+line).  Each phase prints one JSON line; any failure
 raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
@@ -238,6 +251,13 @@ DEADLINE_S, HANG_S = 5.0, 30.0
 # lanes ORACLE_LANES fail every device pass
 NATIVE_STRIDE = 128
 ORACLE_CHUNK, ORACLE_LANES = 1, (40, 200)
+# the north-star map (phase 27): tools/northstar_sweep.py at its defaults,
+# NS_N T x NS_N phi = 4096 lanes in cost-sorted chunks of NS_CHUNK, the lane
+# costs from its single-core baseline on an NS_BASELINE_N x NS_BASELINE_N
+# sample (64 lanes, the native BDF) in a child process
+NS_N, NS_CHUNK, NS_BASELINE_N = 64, 512, 8
+BESIDE_17 = ("phase 17 (adjoint) and the next phases, with phase 25 (d)'s "
+             "fault smoke and phase 26 in child processes")
 # the adjoint ranking (phase 17): every 128th main-path temperature (8
 # lanes; the Python loop of stage solves, not the lanes, sets its wall);
 # the forward-against-adjoint check runs every 16th of the 64 coolest
@@ -2944,17 +2964,23 @@ def drop_kid(kid):
     shutil.rmtree(kid["dir"], ignore_errors=True)
 
 
+def join_kid(kid, timeout):
+    """Wait for a child process ``timeout`` s from its start, stopping it
+    past that; True when it had to be stopped."""
+    left = timeout - (time.perf_counter() - kid["t0"])
+    try:
+        kid["proc"].wait(max(left, 1.0))
+        return False
+    except subprocess.TimeoutExpired:
+        return stop_fault_smoke(kid)
+
+
 def finish_fault_smoke(kid, timeout=300.0):
     """Wait for the fault smoke child (``timeout`` s from its start): its
     exit code, the fault kinds of its ``fault_events.jsonl``, its wall
     (from its start to its events file, which it writes last) and the
     tail of its log."""
-    left = timeout - (time.perf_counter() - kid["t0"])
-    try:
-        kid["proc"].wait(max(left, 1.0))
-        timed_out = False
-    except subprocess.TimeoutExpired:
-        timed_out = stop_fault_smoke(kid)
+    timed_out = join_kid(kid, timeout)
     wall = time.perf_counter() - kid["t0"]
     kinds = set()
     out = os.path.join(kid["dir"], "fault_events.jsonl")
@@ -3367,12 +3393,7 @@ def finish_analysis(kid, smi, by_phase, timeout=900.0):
     (``timeout`` s from its start; SIGTERM past it), which must exit 0;
     re-emit its phase lines and take its ``lu32p`` launches (counted in
     the child, from 0, around its contract tier)."""
-    left = timeout - (time.perf_counter() - kid["t0"])
-    try:
-        kid["proc"].wait(max(left, 1.0))
-        timed_out = False
-    except subprocess.TimeoutExpired:
-        timed_out = stop_fault_smoke(kid)
+    timed_out = join_kid(kid, timeout)
     wall = time.perf_counter() - kid["t0"]
     try:
         with open(os.path.join(kid["dir"], "child.log")) as f:
@@ -3405,6 +3426,227 @@ def analysis_main(device, smi):
     t0 = time.perf_counter()
     phase_analysis(device, smi, by_phase)
     emit({"phase": "walls", "analysis_s": time.perf_counter() - t0,
+          "launches_by_phase": by_phase})
+    print(smi, flush=True)
+    return 0
+
+
+def start_baseline(before=None):
+    """Start phase 27 (a), the map's single-core baseline
+    (``tools/northstar_baseline.py``, NS_BASELINE_N x NS_BASELINE_N lanes,
+    the native BDF), in a child process that cannot see the card
+    (``CUDA_VISIBLE_DEVICES=""``), its record in a temporary directory;
+    ``before`` names what runs beside it (None: phase 27 waits for it at
+    once, alone on the host)."""
+    tmp = tempfile.mkdtemp(prefix="br_baseline_")
+    with open(os.path.join(tmp, "child.log"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "batchreactor_tpu_torch.tools.northstar_baseline",
+             "--n", str(NS_BASELINE_N), "--solvers", "native",
+             "--out", os.path.join(tmp, "baseline.json")],
+            cwd=tmp, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": HERE,
+                 "CUDA_VISIBLE_DEVICES": ""})
+    return {"proc": proc, "dir": tmp, "t0": time.perf_counter(),
+            "t0_wall": time.time(), "before": before}
+
+
+def finish_baseline(kid, timeout=600.0):
+    """Wait for the baseline child (``timeout`` s from its start), which
+    must exit 0 with NS_BASELINE_N**2 lanes, none failed; returns its
+    record, the record's path and the child's wall (from its start to its
+    record, which it writes last).  The directory stays for the map's
+    lane-cost model (:func:`drop_kid` removes it)."""
+    timed_out = join_kid(kid, timeout)
+    path = os.path.join(kid["dir"], "baseline.json")
+    rec = wall = None
+    if os.path.exists(path):
+        wall = os.path.getmtime(path) - kid["t0_wall"]
+        with open(path) as f:
+            rec = json.load(f)
+    if timed_out or kid["proc"].returncode != 0 or rec is None:
+        with open(os.path.join(kid["dir"], "child.log")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"northstar: the baseline child exited "
+                             f"{kid['proc'].returncode} (timed out "
+                             f"{timed_out}):\n{tail}")
+    nat = rec["solvers"]["native"]
+    if len(rec["per_lane"]) != NS_BASELINE_N ** 2 or nat["n_failed"]:
+        raise AssertionError(f"northstar: the baseline solved "
+                             f"{len(rec['per_lane'])} lanes, "
+                             f"{nat['n_failed']} failed")
+    return rec, path, wall
+
+
+def phase_northstar(gm, th, device, smi, by_phase, kid):
+    """Phase 27: the north-star map (``tools/northstar_sweep.py``).  (a)
+    Join the baseline child :func:`start_baseline` started: exit 0, 64
+    lanes, none failed; its native s per lane.  (b) ``run_sweep`` at its
+    defaults (64 T x 64 phi = 4096 lanes, chunks of NS_CHUNK cost-sorted
+    by (a)'s record, f32 rate exponentials, 8 native spot lanes), cold:
+    every lane ``success``, spot parity <= 1e-3 with no failed spot,
+    sorted, every chunk solved, warp launches only.  (c) The same call on
+    the same directory: no chunk solved, every chunk loaded, no launch,
+    every lane equal to (b)'s to the bit.  (d) The diagonal lanes of the
+    map (T_i, phi_i), i < 64 (every 64th lane would hold phi at its lean
+    edge), with float64 exponentials through ``ensemble_solve_segmented``
+    (``lu32p``, so only the exponentials differ): status equal to (b)'s,
+    tau within 1e-3.  The flight recorder ``run_sweep`` arms is disarmed
+    after the phase."""
+    import re
+    import shutil
+
+    import torch
+
+    from batchreactor_tpu_torch.obs import live
+    from batchreactor_tpu_torch.ops.rhs import make_gas_jac, make_gas_rhs
+    from batchreactor_tpu_torch.parallel import (ensemble_solve_segmented,
+                                                 ignition_observer)
+    from batchreactor_tpu_torch.solver import graphs
+    from batchreactor_tpu_torch.tools import northstar_sweep as ns
+
+    chunk_s = []
+
+    def log(msg):
+        # the checkpointed sweep logs each chunk's solve wall
+        m = re.match(r"\[ckpt\] chunk \d+ \(\d+ lanes\): solve ([\d.]+)s",
+                     msg)
+        if m:
+            chunk_s.append(float(m.group(1)))
+        print(msg, file=sys.stderr, flush=True)
+
+    tmp = tempfile.mkdtemp(prefix="br_northstar_")
+    try:
+        # (a) the baseline child
+        base, base_path, base_wall = finish_baseline(kid)
+        nat = base["solvers"]["native"]
+        emit({"phase": "northstar_baseline", "lanes": len(base["per_lane"]),
+              "solver": "native", "n_failed": nat["n_failed"],
+              "s_per_lane_mean": nat["s_per_lane_mean"],
+              "s_per_lane_min": nat["s_per_lane_min"],
+              "s_per_lane_max": nat["s_per_lane_max"],
+              "extrapolated_full_map_wall_s":
+                  base["extrapolated_full_map_wall_s_native"],
+              "host_cores": len(os.sched_getaffinity(0)),
+              "beside": kid["before"] or "nothing (alone on the host)",
+              "child_wall_s": base_wall})
+
+        def run():
+            return ns.run_sweep(
+                n_T=NS_N, n_phi=NS_N, ckpt_dir=os.path.join(tmp, "ck"),
+                chunk_size=NS_CHUNK, segment_steps=256, jac_window=8,
+                exp32=True, baseline=base_path, n_spot=8, device=device,
+                flight_dir=tmp, return_result=True, log=log)
+
+        # (b) the map, cold
+        graphs.reset_counts()
+        (rec, res), _, by_phase["northstar"], wall = timed(run)
+        B = NS_N * NS_N
+        check_launches("northstar", by_phase["northstar"], "warp")
+        if rec["counts"] != {"success": B}:
+            raise AssertionError(f"northstar: lanes {rec['counts']}")
+        if (rec["tau_parity_failed_spots"]
+                or rec["tau_parity_max_rel_err"] is None
+                or rec["tau_parity_max_rel_err"] > 1e-3
+                or len(rec["spot_checks"]) != min(
+                    8, B - rec["n_no_ignition"])):
+            raise AssertionError(f"northstar: spot parity "
+                                 f"{rec['spot_checks']}")
+        n_chunks = -(-B // NS_CHUNK)
+        if not rec["lane_cost_sorted"] or rec["chunks"] != {
+                "n": n_chunks, "solved": n_chunks, "loaded": 0}:
+            raise AssertionError(f"northstar: sorted "
+                                 f"{rec['lane_cost_sorted']}, chunks "
+                                 f"{rec['chunks']}")
+        if rec["lu32p_launches"] != by_phase["northstar"]:
+            raise AssertionError(f"northstar: the record's launches "
+                                 f"{rec['lu32p_launches']} against "
+                                 f"{by_phase['northstar']}")
+        map_b = lane_fields(res)
+        emit({"phase": "northstar", "gpu": smi, "B": B,
+              "workload": rec["workload"], "exp32": rec["exp32"],
+              "chunk_size": NS_CHUNK, "chunks": rec["chunks"],
+              "lane_cost_sorted": rec["lane_cost_sorted"],
+              "wall_s": rec["wall_s"], "cond_per_s": rec["cond_per_s"],
+              "call_s": wall, "chunk_solve_s": chunk_s,
+              "counts": rec["counts"],
+              "n_no_ignition": rec["n_no_ignition"],
+              "tau_range_s": rec["tau_range_s"],
+              "tau_parity_max_rel_err": rec["tau_parity_max_rel_err"],
+              "tau_parity_failed_spots": rec["tau_parity_failed_spots"],
+              "phases_s": rec["phases_s"],
+              "map_speedup_vs_native": nat["s_per_lane_mean"] * B
+              / rec["wall_s"],
+              "mean_accepted": float(map_b["n_accepted"].mean()),
+              "max_accepted": int(map_b["n_accepted"].max()),
+              "lu32p_launches_by_path": by_phase["northstar"],
+              "graphs_captured": graphs.captures(),
+              "graph_replays": graphs.COUNTS["replays"],
+              "host_syncs": graphs.COUNTS["host_syncs"]})
+
+        # (c) the resume: every chunk loaded, nothing launched
+        (rec_c, res_c), _, by_phase["northstar_resume"], wall_c = timed(run)
+        check_launches("northstar resume", by_phase["northstar_resume"],
+                       None)
+        eq = lanes_equal(map_b, lane_fields(res_c))
+        if rec_c["chunks"] != {"n": n_chunks, "solved": 0,
+                               "loaded": n_chunks} or not eq.all():
+            raise AssertionError(f"northstar: the resume's chunks "
+                                 f"{rec_c['chunks']}, {int(eq.sum())} of "
+                                 f"{B} lanes equal to (b)")
+        emit({"phase": "northstar_resume", "call_s": wall_c,
+              "wall_s": rec_c["wall_s"], "chunks": rec_c["chunks"],
+              "lanes_equal": int(eq.sum()),
+              "lu32p_launches_by_path": by_phase["northstar_resume"]})
+
+        # (d) float64 exponentials on the map's diagonal
+        grid, y0s = ns.map_states(gm, th, NS_N, NS_N)
+        idx = np.arange(NS_N) * (NS_N + 1)
+        lanes = torch.as_tensor(idx, device=y0s.device)
+        obs, obs0 = ignition_observer(list(gm.species).index("CH4"),
+                                      mode="half")
+        res_d, _, by_phase["northstar_f64"], wall_d = timed(
+            lambda: ensemble_solve_segmented(
+                make_gas_rhs(gm, th, exp32=False), y0s[lanes], 0.0, T1,
+                {"T": grid["T"][lanes]}, segment_steps=256, rtol=RTOL,
+                atol=ATOL, jac=make_gas_jac(gm, th, exp32=False),
+                observer=obs, observer_init=obs0, method="bdf",
+                jac_window=8, linsolve="lu32p"))
+        check_launches("northstar f64", by_phase["northstar_f64"], "warp")
+        d = lane_fields(res_d)
+        tau_b = map_b["tau"][idx]
+        rel = np.abs(tau_b / d["tau"] - 1.0)
+        # a lane that ignites in neither run has no tau in either
+        both_nan = np.isnan(tau_b) & np.isnan(d["tau"])
+        same_status = np.array_equal(d["status"], map_b["status"][idx])
+        if not (same_status and np.all(both_nan | (rel <= 1e-3))):
+            raise AssertionError(f"northstar: exp32 against float64 "
+                                 f"exponentials, status equal "
+                                 f"{same_status}, tau max rel "
+                                 f"{np.nanmax(rel)}, no tau "
+                                 f"{int(np.isnan(tau_b).sum())} and "
+                                 f"{int(np.isnan(d['tau']).sum())}")
+        emit({"phase": "northstar_exp32_check", "lanes": int(idx.size),
+              "lane_stride": NS_N + 1, "linsolve": "lu32p",
+              "no_ignition": int(both_nan.sum()),
+              "tau_max_rel": float(np.nanmax(rel)),
+              "tau_mean_rel": float(np.nanmean(rel)), "wall_s": wall_d,
+              "lu32p_launches_by_path": by_phase["northstar_f64"]})
+    finally:
+        live.disarm_flight()
+        drop_kid(kid)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def northstar_main(gm, th, device, smi):
+    """``--northstar-only``: phase 27 alone (after phase 1's build), its
+    baseline child first and alone on the host.  Prints no contract
+    line."""
+    by_phase = {}
+    t0 = time.perf_counter()
+    phase_northstar(gm, th, device, smi, by_phase, start_baseline())
+    emit({"phase": "walls", "northstar_s": time.perf_counter() - t0,
           "launches_by_phase": by_phase})
     print(smi, flush=True)
     return 0
@@ -3579,6 +3821,7 @@ def main():
     telemetry_only = "--telemetry-only" in sys.argv[1:]
     serving_only = "--serving-only" in sys.argv[1:]
     native_only = "--native-only" in sys.argv[1:]
+    northstar_only = "--northstar-only" in sys.argv[1:]
     if "--analysis-only" in sys.argv[1:]:
         return analysis_main(device, smi)
     t0 = time.perf_counter()
@@ -3593,6 +3836,8 @@ def main():
         return serving_main(bt, gm, th, device, smi)
     if native_only:
         return native_main(bt, gm, th, device, smi)
+    if northstar_only:
+        return northstar_main(gm, th, device, smi)
     check_kernel(device)
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
@@ -3869,10 +4114,12 @@ def main():
                                                 device, smi, by_phase)),
             ("sens_forward", lambda: phase_sens_forward(gm, th, device,
                                                         smi, by_phase)),
-            # phase 25 (d)'s fault smoke and phase 26 run in child
-            # processes beside the host-bound adjoint loop
+            # phase 25 (d)'s fault smoke, phase 26 and phase 27 (a)'s
+            # baseline (on the host only) run in child processes beside the
+            # host-bound adjoint loop
             ("adjoint", lambda: (kids.append(start_fault_smoke("adjoint")),
                                  kids.append(start_analysis()),
+                                 kids.append(start_baseline(BESIDE_17)),
                                  phase_adjoint(gm, th, T, device, smi))),
             ("gears", lambda: phase_gears(bt, gm, th, sm, T, device, smi,
                                           by_phase)),
@@ -3891,7 +4138,9 @@ def main():
             ("native", lambda: phase_native(bt, gm, th, T, out3, file_row,
                                             ckpt_dir[0], device, smi,
                                             by_phase, fault_kid=kids[0])),
-            ("analysis", lambda: finish_analysis(kids[1], smi, by_phase))):
+            ("analysis", lambda: finish_analysis(kids[1], smi, by_phase)),
+            ("northstar", lambda: phase_northstar(gm, th, device, smi,
+                                                  by_phase, kids[2]))):
         t0 = time.perf_counter()
         try:
             run()

@@ -66,7 +66,8 @@ def test_port_files_found():
             "analysis/core.py", "analysis/reachability.py",
             "analysis/rules_ast.py", "analysis/concurrency.py",
             "analysis/contracts.py", "analysis/census.py",
-            "analysis/cli.py", "tools/brlint.py"} <= names
+            "analysis/cli.py", "tools/brlint.py",
+            "tools/northstar_sweep.py", "tools/northstar_baseline.py"} <= names
     assert (ROOT / "batchreactor_tpu_torch" / "csrc" / "lu32p.cu").is_file()
     assert (ROOT / "batchreactor_tpu_torch" / "native"
             / "br_native.cpp").is_file()
