@@ -21,14 +21,27 @@ CPU test.  Two tiers catch those classes on the CPU, at review time:
   ``graphs.Program(`` site or an armed compile-watch label has no
   contract; plus the fingerprint and counter registry audits.  (b) The
   host-concurrency lint (:mod:`.concurrency`).
+* **Tier D** (:mod:`.costmodel` + :mod:`.budgets`) — the static cost and
+  memory model: per program FLOPs, transcendentals, bytes moved and peak
+  live-buffer residency, walked over the recorded op logs, and optional
+  ``budget=`` cost obligations on a ``@program_contract`` evaluated by the
+  same engine (``--budgets`` / ``--tier D``).  Its stdlib
+  :func:`~.costmodel.estimate_rung` predicts a (B, S, R) rung's resident
+  device memory and step cost (``tools/brcost.py``'s ladders, the serving
+  warmup's log).
 
 Tier A and the concurrency lint import neither torch nor jax; the
-contract engine imports torch lazily.  The JAX package's jaxpr tiers
-(``jaxpr_audit.py``, ``costmodel.py``, ``budgets.py``) have no
-counterpart: the port traces no jaxprs (ROADMAP "Not ported, with
-reason").
+contract engine imports torch lazily.  The JAX package's tier B
+(``jaxpr_audit.py``) has no counterpart: it audits jaxprs, and the port
+traces none (ROADMAP "Not ported, with reason").  Tier D's names are the
+JAX package's but two: ``cost_jaxpr`` is :func:`~.costmodel.cost_program`
+(it walks a recording, not a jaxpr) and ``lu32p_vmem_bytes`` is
+:func:`~.costmodel.lu32p_smem_bytes` (the kernel's shared memory per CTA
+on the H100, not VMEM).
 
-CLI: ``python -m batchreactor_tpu_torch.tools.brlint``.
+CLI: ``python -m batchreactor_tpu_torch.tools.brlint``;
+``python -m batchreactor_tpu_torch.tools.brcost`` for cost tables and
+ladders.
 """
 
 from .core import (Finding, Baseline, all_rules, lint_file, lint_paths,
@@ -36,14 +49,22 @@ from .core import (Finding, Baseline, all_rules, lint_file, lint_paths,
 from . import rules_ast  # noqa: F401,E402  (registers the tier-A rules:
 #                          without this import the registry is empty and
 #                          lint_paths would vacuously scan clean)
+from .budgets import (  # noqa: E402  (stdlib-only)
+    BUDGET_RULES, Budget, CostProbe, check_budget)
 from .concurrency import (  # noqa: E402
     CONCURRENCY_RULES, lint_concurrency_file, lint_concurrency_paths)
 from .contracts import (  # noqa: E402  (stdlib-only at module scope;
     #                      torch loads lazily inside the engine)
     ProgramContract, all_contracts, program_contract, run_contracts)
+from .costmodel import (  # noqa: E402  (stdlib-only at module scope;
+    #                      torch loads lazily inside the table)
+    Cost, contract_cost_table, cost_program, estimate_rung, fits_hbm,
+    lu32p_smem_bytes)
 
 __all__ = ["Finding", "Baseline", "all_rules", "lint_file", "lint_paths",
            "load_suppressions", "CONCURRENCY_RULES",
            "lint_concurrency_file", "lint_concurrency_paths",
            "ProgramContract", "all_contracts", "program_contract",
-           "run_contracts"]
+           "run_contracts", "BUDGET_RULES", "Budget", "CostProbe",
+           "check_budget", "Cost", "contract_cost_table", "cost_program",
+           "estimate_rung", "fits_hbm", "lu32p_smem_bytes"]

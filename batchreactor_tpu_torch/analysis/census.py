@@ -26,7 +26,19 @@ from ..sensitivity import params as P
 from ..sensitivity.forward import make_fdot
 from ..solver import bdf, graphs
 from ..solver.common import SUCCESS
-from .contracts import Contains, Identical, Pure, program_contract
+from .budgets import Budget
+from .costmodel import SMEM_BUDGET_BYTES
+from .contracts import Contains, Harness, Identical, Pure, program_contract
+
+
+def _jax_band(lo, hi, lanes=1):
+    """A JAX contract's FLOPs band, authored on a trace of ``lanes`` lanes,
+    for the harness's :attr:`~.contracts.Harness.B` lanes: every budget
+    below is the JAX band per lane (the port's walk per lane falls inside
+    each), with the JAX peak ceiling unscaled (the port's B = 8 programs
+    fit under the JAX one-lane ceilings)."""
+    k = Harness.B / lanes
+    return (lo * k, hi * k)
 
 
 # --------------------------------------------------------------------------
@@ -37,7 +49,10 @@ from .contracts import Contains, Identical, Pure, program_contract
 @program_contract(
     "rhs-modes",
     doc="four chemistry modes + analytic jacobians: pure, float64 "
-        "throughout")
+        "throughout",
+    budget=Budget(flops_per_step=_jax_band(4e3, 2.5e4),
+                  peak_bytes=64 * 1024,
+                  doc="h2o2 gas RHS at B = 8; the JAX band per lane"))
 def _contract_rhs_modes(h):
     for tag, rhs, jac, y0, cfg in h.modes:
         rec = (h.gas_rhs_baseline() if tag == "gas-rhs"
@@ -160,7 +175,11 @@ def _contract_energy_noop(h):
 # --------------------------------------------------------------------------
 @program_contract(
     "bdf-step",
-    doc="BDF step program, plain and stats-instrumented: pure")
+    doc="BDF step program, plain and stats-instrumented: pure",
+    budget=Budget(flops_per_step=_jax_band(2.5e4, 1.1e5),
+                  peak_bytes=128 * 1024,
+                  doc="h2o2 fixture step attempt at B = 8; the JAX band "
+                      "per lane"))
 def _contract_bdf_step(h):
     yield Pure("bdf-step", h.segment_baseline())
     yield Pure("bdf-step-stats", h.segment_stats())
@@ -168,7 +187,11 @@ def _contract_bdf_step(h):
 
 @program_contract(
     "bdf-step-economy",
-    doc="setup-economy carry: pure; structural no-op at jac_window=1")
+    doc="setup-economy carry: pure; structural no-op at jac_window=1",
+    budget=Budget(flops_per_step=_jax_band(2.5e4, 1.2e5),
+                  peak_bytes=160 * 1024,
+                  doc="h2o2 fixture, jac_window=4 economy carry at B = 8, "
+                      "one attempt; the JAX band per lane"))
 def _contract_bdf_economy(h):
     # the carried factorization is data in the carry, never a host read
     yield Pure("bdf-step-economy", h.segment(
@@ -191,7 +214,11 @@ def _contract_bdf_economy(h):
 # --------------------------------------------------------------------------
 @program_contract(
     "sdirk-step",
-    doc="SDIRK step program, plain and stats-instrumented: pure")
+    doc="SDIRK step program, plain and stats-instrumented: pure",
+    budget=Budget(flops_per_step=_jax_band(4.5e4, 2.0e5),
+                  peak_bytes=128 * 1024,
+                  doc="h2o2 fixture step attempt at B = 8; the JAX band "
+                      "per lane"))
 def _contract_sdirk_step(h):
     yield Pure("sdirk-step", h.segment("sdirk-step", method="sdirk"))
     yield Pure("sdirk-step-stats", h.segment("sdirk-step-stats",
@@ -208,7 +235,11 @@ def _contract_sdirk_step(h):
 # --------------------------------------------------------------------------
 @program_contract(
     "bdf-step-lu32p",
-    doc="lu32p step program: pure, kernel actually present")
+    doc="lu32p step program: pure, kernel actually present",
+    budget=Budget(flops_per_step=_jax_band(2.5e4, 1.2e5),
+                  peak_bytes=128 * 1024, smem_bytes=SMEM_BUDGET_BYTES,
+                  doc="h2o2 fixture step at B = 8, the JAX band per lane; "
+                      "shared memory = one H100 block's opt-in limit"))
 def _contract_lu32p(h):
     rec = h.memo("segment-lu32p", lambda: h.segment(
         "bdf-step-lu32p", linsolve="lu32p"))
@@ -286,7 +317,11 @@ def _contract_stream(h, lanes, **kw):
     "sweep-segment", labels=("sweep-segment",),
     sites=("parallel/sweep.py::_build_segment_program",),
     doc="segment program (begin/window/end with the trajectory drain), "
-        "plain and stats-instrumented: pure")
+        "plain and stats-instrumented: pure",
+    budget=Budget(flops_per_step=_jax_band(4.5e4, 2.2e5, lanes=2),
+                  peak_bytes=192 * 1024,
+                  doc="h2o2 fixture segment at B = 8; the JAX 2-lane band "
+                      "per lane"))
 def _contract_segment(h):
     yield Pure("segment-pipelined-step", h.segment(
         "segment-pipelined-step", seg_save=2, n_save=8))

@@ -11,11 +11,16 @@ steps and of the threaded host stack.
   kernel nodes read); ``--concurrency`` runs the host-concurrency lint
   (:mod:`.concurrency`) over the threaded host modules; ``--tier C`` is
   both (plus the tier-A scan of any paths given).
+* **Tier D** — ``--budgets`` evaluates every contract's armed cost
+  :class:`~.budgets.Budget` against the static cost model's walk of its
+  recorded program (:mod:`.costmodel`: FLOPs per attempt band, peak
+  residency and ``lu32p`` shared-memory ceilings); it implies
+  ``--contracts``.  ``--tier D`` is tier C plus ``--budgets``.
 
-The JAX package's tier B (``--jaxpr``) and tier D (``--budgets``) walk
-jaxprs and have no counterpart here.  There is no silent fallback: a
-contract tier that cannot run (``--device cuda`` without a card or
-``nvcc``) raises and exits non-zero; it never reports clean.
+The JAX package's tier B (``--jaxpr``) audits jaxprs and has no
+counterpart here: it is refused as a usage error.  There is no silent
+fallback: a contract tier that cannot run (``--device cuda`` without a
+card or ``nvcc``) raises and exits non-zero; it never reports clean.
 
 **Exit-code contract** (as the JAX CLI's, with ``--json`` exactly as
 without): 0 = clean (or fully baselined), 1 = one or more findings
@@ -25,6 +30,7 @@ rather than printing an empty findings list.
 Examples:
   python -m batchreactor_tpu_torch.tools.brlint batchreactor_tpu_torch/ chip_smoke.py
   python -m batchreactor_tpu_torch.tools.brlint --tier C --device cpu
+  python -m batchreactor_tpu_torch.tools.brlint --tier D --device cpu
   python batchreactor_tpu_torch/tools/brlint.py batchreactor_tpu_torch/  # no torch needed
 """
 
@@ -43,15 +49,15 @@ def _build_parser():
                     "PyTorch/CUDA port (batchreactor_tpu_torch)")
     p.add_argument("paths", nargs="*", help="files or directories to "
                                             "scan (tier A)")
-    p.add_argument("--tier", choices=["A", "C", "a", "c"],
+    p.add_argument("--tier", choices=["A", "C", "D", "a", "c", "d"],
                    help="run a whole tier: A = AST scan of paths, "
                         "C = --contracts + --concurrency (plus the tier-A "
-                        "scan of any paths given)")
+                        "scan of any paths given), D = tier C + --budgets")
     p.add_argument("--select", help="comma-separated rule names to run "
                                     "(default: all)")
     p.add_argument("--list-rules", action="store_true",
-                   help="print the rule catalogue (tier A + "
-                        "concurrency) and exit")
+                   help="print the rule catalogue (tier A, "
+                        "concurrency and budgets) and exit")
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="machine-readable output")
     p.add_argument("--baseline", metavar="FILE",
@@ -65,6 +71,12 @@ def _build_parser():
                    help="tier C: step-program contract engine — every "
                         "registered contract, the completeness check, "
                         "and the fingerprint/counter registry audits")
+    p.add_argument("--budgets", action="store_true",
+                   help="tier D: evaluate every contract's armed cost "
+                        "Budget against the static cost model "
+                        "(analysis/costmodel.py): FLOPs per attempt band, "
+                        "peak-residency and lu32p shared-memory ceilings; "
+                        "implies --contracts")
     p.add_argument("--concurrency", action="store_true",
                    help="tier C: host-concurrency lint over the threaded "
                         "host modules (serving/, fleet/, obs/live.py, "
@@ -84,15 +96,22 @@ def main(argv=None):
 
     from .concurrency import CONCURRENCY_RULES, lint_concurrency_paths
 
-    if args.tier and args.tier.upper() == "C":
+    if args.tier and args.tier.upper() in ("C", "D"):
         args.contracts = True
         args.concurrency = True
+        args.budgets = args.budgets or args.tier.upper() == "D"
+    if args.budgets:
+        args.contracts = True   # budgets ride the contract engine
 
     if args.list_rules:
+        from .budgets import BUDGET_RULES
+
         for name, rule in sorted(all_rules().items()):
             print(f"{name:28s} {rule.rule_doc}")
         for name, doc in sorted(CONCURRENCY_RULES.items()):
             print(f"{name:28s} [concurrency] {doc}")
+        for name, doc in sorted(BUDGET_RULES.items()):
+            print(f"{name:28s} [budget] {doc}")
         return 0
 
     if not args.paths and not args.contracts and not args.concurrency:
@@ -145,7 +164,8 @@ def main(argv=None):
 
         census = []
         contract_findings = run_contracts(
-            fixtures_dir=args.fixtures, device=args.device, census=census)
+            fixtures_dir=args.fixtures, device=args.device, census=census,
+            budgets=args.budgets)
         findings = findings + contract_findings
 
     if args.as_json:
@@ -163,7 +183,8 @@ def main(argv=None):
             print(f"brlint: stale baseline entry {fp} (finding no longer "
                   f"produced — remove it from the baseline)")
         tier_c = (f", {len(contract_findings)} from the contract engine "
-                  f"({len(census)} contracts on {args.device})"
+                  f"({len(census)} contracts on {args.device}"
+                  f"{', budgets on' if args.budgets else ''})"
                   if census is not None else "")
         print(f"brlint: {len(findings)} finding(s){tier_c}, "
               f"{len(baselined)} baselined, {n_suppressed} suppressed")

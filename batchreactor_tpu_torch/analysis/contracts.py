@@ -42,7 +42,11 @@ dtypes, shapes and devices.  On ``device="cuda"`` each step is captured
 through ``Program``'s own capture path, in debug mode: the graph's DOT
 dump gives its nodes by kind and its kernel nodes (function and launch
 configuration, in capture order), and the op recorder runs during the
-capture too.
+capture too.  Beside the op rows the recorder keeps a residency track
+(the storages each op read and wrote, and marks where each step and each
+fixed-trip loop pass starts), which the cost tier walks
+(:mod:`.costmodel`); ``run_contracts(budgets=True)`` evaluates each
+contract's armed :class:`~.budgets.Budget` against that walk.
 
 Two repo-level registry audits ride the same tier:
 :func:`fingerprint_registry_findings` (every schema-changing knob of
@@ -63,6 +67,7 @@ import time
 import traceback
 import warnings
 
+from .budgets import CostProbe, check_budget
 from .core import Finding
 from .reachability import _Aliases, is_program_ctor
 
@@ -89,12 +94,20 @@ class Recording:
     ``error`` the capture's exception if it failed; ``nodes`` the captured
     graphs' nodes by kind; ``dump_kernels`` their kernel nodes (function
     and launch configuration) in capture order; ``launches`` the
-    ``lu32p`` launches the captures counted, by path."""
+    ``lu32p`` launches the captures counted, by path.
+
+    ``track`` is the cost walker's residency track (:func:`_op_log`),
+    beside ``ops`` and never part of :meth:`signature`: per op row the
+    storages it read and wrote, whether it ran inside a capture, and the
+    scalar arguments a cost rule reads; the marks of each step's start,
+    each loop pass (``solver.graphs.loop_pass``) and each step's
+    outputs."""
 
     tag: str
     device: str
     steps: tuple
     ops: list = dataclasses.field(default_factory=list)
+    track: dict = dataclasses.field(default_factory=dict)
     captured: bool = False
     error: str = None
     nodes: dict = dataclasses.field(default_factory=dict)
@@ -122,7 +135,14 @@ class Recording:
 
 def _op_log():
     """A ``TorchDispatchMode`` that appends one row per aten op to its
-    ``rows`` (:class:`Recording` ``ops``)."""
+    ``rows`` (:class:`Recording` ``ops``) and the residency track to its
+    ``track``: per row the storages read (``ins``, ``(id, bytes)``) and
+    written (``outs``, ``(id, bytes, fresh)``: fresh where the op
+    allocated the storage, not where it wrote into or viewed an input's),
+    whether it ran inside a capture, and its scalar arguments (``scalars``:
+    an integer exponent or an accumulating index_put changes what a cost
+    rule charges); and the ``marks`` (:meth:`mark`).  A storage is known by
+    its address until an op allocates a fresh one there."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
@@ -133,13 +153,49 @@ def _op_log():
                 tuple(tuple(t.shape) for t in ts),
                 tuple(t.device.type for t in ts))
 
+    def storages(x):
+        out = []
+        for t in tree_leaves(x):
+            if isinstance(t, torch.Tensor):
+                try:
+                    st = t.untyped_storage()
+                    out.append((st.data_ptr(), st.nbytes()))
+                except (RuntimeError, NotImplementedError):
+                    pass    # a storage-less tensor (a zero tensor)
+        return out
+
     class OpLog(TorchDispatchMode):
         def __init__(self):
             super().__init__()
             self.rows = []
+            self.track = {"ins": [], "outs": [], "capturing": [],
+                          "scalars": [], "marks": []}
+            self._ids = {}
+            self._next = 0
+            self._cuda = torch.cuda.is_available()
+
+        def _sid(self, ptr, fresh=False):
+            if fresh or ptr not in self._ids:
+                self._next += 1
+                self._ids[ptr] = self._next
+            return self._ids[ptr]
+
+        def _capturing(self):
+            return self._cuda and torch.cuda.is_current_stream_capturing()
+
+        def mark(self, kind, label, tensors=None):
+            """Mark the next row: ``("step", name)`` where a step starts,
+            ``("pass", loop)`` where a loop pass starts, ``("outputs",
+            name)`` after a step, with the storages of its ``tensors``
+            (the state it leaves: live to the step's end)."""
+            ids = tuple(self._sid(p) for p, _ in storages(tensors)) \
+                if tensors is not None else ()
+            self.track["marks"].append((len(self.rows), kind, label,
+                                        self._capturing(), ids))
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            ins = storages((args, kwargs))
             out = func(*args, **kwargs)
             name = str(func)
             bool_index = name.startswith(_INDEX_OPS) and any(
@@ -147,6 +203,16 @@ def _op_log():
                 for t in tree_leaves(args[1:]))
             self.rows.append((name,) + desc((args, kwargs)) + desc(out)
                              + (bool_index,))
+            read = {p for p, _ in ins}
+            self.track["ins"].append(tuple((self._sid(p), b)
+                                           for p, b in ins))
+            self.track["outs"].append(tuple(
+                (self._sid(p, fresh=p not in read), b, p not in read)
+                for p, b in storages(out)))
+            self.track["capturing"].append(self._capturing())
+            self.track["scalars"].append(tuple(
+                a for a in tuple(args[1:]) + tuple(kwargs.values())
+                if isinstance(a, (bool, int, float))))
             return out
 
     return OpLog()
@@ -273,6 +339,8 @@ def _pure_findings(ob):
 
 
 def _check_obligation(ob):
+    if isinstance(ob, CostProbe):
+        return []   # costed by the tier-D budget pass, not here
     if isinstance(ob, Pure):
         return _pure_findings(ob)
     if isinstance(ob, Identical):
@@ -316,12 +384,13 @@ class ProgramContract:
     sites: tuple       # graphs.Program construction sites this covers
     doc: str
     module: str        # the module that registered it, for reports
+    budget: object = None   # optional tier-D Budget (cost bounds)
 
 
 _REGISTRY = {}
 
 
-def program_contract(name, *, labels=(), sites=(), doc=""):
+def program_contract(name, *, labels=(), sites=(), doc="", budget=None):
     """Decorator registering a captured program's contract (the census
     lives in :mod:`.census`):
 
@@ -333,14 +402,18 @@ def program_contract(name, *, labels=(), sites=(), doc=""):
     program runs under, ``sites`` its ``graphs.Program(`` construction
     sites as ``"<path in the package>::<enclosing function>"`` (the
     completeness check matches both); the builder receives the shared
-    :class:`Harness` and yields obligations.  Re-registration under the
-    same name replaces (module reload in tests)."""
+    :class:`Harness` and yields obligations.  ``budget`` arms a tier-D
+    :class:`~.budgets.Budget`: with ``run_contracts(budgets=True)`` the
+    engine costs the contract's first recorded obligation (or its
+    :class:`~.budgets.CostProbe`) with :mod:`.costmodel` and bands it.
+    Re-registration under the same name replaces (module reload in
+    tests)."""
 
     def deco(fn):
         _REGISTRY[name] = ProgramContract(
             name=name, build=fn, labels=tuple(labels), sites=tuple(sites),
             doc=doc or (fn.__doc__ or "").strip().split("\n")[0],
-            module=fn.__module__)
+            module=fn.__module__, budget=budget)
         return fn
 
     return deco
@@ -493,11 +566,14 @@ class Harness:
                 # index tensors, a kernel library's load happen there,
                 # outside the capture and outside the record
                 prog.steps[name](prog.state)
-                with log, graphs.debug_capture():
+                log.mark("step", name)
+                with log, graphs.debug_capture(), graphs.pass_marks(
+                        lambda loop: log.mark("pass", loop)):
                     if prog.on_cuda and not capture:
                         prog.state.update(prog.steps[name](prog.state))
                     else:
                         prog.run(name)
+                log.mark("outputs", name, prog.state)
             if cuda:
                 torch.cuda.synchronize(self.device)
         except Exception as e:  # noqa: BLE001 — a capture that fails is
@@ -506,6 +582,7 @@ class Harness:
                 raise
             rec.error = f"{type(e).__name__}: {e}"
         rec.ops = log.rows
+        rec.track = log.track
         if cuda and rec.error is None:
             rec.captured = True
             self._read_graphs(rec, prog, steps)
@@ -784,30 +861,67 @@ def completeness_findings(root=None):
 # --------------------------------------------------------------------------
 # the engine
 # --------------------------------------------------------------------------
+def _costed(ob):
+    """``(tag, Recording)`` pairs an obligation offers the cost tier: its
+    recording (:class:`Pure`, :class:`Contains`, a ``CostProbe``), or an
+    :class:`Identical`'s second side (the first is a shared baseline)."""
+    if isinstance(ob, Identical):
+        return [(ob.b.tag, ob.b)] if isinstance(ob.b, Recording) else []
+    rec = getattr(ob, "recording", None)
+    return [(ob.tag, rec)] if isinstance(rec, Recording) else []
+
+
 def run_contracts(fixtures_dir=None, select=None, registry_audits=True,
-                  device="cpu", census=None):
+                  device="cpu", census=None, budgets=False, table=None):
     """Tier C (a): load the census (populating the registry),
     build the shared harness on ``device``, evaluate every contract's
     obligations, and append the completeness check plus —
     ``registry_audits`` — the fingerprint-completeness and
     counter-registry audits.  ``census`` (a list) receives one entry per
-    contract run: its programs, obligations, findings and wall.  Returns a
-    list of :class:`~.core.Finding` (empty = every contract holds).
-    Raises where the tier cannot run (``device="cuda"`` without a card or
+    contract run: its programs, obligations, findings and wall.  With
+    ``budgets=True`` (tier D) each contract's armed
+    :class:`~.budgets.Budget` is evaluated against the
+    :mod:`.costmodel` walk of its program: its ``CostProbe``, else its
+    first :class:`Pure` or :class:`Contains` recording.  ``table`` (a
+    dict) receives ``{"<contract>/<tag>": Cost}`` of every recorded
+    obligation (:func:`~.costmodel.contract_cost_table`).  Returns a list
+    of :class:`~.core.Finding` (empty = every contract holds).  Raises
+    where the tier cannot run (``device="cuda"`` without a card or
     ``nvcc``)."""
+    from .costmodel import cost_program
+
     load_census()
     findings = []
     harness = Harness(fixtures_dir, device=device)
+    # each recording costed once; kept beside its cost, as an id names an
+    # object only while it lives
+    costs = {}
+
+    def cost_of(rec):
+        if id(rec) not in costs:
+            costs[id(rec)] = (rec, cost_program(rec))
+        return costs[id(rec)][1]
+
     for name, contract in _REGISTRY.items():
         if select is not None and name not in select:
             continue
         n_obligations, n_found = 0, len(findings)
         first = len(harness.recordings)
         t0 = time.perf_counter()
+        probe, probe_explicit, budget = None, False, None
         try:
             for ob in contract.build(harness):
                 n_obligations += 1
                 findings.extend(_check_obligation(ob))
+                offered = _costed(ob)
+                if table is not None:
+                    for tag, rec in offered:
+                        key = name if tag == name else f"{name}/{tag}"
+                        table.setdefault(key, cost_of(rec))
+                explicit = isinstance(ob, CostProbe)
+                if offered and not isinstance(ob, Identical) and (
+                        probe is None or (explicit and not probe_explicit)):
+                    probe, probe_explicit = offered[0], explicit
         except Exception as e:  # noqa: BLE001 — one broken contract
             #                     must not silence the rest of the run
             tb = traceback.format_exc(limit=3)
@@ -821,6 +935,24 @@ def run_contracts(fixtures_dir=None, select=None, registry_audits=True,
                     "contract-empty", f"<contracts:{name}>", 0, 0,
                     f"contract {name!r} ({contract.module}) yielded no "
                     f"obligations: it verifies nothing"))
+            if budgets and contract.budget is not None:
+                if probe is None:
+                    findings.append(Finding(
+                        "budget-unbound", f"<budget:{name}>", 0, 0,
+                        f"contract {name!r} ({contract.module}) arms a "
+                        f"budget= but yielded no recorded program to "
+                        f"cost; yield a CostProbe"))
+                else:
+                    cost = cost_of(probe[1])
+                    broken = check_budget(name, contract.module,
+                                          contract.budget, cost,
+                                          tag=probe[0])
+                    findings.extend(broken)
+                    budget = {"tag": probe[0], "held": not broken,
+                              "band": contract.budget.flops_per_step,
+                              **{k: v for k, v in cost.as_dict().items()
+                                 if k in ("flops", "transcendentals",
+                                          "peak_bytes", "smem_bytes")}}
         if census is not None:
             census.append({
                 "name": name, "module": contract.module,
@@ -830,6 +962,8 @@ def run_contracts(fixtures_dir=None, select=None, registry_audits=True,
                 "seconds": time.perf_counter() - t0,
                 "programs": [r.census() for r in
                              harness.recordings[first:]]})
+            if budget is not None:
+                census[-1]["budget"] = budget
     if select is None:
         findings.extend(completeness_findings())
         if registry_audits:

@@ -505,11 +505,20 @@ class SolverSession:
         ``compact`` step runs too — and pin the programs to the session.
         Returns the list of warmed ``{"energy", "rung", "linsolve",
         "source"}`` entries; :attr:`warmup_summary` holds the captures and
-        the wall."""
+        the wall.
+
+        With ``log``, before anything is captured, one line per warmed rung
+        gives the static cost model's predicted resident memory
+        (``analysis/costmodel.py::estimate_rung``, the JAX formula), and a
+        last line the total over the rungs and epochs, so a mis-sized
+        resident cap shows in the startup log before the card pays for
+        it."""
         from ..obs import CompileWatch
         from ..solver import graphs
 
         t0 = time.perf_counter()
+        if log is not None:
+            self._log_memory_estimate(log)
         # the warmup's captures are its own, not the served window's
         entered = self._watch_entered
         if entered:
@@ -543,6 +552,40 @@ class SolverSession:
         if self.recorder is not None:
             self.recorder.counter("serve_warmup_s", wall)
         return warmed
+
+    def memory_estimate(self):
+        """The static cost model's resident-memory prediction for the
+        programs :meth:`warmup` captures
+        (``analysis/costmodel.py::estimate_rung``, the JAX formula): one
+        ``estimate_rung`` dict per :meth:`warmup_rungs` entry (every epoch
+        holds its own programs), and their total over the epochs."""
+        from ..analysis.costmodel import estimate_rung
+
+        S = (len(self.species) if self.mech_shape is None
+             else self.mech_shape[0])
+        R = (self.gm.n_reactions if self.mech_shape is None
+             else self.mech_shape[1])
+        rows = [estimate_rung(rung, S, R, method=self.spec.method,
+                              energy=mode is not None, linsolve=ls,
+                              jac_window=self.jac_window)
+                for mode, rung, ls in self.warmup_rungs()]
+        epochs = len(self.epoch_sources())
+        return rows, epochs * sum(r["hbm_bytes"] for r in rows)
+
+    def _log_memory_estimate(self, log):
+        """:meth:`warmup`'s pre-flight lines (:meth:`memory_estimate`)."""
+
+        def fmt(b):
+            return (f"{b / 2**20:.1f} MiB" if b >= 2**20
+                    else f"{b / 1024:.0f} KiB")
+
+        rows, total = self.memory_estimate()
+        for est, (mode, rung, ls) in zip(rows, self.warmup_rungs()):
+            log(f"[warmup] rung={rung} energy={mode} linsolve={ls} "
+                f"n={est['n']} predicted resident ~{fmt(est['hbm_bytes'])}")
+        log(f"[warmup] predicted resident memory across {len(rows)} "
+            f"warmed rung(s) x {len(self.epoch_sources())} epoch(s): "
+            f"~{fmt(total)} (static cost model, analysis/costmodel.py)")
 
     # ---- request -> lanes -------------------------------------------------
     def _solution_vectors(self, X, T, p):

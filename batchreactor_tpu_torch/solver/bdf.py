@@ -52,7 +52,7 @@ from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
                      init_timeline, jacfwd_lanes, nlive_of, ring_write, rms,
                      scaled_norm, stats_out)
 from .common import where_lanes as _where
-from .graphs import count, host_any
+from .graphs import count, host_any, loop_pass
 from .linalg import (apply_factor, factor_m, factor_zeros, make_solve_m,
                      resolve_linsolve)
 
@@ -411,6 +411,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         conv = torch.zeros(B, dtype=torch.bool, device=dev)
         div = ~live
         for it in range(max_newton):
+            loop_pass("newton")
             active = ~conv & ~div
             # the blocking gear's early exit (fixed=False); a captured
             # window passes fixed=True and never evaluates host_any
@@ -711,6 +712,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             c["st"] = st
         nf = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(jac_window):
+            loop_pass("attempt")
             active = ~nf & (c["status"] == RUNNING)
             # the blocking gear's early exit; fixed=True never reaches it
             if not fixed and not host_any(active):  # brlint: disable=host-sync-call

@@ -36,6 +36,12 @@ also lands on an ``obs.Recorder`` under the names of
 carries its own host syncs.  Program builds and graph captures are
 reported to the entered ``obs.CompileWatch`` instances
 (``obs/retrace.py``).
+
+A fixed-trip loop inside a step (a window's attempts, an attempt's Newton
+iterations) calls :func:`loop_pass` at the start of each pass: free unless
+a listener is entered (:func:`pass_marks`), which the contract engine's op
+log uses to fold a loop's repeated passes into one
+(``analysis/costmodel.py``).
 """
 
 import contextlib
@@ -68,6 +74,29 @@ _tally = threading.local()
 _sink = threading.local()
 # whether this thread captures its graphs in debug mode
 _debug = threading.local()
+# the listener of this thread's loop passes (None: off)
+_passes = threading.local()
+
+
+@contextlib.contextmanager
+def pass_marks(listener):
+    """Call ``listener(loop)`` at each :func:`loop_pass` of this thread for
+    the block."""
+    prev = getattr(_passes, "value", None)
+    _passes.value = listener
+    try:
+        yield
+    finally:
+        _passes.value = prev
+
+
+def loop_pass(loop):
+    """Mark the start of one pass of the fixed-trip loop ``loop``
+    (``"attempt"``, ``"newton"``) for the entered :func:`pass_marks`
+    listener; nothing happens without one."""
+    listener = getattr(_passes, "value", None)
+    if listener is not None:
+        listener(loop)
 
 
 @contextlib.contextmanager

@@ -35,7 +35,7 @@ from .common import (DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS,
                      SolveResult, Stepper, atol_scale_of, init_stats,
                      init_timeline, jacfwd_lanes, nlive_of, ring_write,
                      scaled_norm, stats_out, where_lanes)
-from .graphs import count, host_any
+from .graphs import count, host_any, loop_pass
 from .linalg import make_solve_m, resolve_linsolve
 
 # --- SDIRK4 tableau (Hairer & Wanner II, Table 6.5; gamma = 1/4) ---
@@ -233,6 +233,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
         div = ~live
         hg = (h * _GAMMA)[:, None]
         for it in range(max_newton):
+            loop_pass("newton")
             active = ~conv & ~div
             # the blocking gear's early exit (fixed=False); a captured
             # window passes fixed=True and never evaluates host_any
@@ -371,6 +372,7 @@ def make_stepper(rhs, cfg, B, n, dtype, device, *, rtol=1e-6, atol=1e-10,
             c["st"]["jac_builds"] = c["st"]["jac_builds"] + (
                 c["status"] == RUNNING)
         for i in range(jac_window):
+            loop_pass("attempt")
             c = step_once(c, J, fixed)
             # the blocking gear's early exit; fixed=True never reaches it
             if (not fixed and i + 1 < jac_window

@@ -5,6 +5,7 @@ threaded host stack (``batchreactor_tpu_torch/analysis/``).
   python -m batchreactor_tpu_torch.tools.brlint batchreactor_tpu_torch/ chip_smoke.py
   python -m batchreactor_tpu_torch.tools.brlint --tier C --device cpu
   python -m batchreactor_tpu_torch.tools.brlint --tier C --device cuda
+  python -m batchreactor_tpu_torch.tools.brlint --tier D --device cpu
   python -m batchreactor_tpu_torch.tools.brlint --concurrency --json
   python batchreactor_tpu_torch/tools/brlint.py batchreactor_tpu_torch/
 

@@ -60,15 +60,18 @@ class Phases:
 def device_trace(log_dir, device=None):
     """``torch.profiler`` trace spanning the with-block, written as a
     Chrome trace to ``<log_dir>/trace.json`` (yields that path).
-    ``device`` (default: CUDA when a GPU is available) adds the CUDA
-    activity; the CPU activity is always on."""
+    ``device`` (``None`` means ``cuda``, which raises without a GPU, as
+    every entry point of the port does) adds the CUDA activity;
+    ``device="cpu"`` traces the host alone.  The CPU activity is always
+    on."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    from ..device import resolve_device
+
+    device = resolve_device(device)
     acts = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
             raise RuntimeError("torch.profiler cannot trace CUDA here "
                                "(no CUPTI); device_trace has no fallback")
@@ -77,6 +80,6 @@ def device_trace(log_dir, device=None):
     path = os.path.join(str(log_dir), "trace.json")
     with profile(activities=acts) as prof:
         yield path
-        if torch.device(device).type == "cuda":
+        if device.type == "cuda":
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)

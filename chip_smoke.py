@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --serving-only   # phase 3, then phases 23-24
     python3 chip_smoke.py --native-only    # phases 3 and 5, then phase 25
     python3 chip_smoke.py --analysis-only  # phase 26 alone
+    python3 chip_smoke.py --cost-only      # phase 26's tier D alone
     python3 chip_smoke.py --northstar-only # phase 27 alone
 
 It builds every kernel of the port's paths from the checkout's sources
@@ -121,7 +122,16 @@ paths through its own entry points:
   captured on the h2o2 fixture at B = 8, every obligation held on the
   captured graphs, ``bdf-step-lu32p``'s graph containing the ``lu32p``
   kernel), and the ``lu32p`` window's replay against the same steps run
-  eagerly with the plain version;
+  eagerly with the plain version; then tier D (``analysis/costmodel.py``):
+  the cost table of the programs captured on the card equal to the CPU
+  table in FLOPs and transcendentals for every key, every armed budget
+  held, and ``lu32p_smem_bytes`` equal to ``launch_config``'s shared
+  memory for npad 8-240 and within the card's opt-in limit per block;
+- device memory: phases 3, 6, 11, 15, 23 (after the session's warmup) and
+  27 (b) (the map's chunks of 512) reset the caching allocator's peak
+  before the phase and print its peak and reserved bytes after it beside
+  ``estimate_rung``'s prediction for the phase's (B, n, R, linsolve) and
+  their ratio (reported, not asserted);
 - the north-star map (phase 27): ``tools/northstar_baseline.py`` on an
   8 x 8 sample of the map (the native BDF, one lane at a time) in a child
   process that cannot see the card, started beside phase 17; then
@@ -144,10 +154,10 @@ and per kernel); ``--profile-only`` runs only that,
 ``--telemetry-only`` only phase 3's sweep and phase 22,
 ``--serving-only`` only phase 3's sweep and phases 23-24,
 ``--native-only`` only phase 3's sweep, phase 5 and phase 25,
-``--analysis-only`` only phase 26, and ``--northstar-only`` only phase
-27, its baseline alone on the host first (these six print no contract
-line).  Each phase prints one JSON line; any failure
-raises and the script exits non-zero.  The line before the last lists every
+``--analysis-only`` only phase 26, ``--cost-only`` only phase 26's
+tier D, and ``--northstar-only`` only phase 27, its baseline alone on the
+host first (these seven print no contract line).  Each phase prints one
+JSON line; any failure raises and the script exits non-zero.  The line before the last lists every
 kernel (both paths of ``lu32p``) with its launches by path, its error
 against the plain version and its times on its own path's matrices; the
 last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -337,6 +347,37 @@ MAX_CLOCK_HZ = 1.98e9
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def reset_memory():
+    """Reset the caching allocator's peak before a phase; returns the
+    bytes allocated at that point (earlier phases' cached programs)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def memory_line(of, smi, at_reset, est):
+    """Print a phase's device memory since :func:`reset_memory`: the
+    allocator's peak and reserved bytes beside ``est``, the static cost
+    model's prediction (``estimate_rung``'s dict, or one with its
+    ``hbm_bytes``), and their ratio.  Reported, not asserted."""
+    import torch
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    pred = est["hbm_bytes"]
+    emit({"phase": "memory", "of": of, "gpu": smi,
+          "shape": {k: est[k] for k in ("B", "S", "R", "n", "method",
+                                        "energy", "linsolve", "jac_window",
+                                        "rungs", "epochs") if k in est},
+          "allocated_at_reset": at_reset, "max_memory_allocated": peak,
+          "memory_reserved": torch.cuda.memory_reserved(),
+          "predicted_hbm_bytes": pred,
+          "measured_over_predicted": peak / pred,
+          "growth_over_predicted": (peak - at_reset) / pred})
 
 
 def gpu_name_and_limit():
@@ -929,8 +970,11 @@ def phase_energy(bt, gm, th, device, smi, timing, by_phase):
     import torch
 
     # ---- phase 11: the energy path --------------------------------------
+    from batchreactor_tpu_torch.analysis.costmodel import estimate_rung
+
     phi_e, T_e, x_e = energy_conditions(gm, device)
     B_E = T_e.shape[0]
+    mem0 = reset_memory()
     t0 = time.perf_counter()
     energy_sweep(bt, gm, th, x_e, T_e, device)
     torch.cuda.synchronize()
@@ -973,6 +1017,9 @@ def phase_energy(bt, gm, th, device, smi, timing, by_phase):
           "lu32p_launches_by_path": by_phase["energy"],
           "kernel_share": launches_e * timing["energy_n54"]["hot_ms"]
           / 1e3 / wall_e})
+    memory_line("energy", smi, mem0, estimate_rung(
+        B_E, gm.n_species, gm.n_reactions, energy=True,
+        linsolve=out_e["linsolve"], jac_window=out_e["jac_window"]))
 
     # ---- phase 12: the energy path's cross-checks ------------------------
     t0 = time.perf_counter()
@@ -1164,7 +1211,10 @@ def phase_padded(bt, gm, th, T, tau_main, rep_main, device, smi, by_phase):
     the 53 live species in ``x``, tau within 1e-3 of phase 3's; the steps
     are reported against phase 3's (the two kernel paths round the live
     block differently, so they need not be equal on the card)."""
+    from batchreactor_tpu_torch.analysis.costmodel import estimate_rung
+
     pad = dict(species_buckets=(S_PAD,), reaction_buckets="pow2")
+    mem0 = reset_memory()
     _, _, _, cold = timed(lambda: sweep(bt, gm, th, T, device, **pad))
     out, launches, by_phase["padded_gas"], wall = timed(
         lambda: sweep(bt, gm, th, T, device, **pad))
@@ -1192,6 +1242,9 @@ def phase_padded(bt, gm, th, T, tau_main, rep_main, device, smi, by_phase):
           "tau_mean_rel_vs_phase3": float(rel.mean()),
           "lu32p_launches": launches,
           "lu32p_launches_by_path": by_phase["padded_gas"]})
+    memory_line("padded_gas", smi, mem0, estimate_rung(
+        B_MAIN, S_PAD, R_PAD, linsolve=out["linsolve"],
+        jac_window=out["jac_window"]))
 
 
 def ch4_theta(gm, th, reactions):
@@ -2372,6 +2425,7 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
     t_phase = time.perf_counter()
+    mem0 = reset_memory()
     B = case.lanes * case.requests
     cap = max(case.buckets)
     spec = load_spec(serve_spec(case, cap, case.buckets,
@@ -2388,6 +2442,12 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
           "graphs_captured": graphs.captures(),
           "programs_warmed": len(session.warmed),
           "rungs": sorted({w["rung"] for w in session.warmed})})
+    rows, total = session.memory_estimate()
+    memory_line("serving_warmup", smi, mem0, {
+        "hbm_bytes": total, "S": rows[0]["S"], "R": rows[0]["R"],
+        "n": rows[0]["n"], "rungs": [[r["B"], r["n"], r["linsolve"]]
+                                     for r in rows],
+        "epochs": len(session.epoch_sources())})
 
     # ---- (b) phase 3's lanes as concurrent requests -------------------------
     session.__enter__()
@@ -3269,7 +3329,7 @@ def phase_analysis(device, smi, by_phase):
     and replayed once, against the same steps run eagerly with
     ``lu32p_factor_plain``: every float of the solver's carry within the
     warp path's phase-2 bound 64 n eps32 of its lane-batch maximum, every
-    integer equal."""
+    integer equal.  (d) Tier D (:func:`cost_on_card`)."""
     walls = {}
     t_static = time.perf_counter()
     kid = subprocess.Popen(
@@ -3307,12 +3367,13 @@ def analysis_on_card(smi, by_phase, walls):
     from batchreactor_tpu_torch.solver import graphs, linalg
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
-    # ---- (b) the contract tier on the card ------------------------------
-    census = []
+    # ---- (b) the contract tier on the card, budgets armed ----------------
+    census, card_table = [], {}
     graphs.reset_counts()
     t0 = time.perf_counter()
     findings, _, by_phase["analysis"] = counted(
-        lambda: C.run_contracts(device="cuda", census=census))
+        lambda: C.run_contracts(device="cuda", census=census, budgets=True,
+                                table=card_table))
     walls["contracts_s"] = time.perf_counter() - t0
     for entry in census:
         emit({"phase": "analysis_contract", "gpu": smi, **{
@@ -3358,12 +3419,14 @@ def analysis_on_card(smi, by_phase, walls):
                              f"from its eager plain twin: {worst} of the "
                              f"lane-batch max (bound {bound}), {unequal} "
                              f"unequal integers")
+    # ---- (d) tier D --------------------------------------------------------
+    cost = cost_on_card(smi, card_table, census, walls)
     nodes = {}
     for entry in census:
         for p in entry["programs"]:
             for k, v in p["nodes"].items():
                 nodes[k] = nodes.get(k, 0) + v
-    return {"contracts": len(census),
+    return {"contracts": len(census), "cost": cost,
             "obligations": sum(e["obligations"] for e in census),
             "programs": sum(len(e["programs"]) for e in census),
             "captured_programs": sum(p["captured"] for e in census
@@ -3372,6 +3435,85 @@ def analysis_on_card(smi, by_phase, walls):
             "replay_vs_plain": {"max_rel": worst, "bound": bound,
                                 "unequal_integers": unequal, "n": n,
                                 "B": h.B}}
+
+
+def cost_on_card(smi, card_table, census, walls):
+    """Phase 26 (d), tier D (``analysis/costmodel.py``) on the programs (b)
+    captured: (1) their cost table equals the CPU table (the same
+    contracts recorded eagerly on the CPU in this process) in FLOPs and
+    transcendentals for every key, the same keys on both; (2) every armed
+    budget held on the card ((b) evaluated them: its findings would have
+    failed it); (3) ``lu32p_smem_bytes`` equals ``launch_config``'s shared
+    memory at every npad 8-240 and stays within the card's opt-in shared
+    memory per block, and npad 248 has no kernel.  Prints the
+    ``analysis_cost`` line; returns its summary."""
+    import torch
+
+    from batchreactor_tpu_torch.analysis import costmodel as cm
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # small eager ops: one thread is faster
+    try:
+        cpu_table = cm.contract_cost_table(device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    walls["cost_cpu_table_s"] = time.perf_counter() - t0
+    unequal = sorted(
+        k for k in set(cpu_table) | set(card_table)
+        if k not in cpu_table or k not in card_table
+        or cpu_table[k].flops != card_table[k].flops
+        or cpu_table[k].transcendentals != card_table[k].transcendentals)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    smem = {npad: cm.lu32p_smem_bytes(npad) for npad in range(8, 241, 8)}
+    smem_bad = [npad for npad, b in smem.items()
+                if b != lc.launch_config(1, npad)["smem"] or b > optin]
+    budgets = {e["name"]: e["budget"] for e in census if "budget" in e}
+    summary = {
+        "programs_costed": len(card_table),
+        "unequal_keys": unequal,
+        "budgets": budgets,
+        "budgets_held": all(b["held"] for b in budgets.values()),
+        "smem_bytes_npad8_240": [smem[8], smem[240]],
+        "smem_max_bytes": max(smem.values()),
+        "smem_optin_bytes": optin, "smem_unequal_npad": smem_bad,
+        "smem_npad248": cm.lu32p_smem_bytes(248),
+        "table": {k: {m: card_table[k].as_dict()[m] for m in (
+            "flops", "transcendentals", "bytes_moved", "peak_bytes",
+            "smem_bytes", "n_while", "n_pallas")}
+            for k in sorted(card_table)},
+        "cpu_table_s": walls["cost_cpu_table_s"]}
+    emit({"phase": "analysis_cost", "gpu": smi, **summary})
+    if (unequal or smem_bad or len(budgets) != 6
+            or not summary["budgets_held"]
+            or summary["smem_npad248"] is not None):
+        raise AssertionError(
+            f"analysis: tier D on the card: unequal keys {unequal}, smem "
+            f"off launch_config or past {optin} at npad {smem_bad}, budgets "
+            f"{budgets}, npad 248 {summary['smem_npad248']}")
+    return {k: summary[k] for k in ("programs_costed", "budgets_held",
+                                    "smem_max_bytes", "smem_optin_bytes")}
+
+
+def cost_main(device, smi):
+    """``--cost-only``: phase 26's tier D alone (after phase 1's build):
+    the contract tier on the card with budgets armed, its cost table, then
+    :func:`cost_on_card`.  Prints no contract line."""
+    from batchreactor_tpu_torch.analysis import contracts as C
+
+    t0 = time.perf_counter()
+    census, card_table, walls = [], {}, {}
+    findings = C.run_contracts(device="cuda", census=census, budgets=True,
+                               table=card_table, registry_audits=False)
+    walls["contracts_s"] = time.perf_counter() - t0
+    if findings:
+        raise AssertionError("cost: the contract tier on cuda found:\n"
+                             + "\n".join(f.render() for f in findings))
+    cost_on_card(smi, card_table, census, walls)
+    emit({"phase": "walls", "cost_s": time.perf_counter() - t0, **walls})
+    print(smi, flush=True)
+    return 0
 
 
 def start_analysis():
@@ -3413,7 +3555,8 @@ def finish_analysis(kid, smi, by_phase, timeout=900.0):
                              f"{kid['proc'].returncode} (timed out "
                              f"{timed_out}):\n{text[-4000:]}")
     for r in rows:
-        if r.get("phase") in ("analysis_contract", "analysis"):
+        if r.get("phase") in ("analysis_contract", "analysis_cost",
+                              "analysis"):
             emit({**r, "child_wall_s": wall} if r["phase"] == "analysis"
                  else r)
     by_phase["analysis"] = walls[-1]["launches_by_phase"]["analysis"]
@@ -3503,6 +3646,7 @@ def phase_northstar(gm, th, device, smi, by_phase, kid):
     from batchreactor_tpu_torch.ops.rhs import make_gas_jac, make_gas_rhs
     from batchreactor_tpu_torch.parallel import (ensemble_solve_segmented,
                                                  ignition_observer)
+    from batchreactor_tpu_torch.analysis.costmodel import estimate_rung
     from batchreactor_tpu_torch.solver import graphs
     from batchreactor_tpu_torch.tools import northstar_sweep as ns
 
@@ -3541,7 +3685,12 @@ def phase_northstar(gm, th, device, smi, by_phase, kid):
 
         # (b) the map, cold
         graphs.reset_counts()
+        mem0 = reset_memory()
         (rec, res), _, by_phase["northstar"], wall = timed(run)
+        # chunks of NS_CHUNK run one after another: the peak is one chunk's
+        memory_line("northstar_chunk", smi, mem0, estimate_rung(
+            NS_CHUNK, gm.n_species, gm.n_reactions, linsolve="lu32p",
+            jac_window=8))
         B = NS_N * NS_N
         check_launches("northstar", by_phase["northstar"], "warp")
         if rec["counts"] != {"success": B}:
@@ -3824,6 +3973,8 @@ def main():
     northstar_only = "--northstar-only" in sys.argv[1:]
     if "--analysis-only" in sys.argv[1:]:
         return analysis_main(device, smi)
+    if "--cost-only" in sys.argv[1:]:
+        return cost_main(device, smi)
     t0 = time.perf_counter()
     gm = bt.compile_gaschemistry(os.path.join(FIXTURES, "grimech.dat"))
     th = bt.create_thermo(list(gm.species),
@@ -3884,7 +4035,10 @@ def main():
     emit({"phase": "kernel_checked", "seconds": time.perf_counter() - t0})
 
     # ---- phase 3: the main path -----------------------------------------
+    from batchreactor_tpu_torch.analysis.costmodel import estimate_rung
+
     T = np.linspace(T_LO, T_HI, B_MAIN)
+    mem0 = reset_memory()
     t0 = time.perf_counter()
     sweep(bt, gm, th, T, device)
     torch.cuda.synchronize()
@@ -3924,6 +4078,9 @@ def main():
           "gear": "pipelined", "graph_replays": counts3["replays"],
           "host_syncs": counts3["host_syncs"],
           "graphs_captured_warm": graphs.captures()})
+    memory_line("gas_main", smi, mem0, estimate_rung(
+        B_MAIN, gm.n_species, gm.n_reactions, linsolve=out["linsolve"],
+        jac_window=out["jac_window"]))
 
     if "--profile" in sys.argv[1:]:
         # both gears: the blocking one's warm wall first, unprofiled
@@ -3959,6 +4116,7 @@ def main():
     by_phase = {"gas_main": by_path}
     Tc, Asv = coupled_conditions()
     B_C = Tc.shape[0]
+    mem0 = reset_memory()
     t0 = time.perf_counter()
     coupled_sweep(bt, gm, th, sm, Tc, Asv, T1_C, device)
     torch.cuda.synchronize()
@@ -3981,6 +4139,11 @@ def main():
           "min_accepted": rep["n_accepted"]["min"],
           "covg_sum_max_dev": dev_c,
           "lu32p_launches_by_path": by_phase["coupled"]})
+    # the coupled state: n = 53 gas + 13 coverages, R = 325 + 42
+    memory_line("coupled", smi, mem0, estimate_rung(
+        B_C, gm.n_species + sm.n_surface_species,
+        gm.n_reactions + sm.n_reactions,
+        linsolve=out_c["linsolve"], jac_window=out_c["jac_window"]))
 
     # ---- phase 7: the CTA kernel on the coupled path ---------------------
     # the same sweep with linsolve="lu32p" over its first T1_C_LU32P s,

@@ -197,15 +197,26 @@ def test_cli_exit_codes_match_the_jax_cli(seeded, tmp_path, capsys,
     assert "recapture-hazard" in capsys.readouterr().out
 
 
-def test_cli_rejects_the_jaxpr_tiers(capsys):
-    """Tiers B and D walk jaxprs: the port's CLI refuses them as a usage
-    error rather than scanning nothing."""
-    for argv in (["--tier", "B"], ["--tier", "D"], ["--jaxpr"],
-                 ["--budgets"]):
+def test_cli_rejects_the_jaxpr_tiers(capsys, monkeypatch):
+    """Tier B audits jaxprs: the port's CLI refuses it as a usage error
+    rather than scanning nothing.  Tier D runs (since the cost model walks
+    the recorded op logs): ``--tier D`` and ``--budgets`` run the contract
+    engine with the budgets armed (the engine itself is stubbed here;
+    tests/test_torch_costmodel.py runs it)."""
+    for argv in (["--tier", "B"], ["--jaxpr"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(argv)
         assert e.value.code == 2, argv
-    capsys.readouterr()
+    calls = []
+    monkeypatch.setattr(C, "run_contracts",
+                        lambda **kw: calls.append(kw) or [])
+    for argv in (["--tier", "D"], ["--budgets"], ["--tier", "C"]):
+        assert tcli.main(argv) == 0, argv
+    assert [c["budgets"] for c in calls] == [True, True, False]
+    out = capsys.readouterr().out
+    assert "budgets on" in out
+    assert tcli.main(["--list-rules"]) == 0
+    assert "budget-smem" in capsys.readouterr().out
 
 
 def test_env_registry_classes_agree_with_the_jax_registry():

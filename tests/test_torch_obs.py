@@ -532,3 +532,18 @@ def test_sensitivity_runs_record_spans_and_counters():
                                                   "adjoint_grad"]
     np.testing.assert_array_equal(aux["stats"]["n_accepted"].numpy(),
                                   aux["n_accepted"].numpy())
+
+
+def test_device_trace_means_cuda_and_traces_the_cpu_by_name(tmp_path):
+    """``device_trace(dir)`` means ``cuda``, as every entry point of the
+    port: without a card it raises instead of quietly tracing the host;
+    ``device="cpu"`` writes a Chrome trace of the host."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            with prof.device_trace(str(tmp_path / "none")):
+                pass
+        assert not (tmp_path / "none" / "trace.json").exists()
+    with prof.device_trace(str(tmp_path / "cpu"), device="cpu") as path:
+        torch.ones(4, dtype=torch.float64).sum()
+    with open(path) as f:
+        assert "traceEvents" in f.read()
