@@ -53,11 +53,14 @@ from .io.config import input_data, parse_composition_text
 from .io.writers import trim_trajectory, write_profiles
 from .models.padding import (nlive_cfg, pad_gas_mechanism, pad_states,
                              pad_thermo)
+from .obs.recorder import current as current_recorder
+from .obs.recorder import recording
 from .ops.rhs import (make_gas_jac, make_gas_rhs, make_surface_jac,
                       make_surface_rhs, make_udf_rhs)
 from .parallel.sweep import (ensemble_solve_segmented, ignition_observer,
                              pad_to_bucket, resolve_admission, sweep_report,
                              unpad_result)
+from .solver import graphs
 from .solver.common import DT_UNDERFLOW, MAX_STEPS_REACHED, RUNNING, SUCCESS
 from .solver.linalg import resolve_linsolve
 from .utils.composition import density, mole_to_mass
@@ -352,6 +355,36 @@ def _sweep_mode(chem, md, gmd, smd, thermo_obj):
                      "and/or userchem")
 
 
+def _traced_sweep(fn):
+    """``batch_reactor_sweep``'s ``sweep`` span on the thread's current
+    recorder (``obs.recording``), around the device window that times the
+    sweep and its graph replays (``graphs.device_window``: one CUDA
+    device, no mesh; its seconds land on the recorder's counters and on
+    the span's attributes).  With no recorder entered it adds one
+    thread-local read."""
+
+    @functools.wraps(fn)
+    def sweep(*args, **kwargs):
+        rec = current_recorder()
+        if rec is None:
+            return fn(*args, **kwargs)
+        dev = kwargs.get("device")
+        if kwargs.get("mesh") is not None:
+            dev = None
+        elif dev is not None or torch.cuda.is_available():
+            dev = resolve_device(dev)
+        with rec.span("sweep") as sp:
+            with graphs.device_window(rec, dev) as win:
+                out = fn(*args, **kwargs)
+            if win is not None and win.seconds is not None:
+                # this sweep's own reading, beside the counters' totals
+                sp["attrs"].update(win.seconds)
+            return out
+
+    return sweep
+
+
+@_traced_sweep
 def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
                         md=None, gmd=None, smd=None, Asv=1.0, rtol=1e-6,
                         atol=1e-10, max_steps=200_000, segment_steps=0,
@@ -467,7 +500,12 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
     an int: that port; ``None`` resolves from ``BR_METRICS_PORT``), fed at
     the driver's status polls; the bound port is the report's
     ``meta["live_port"]``.  With telemetry off the solver carry and the
-    return shape are unchanged.
+    return shape are unchanged.  Inside ``obs.recording(rec)`` the sweep
+    is a ``sweep`` span on ``rec`` with the driver's spans under it (the
+    pipelined gear's ``prep``: program build and inputs, ``segment``,
+    ``poll``, ``finish``: the final fetch and its result), and on one CUDA
+    device its ``sweep_device_window_s`` and ``replay_device_s`` counters
+    (``solver/graphs.py``), with no ``stats`` and the same results.
     """
     from .obs import (CompileWatch, LiveRegistry, MetricsServer, Recorder,
                       build_report)
@@ -686,7 +724,8 @@ def batch_reactor_sweep(inlet_comp, T, p, time, *, chem=None, thermo_obj=None,
             if pass_name == "retry":
                 # the identical call: same program, same batch shape (no
                 # recorder: the re-solve's spans would count twice)
-                return primary()
+                with recording(None):
+                    return primary()
             kw = fallback_kwargs(qpol, {"rtol": rtol, "atol": atol,
                                         "max_steps": max_steps})
             ms = kw["max_steps"]

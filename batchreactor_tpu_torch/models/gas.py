@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.recorder import spanned
 from ..utils.constants import CAL_TO_J, R
 
 #: tensor fields of :class:`GasMechanism`, in declaration order
@@ -350,6 +351,7 @@ def _parse_reaction_line(line, rxns, e_factor):
         rxns[-1].eff[name.strip().upper()] = _tofloat(val)
 
 
+@spanned("parse", what="gas")
 def compile_gaschemistry(mech_file, device=None):
     """Compile a CHEMKIN mechanism file into a GasMechanism of float64
     tensors on ``device`` (``None`` = the GPU).  ``.species`` drives the

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.recorder import spanned
 
 #: tensor fields of :class:`SurfaceMechanism`, in declaration order
 SURFACE_TENSOR_FIELDS = (
@@ -147,6 +148,7 @@ def _energy_factor(unit, mech_file):
     raise ValueError(f"unknown energy unit {unit!r} in {mech_file}")
 
 
+@spanned("parse", what="surface")
 def compile_mech(mech_file, thermo_obj, gasphase, device=None):
     """Compile a surface-chemistry XML file against a gas-phase species list
     into a :class:`SurfaceMechanism` on ``device`` (``None`` = the GPU).

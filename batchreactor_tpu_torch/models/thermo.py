@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.recorder import spanned
 from ..utils.constants import ATOMIC_MASS
 
 #: tensor fields of :class:`ThermoTable`, in declaration order
@@ -158,6 +159,7 @@ def molecular_weight(composition):
     return w * 1e-3
 
 
+@spanned("parse", what="thermo")
 def create_thermo(species, therm_file, device=None):
     """Build a ThermoTable for an ordered species list (case-insensitive
     match) on ``device`` (``None`` = the GPU)."""

@@ -6,7 +6,11 @@ One machine-parseable surface for what a long sweep did:
   host-side spans (parse / solve / write, the segmented drivers'
   ``segment`` / ``poll`` / ``compact``, the checkpointed sweep's
   ``chunk_*``), point events, counters and fixed-bucket histograms.
-  ``utils.profiling.Phases`` is a shim over it.
+  ``with obs.recording(rec): ...`` makes ``rec`` the thread's current
+  recorder: the program's own spans (``parse``, ``lib_load``,
+  ``program_build``, ``capture``, ``sweep`` with its ``prep``/``finish``
+  and the drivers' spans) and the sweep's device-time counters land on it
+  without ``stats``; under ``torch.profiler`` each span is a ``br:`` range.
 * **what did the solver do** — int32 per-lane counter blocks in the BDF
   and SDIRK steppers' carry (``stats=True``): accepted/rejected steps,
   Newton iterations, Jacobian builds, factorizations, error- vs
@@ -26,8 +30,8 @@ One machine-parseable surface for what a long sweep did:
   either package, since the schema and every name are the reference's.
 
 Nothing here runs with telemetry off: without ``stats``/``timeline`` the
-solver carry gains no key, and without a recorder the drivers record
-nothing.  No import in this package touches a device.  Request tracing,
+solver carry gains no key, and without a recorder (passed or entered) the
+program records nothing.  No import in this package touches a device.  Request tracing,
 the SLO monitor and fleet stitching (:mod:`.trace`, :mod:`.slo`,
 :mod:`.stitch`) are fed by the serving scheduler and the fleet router.
 """
@@ -38,7 +42,7 @@ from .export import (from_jsonl, read_jsonl, to_jsonl, to_prometheus,
 from .live import (FlightRecorder, LiveRegistry, MetricsServer, arm_flight,
                    armed_flight, disarm_flight, flight_dump,
                    resolve_live_metrics)
-from .recorder import Recorder, null_span
+from .recorder import Recorder, null_span, recording
 from .report import build_report, diff, render, stats_totals
 from .retrace import CompileWatch
 from .slo import DEFAULT_OBJECTIVES, Objective, SloMonitor, evaluate_traces
@@ -49,6 +53,7 @@ from .trace import STAGES, TRACE_VERSION, RequestTrace
 __all__ = [
     "Recorder",
     "null_span",
+    "recording",
     "CompileWatch",
     "build_report",
     "render",

@@ -14,7 +14,9 @@ A Recorder collects three record kinds:
   work pass ``block=<tensors>`` so the span waits for the card before its
   clock stops — through ``solver/graphs.py``'s choke point
   (:func:`~..solver.graphs.block`), which counts the wait as a host sync
-  and honours ``fetch_deadline``.
+  and honours ``fetch_deadline``.  While ``torch.profiler`` records, each
+  span is also a ``record_function`` range named ``br:<path>``, so the
+  spans sit on the profiler's timeline beside the kernels.
 * **events** — zero-duration points (a retrace warning, a chunk load).
 * **counters** — monotonically accumulated named floats (bytes written,
   segments launched).
@@ -26,14 +28,74 @@ A Recorder collects three record kinds:
   ``obs.export`` renders the Prometheus ``_bucket``/``_sum``/``_count``
   exposition.
 
+:func:`recording` makes a recorder this thread's *current* one: the
+program's own span sites (the mechanism parses, the ``lu32p`` library
+load, program builds and graph captures in ``solver/graphs.py``, the
+sweep and its drivers) record onto it, with no telemetry argument and no
+change to what runs on the device.  With none entered a site costs one
+thread-local read.
+
 The Recorder touches no device and is safe to create on hosts with no
 usable accelerator.  All appends are lock-guarded so worker threads (checkpoint saves, compile
 listeners) can emit concurrently with the main thread.
 """
 
 import contextlib
+import functools
+import sys
 import threading
 import time
+
+# this thread's current recorder (None: off)
+_current = threading.local()
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Make ``recorder`` (a :class:`Recorder`, or None: off) this thread's
+    current recorder for the block (module doc); yields it."""
+    prev = getattr(_current, "value", None)
+    _current.value = recorder
+    try:
+        yield recorder
+    finally:
+        _current.value = prev
+
+
+def current():
+    """This thread's current recorder (:func:`recording`), or None."""
+    return getattr(_current, "value", None)
+
+
+def spanned(name, **attrs):
+    """Decorator: each call of the function is a span ``name`` (with
+    ``attrs``) on the thread's current recorder, if one is entered."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            rec = current()
+            if rec is None:
+                return fn(*args, **kwargs)
+            with rec.span(name, **attrs):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def _profiler_range(path):
+    """``record_function("br:" + path)``, entered, while ``torch.profiler``
+    records; else None.  The module flag is the cheap test; it outlives a
+    profiler stopped by its raw disable, so the enabled state confirms."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    import torch
+
+    if not torch._C._autograd._profiler_enabled():
+        return None
+    rng = prof.record_function("br:" + path)
+    rng.__enter__()
+    return rng
 
 
 @contextlib.contextmanager
@@ -98,6 +160,7 @@ class Recorder:
             self._seq += 1
             self.spans.append(rec)
         stack.append(rec)
+        rng = _profiler_range(path)
         t0 = time.perf_counter()
         try:
             yield rec
@@ -107,6 +170,8 @@ class Recorder:
 
                 graphs.block(block)
             rec["dur"] = time.perf_counter() - t0
+            if rng is not None:
+                rng.__exit__(None, None, None)
             stack.pop()
             tap = self.tap   # local snapshot: a concurrent disarm may
             if tap is not None:   # null the attribute between the
@@ -153,8 +218,8 @@ class Recorder:
 
     # ---- views ------------------------------------------------------------
     def by_name(self):
-        """Aggregate spans by *name* -> ``{"total_s", "count"}`` (the
-        Phases-compatible view: repeated spans accumulate)."""
+        """Aggregate spans by *name* -> ``{"total_s", "count"}``
+        (repeated spans accumulate)."""
         agg = {}
         with self._lock:
             spans = list(self.spans)
@@ -171,8 +236,7 @@ class Recorder:
         return {k: v["total_s"] for k, v in self.by_name().items()}
 
     def pretty(self):
-        """Phases-style per-name breakdown, largest first, with call
-        counts."""
+        """Per-name breakdown, largest first, with call counts."""
         agg = self.by_name()
         total = sum(v["total_s"] for v in agg.values()) or 1.0
         lines = [

@@ -649,7 +649,8 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     ``timeline=N`` (with ``stats``) its last N attempts, the ring resumed
     across segments on the global attempt index, so it equals the
     monolithic solve's at ``jac_window=1``; both gears give equal values,
-    bit for bit.  ``recorder`` gets spans and counters, ``watch`` the
+    bit for bit.  ``recorder`` gets spans and counters (``None``: the
+    thread's current recorder, ``obs.recording``), ``watch`` the
     builds and captures (with a recorder and no watch, a private watch
     whose retraces land as recorder events), ``live`` an in-flight
     publish at each status poll under the source ``_live_source``.
@@ -657,6 +658,8 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
     from ..resilience.watchdog import resolve_fetch_deadline
 
     check_deferred(deferred, _DEFERRED)
+    if recorder is None:
+        recorder = graphs.current_recorder()
     timeline = validate_timeline(timeline, stats)
     if max_segments < 1:
         raise ValueError(f"max_segments must be >= 1, got {max_segments}")
@@ -809,13 +812,14 @@ def ensemble_solve_segmented(rhs, y0s, t0, t1, cfgs, *, segment_steps=1024,
 @contextlib.contextmanager
 def _telemetry(recorder, watch, fetch_deadline):
     """The context of one segmented run: the watchdog deadline of its host
-    reads, its host syncs mirrored onto ``recorder``, and ``watch`` (with a
-    recorder and no watch, a private ``CompileWatch`` entered here whose
-    default label, ``sweep-host``, is not the armed one); yields the
-    watch."""
+    reads, ``recorder`` as the thread's current recorder (``None`` keeps
+    the one its caller entered), and ``watch`` (with a recorder and no
+    watch, a private ``CompileWatch`` entered here whose default label,
+    ``sweep-host``, is not the armed one); yields the watch."""
     with contextlib.ExitStack() as stack:
         stack.enter_context(graphs.fetch_deadline(fetch_deadline))
-        stack.enter_context(graphs.recording(recorder))
+        if recorder is not None:
+            stack.enter_context(graphs.recording(recorder))
         if watch is None and recorder is not None:
             watch = stack.enter_context(CompileWatch(
                 recorder=recorder, default_label="sweep-host"))
@@ -1465,20 +1469,21 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
     nl_live = int(B if n_live_lanes is None else n_live_lanes)
     seg_save = min(int(n_save), int(segment_steps)) if n_save else 0
     economy = _economy(method, setup_economy, jac_window)
-    with _region(watch, "sweep-segment", B):
-        prog = _segment_program(
-            rhs, jac, observer, rhs_bundle, B, n, dt, dev, cfgs,
-            tuple(obs) if obs is not None else None, method=method,
-            rtol=rtol, atol=atol, segment_steps=segment_steps,
-            dt_min_factor=dt_min_factor, linsolve=linsolve,
-            jac_window=jac_window, newton_tol=newton_tol,
-            setup_economy=economy, stale_tol=stale_tol, seg_save=seg_save,
-            n_save=int(n_save), has_budget=max_attempts is not None,
-            stats=stats, timeline=timeline)
-    _segment_inputs(prog, _init_segment_carry(y0s, t0, method, obs, n_save,
-                                              economy, linsolve, stats,
-                                              timeline),
-                    cfgs, t1, max_attempts, rhs_bundle)
+    with span_or_null(recorder, "prep"):
+        with _region(watch, "sweep-segment", B):
+            prog = _segment_program(
+                rhs, jac, observer, rhs_bundle, B, n, dt, dev, cfgs,
+                tuple(obs) if obs is not None else None, method=method,
+                rtol=rtol, atol=atol, segment_steps=segment_steps,
+                dt_min_factor=dt_min_factor, linsolve=linsolve,
+                jac_window=jac_window, newton_tol=newton_tol,
+                setup_economy=economy, stale_tol=stale_tol,
+                seg_save=seg_save, n_save=int(n_save),
+                has_budget=max_attempts is not None, stats=stats,
+                timeline=timeline)
+        _segment_inputs(prog, _init_segment_carry(
+            y0s, t0, method, obs, n_save, economy, linsolve, stats,
+            timeline), cfgs, t1, max_attempts, rhs_bundle)
     flags = _Flags(prog)
     drainer = (_TrajectoryDrainer(B, int(n_save), n, prog.on_cuda,
                                   graphs.current_deadline(), recorder)
@@ -1548,49 +1553,50 @@ def _run_segmented_pipelined(rhs, y0s, t0, t1, cfgs, obs, *, segment_steps,
     if drainer is not None:
         drainer.close()
 
-    seg = prog.state["seg"]
-    ctrl = seg["ctrl"]
-    st_keys = list(ctrl["stats"]) if stats else []
-    got = graphs.fetch(
-        ctrl["final_status"], ctrl["final_t"], ctrl["n_acc"], ctrl["n_rej"],
-        seg["t"], *(ctrl["stats"][k] for k in st_keys))
-    fs, ft, na, nr, t_np = got[:5]
-    emit(fs, na, launched)
-    fs = np.array(fs, copy=True)
-    if not done:
-        # max_segments exhausted with lanes still running
-        fs[fs == RUNNING] = MAX_STEPS_REACHED
-    # never-terminated lanes report their current t (a lane still running
-    # was never parked, so its carried t is the last segment's)
-    ft = np.where(np.isnan(ft), t_np, ft)
-    # the occupancy pair: the caller's lanes' attempts against the attempt
-    # capacity of the padded program (pad lanes read as idle capacity)
-    final_counters = None
-    if recorder is not None and launched:
-        final_counters = {
-            "lane_attempts": int(na[:nl_live].sum() + nr[:nl_live].sum()),
-            "lane_capacity": int(launched) * B * int(segment_steps)}
-    _retire_live(live, recorder, final_counters, live_source)
-    w = prog.state["w"]
-    if n_save:
-        ts_out = torch.as_tensor(drainer.all_ts, dtype=dt)
-        ys_out = torch.as_tensor(drainer.all_ys, dtype=dt)
-        n_saved_out = torch.as_tensor(drainer.saved)
-    else:
-        ts_out, ys_out, n_saved_out = (w["ts"].clone(), w["ys"].clone(),
-                                       w["n_saved"].clone())
-    return SolveResult(
-        t=torch.as_tensor(ft, dtype=dt), y=seg["y"].clone(),
-        status=torch.as_tensor(fs), n_accepted=torch.as_tensor(na),
-        n_rejected=torch.as_tensor(nr), ts=ts_out, ys=ys_out,
-        n_saved=n_saved_out, h=seg["h"].clone(),
-        observed=(_result_clone(seg["obs"]) if observer is not None
-                  else None),
-        err_prev=seg["e"].clone() if method == "sdirk" else None,
-        solver_state=(_result_clone(seg["sstate"]) if method == "bdf"
+    with span_or_null(recorder, "finish"):
+        seg = prog.state["seg"]
+        ctrl = seg["ctrl"]
+        st_keys = list(ctrl["stats"]) if stats else []
+        got = graphs.fetch(
+            ctrl["final_status"], ctrl["final_t"], ctrl["n_acc"],
+            ctrl["n_rej"], seg["t"], *(ctrl["stats"][k] for k in st_keys))
+        fs, ft, na, nr, t_np = got[:5]
+        emit(fs, na, launched)
+        fs = np.array(fs, copy=True)
+        if not done:
+            # max_segments exhausted with lanes still running
+            fs[fs == RUNNING] = MAX_STEPS_REACHED
+        # never-terminated lanes report their current t (a lane still running
+        # was never parked, so its carried t is the last segment's)
+        ft = np.where(np.isnan(ft), t_np, ft)
+        # the occupancy pair: the caller's lanes' attempts against the attempt
+        # capacity of the padded program (pad lanes read as idle capacity)
+        final_counters = None
+        if recorder is not None and launched:
+            final_counters = {
+                "lane_attempts": int(na[:nl_live].sum() + nr[:nl_live].sum()),
+                "lane_capacity": int(launched) * B * int(segment_steps)}
+        _retire_live(live, recorder, final_counters, live_source)
+        w = prog.state["w"]
+        if n_save:
+            ts_out = torch.as_tensor(drainer.all_ts, dtype=dt)
+            ys_out = torch.as_tensor(drainer.all_ys, dtype=dt)
+            n_saved_out = torch.as_tensor(drainer.saved)
+        else:
+            ts_out, ys_out, n_saved_out = (w["ts"].clone(), w["ys"].clone(),
+                                           w["n_saved"].clone())
+        return SolveResult(
+            t=torch.as_tensor(ft, dtype=dt), y=seg["y"].clone(),
+            status=torch.as_tensor(fs), n_accepted=torch.as_tensor(na),
+            n_rejected=torch.as_tensor(nr), ts=ts_out, ys=ys_out,
+            n_saved=n_saved_out, h=seg["h"].clone(),
+            observed=(_result_clone(seg["obs"]) if observer is not None
                       else None),
-        stats=({k: torch.as_tensor(v) for k, v in zip(st_keys, got[5:])}
-               if stats else None))
+            err_prev=seg["e"].clone() if method == "sdirk" else None,
+            solver_state=(_result_clone(seg["sstate"]) if method == "bdf"
+                          else None),
+            stats=({k: torch.as_tensor(v) for k, v in zip(st_keys, got[5:])}
+                   if stats else None))
 
 
 class _TrajectoryDrainer:

@@ -30,12 +30,26 @@ makes it the one choke point of the wedge watchdog: inside
 ``resilience.watchdog.block_with_deadline`` and raises ``WedgeError`` past
 its deadline; outside it a read adds no event, poll or thread.
 
-Inside :func:`recording` (thread-local) every increment of :data:`COUNTS`
-also lands on an ``obs.Recorder`` under the names of
-:data:`RECORDER_NAMES` (a replayed graph's tally too), so a run's report
-carries its own host syncs.  Program builds and graph captures are
-reported to the entered ``obs.CompileWatch`` instances
+Inside :func:`recording` (``obs.recording``: the thread's current
+recorder) every increment of :data:`COUNTS` also lands on an
+``obs.Recorder`` under the names of :data:`RECORDER_NAMES` (a replayed
+graph's tally too), so a run's report carries its own host syncs, and
+each program build (``program_build``) and graph capture (``capture``,
+with its ``step`` and ``B``, the leading size of the state's first
+tensor: a sweep program's lane count) is a span on it.  Program builds
+and graph captures are also reported to the entered
+``obs.CompileWatch`` instances
 (``obs/retrace.py``).
+
+Inside a sweep's :func:`device_window` (CUDA, a recorder entered) each
+replay is timed by a pair of CUDA events and the last :func:`fetch` marks
+the window's end; the events are read once the window closes, after that
+fetch has waited for the card, so timing adds no host sync.  The window
+lands ``replay_device_s`` and ``sweep_device_window_s`` on the
+recorder: the device time outside replays is their difference.  A
+replay's pair is recorded on the stream before its launch, so time the
+card spends waiting for the host's ``cudaGraphLaunch`` counts as replay
+time: the difference is a lower bound on the card's idle time.
 
 A fixed-trip loop inside a step (a window's attempts, an attempt's Newton
 iterations) calls :func:`loop_pass` at the start of each pass: free unless
@@ -49,6 +63,10 @@ import threading
 import time
 
 import torch
+
+from ..obs.recorder import current as current_recorder
+from ..obs.recorder import recording  # noqa: F401  (obs.recording)
+from ..obs.recorder import span_or_null
 
 #: graphs captured, by step name (``begin``, ``window``, ``end``,
 #: ``compact``) since the counts were last set to 0
@@ -70,8 +88,8 @@ _COUNTS_LOCK = threading.Lock()
 # the tally of the graph being captured (None outside a capture): counts
 # made by the captured code, replayed with the graph
 _tally = threading.local()
-# the recorder of this thread's run (None: off)
-_sink = threading.local()
+# the open device window of this thread (None: off)
+_window = threading.local()
 # whether this thread captures its graphs in debug mode
 _debug = threading.local()
 # the listener of this thread's loop passes (None: off)
@@ -113,24 +131,12 @@ def debug_capture():
         _debug.value = prev
 
 
-@contextlib.contextmanager
-def recording(recorder):
-    """Mirror this thread's :data:`COUNTS` increments onto ``recorder``
-    (an ``obs.Recorder``, or None: off) for the block."""
-    prev = getattr(_sink, "value", None)
-    _sink.value = recorder
-    try:
-        yield
-    finally:
-        _sink.value = prev
-
-
 def add_count(name, k=1):
     """Add ``k`` to :data:`COUNTS` ``[name]`` (and to the recording
     recorder, if any)."""
     with _COUNTS_LOCK:
         COUNTS[name] += k
-    rec = getattr(_sink, "value", None)
+    rec = current_recorder()
     if rec is not None:
         rec.counter(RECORDER_NAMES[name], k)
 
@@ -184,8 +190,7 @@ def _guard(x, label):
     if seconds is not None:
         from ..resilience.watchdog import block_with_deadline
 
-        block_with_deadline(x, seconds, getattr(_sink, "value", None),
-                            label=label)
+        block_with_deadline(x, seconds, current_recorder(), label=label)
 
 
 def host_any(mask):
@@ -198,8 +203,12 @@ def host_any(mask):
 
 def fetch(*tensors):
     """The tensors as numpy arrays on the host, counted as one host sync
-    (the first copy waits for the card; the rest find it idle)."""
+    (the first copy waits for the card; the rest find it idle).  Marks the
+    end of this thread's open :func:`device_window`."""
     add_count("host_syncs")
+    win = getattr(_window, "value", None)
+    if win is not None:
+        win.mark_end()
     _guard(tensors, "fetch")
     return tuple(t.detach().cpu().numpy() for t in tensors)
 
@@ -322,7 +331,11 @@ class Program:
         graph = self._graphs.get(name)
         if graph is None:
             graph = self._capture(name)
-        graph.replay()
+        win = getattr(_window, "value", None)
+        if win is None or win.device != self.device:
+            graph.replay()
+        else:
+            win.replay(graph)
         add_count("replays")
         tally, launches = self._tallies[name]
         for k, v in tally.items():
@@ -344,6 +357,12 @@ class Program:
         the state does not change), allocate the buffers of entries it
         creates, then capture it writing into the buffers.  Raises if the
         step cannot be captured."""
+        lead = tree_leaves(self.state)[:1]
+        B = lead[0].shape[0] if lead and lead[0].dim() else None
+        with span_or_null(current_recorder(), "capture", step=name, B=B):
+            return self._capture_step(name)
+
+    def _capture_step(self, name):
         from . import linalg_cuda
 
         t0 = time.perf_counter()
@@ -446,7 +465,8 @@ def program(key, build):
     with _PROGRAMS_LOCK:
         prog = _PROGRAMS.pop(key, None)
         if prog is None:
-            prog = build()
+            with span_or_null(current_recorder(), "program_build"):
+                prog = build()
             notify_watches("trace", device=prog.device.type)
         _PROGRAMS[key] = prog
         owner = getattr(_pin, "value", None)
@@ -473,3 +493,62 @@ def clear_programs():
     with _PROGRAMS_LOCK:
         _PROGRAMS.clear()
         _PINS.clear()
+
+
+def _timed_event(stream):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+class DeviceWindow:
+    """The CUDA events of one sweep (module doc): one at its start, a pair
+    around each replay, and its end, re-marked at each :func:`fetch`."""
+
+    def __init__(self, device):
+        self.device = device
+        self.start = _timed_event(torch.cuda.current_stream(device))
+        self.end = None
+        self.replays = []
+        #: what :meth:`land` added (None: nothing)
+        self.seconds = None
+
+    def replay(self, graph):
+        stream = torch.cuda.current_stream(self.device)
+        ev0 = _timed_event(stream)
+        graph.replay()
+        self.replays.append((ev0, _timed_event(stream)))
+
+    def mark_end(self):
+        self.end = _timed_event(torch.cuda.current_stream(self.device))
+
+    def land(self, recorder):
+        """Add the window's device seconds to ``recorder``'s counters, if
+        every event has completed (a query: no wait); else nothing."""
+        events = [self.start, self.end] + [e for r in self.replays
+                                           for e in r]
+        if self.end is None or not all(e.query() for e in events):
+            return
+        self.seconds = {
+            "sweep_device_window_s": self.start.elapsed_time(self.end) * 1e-3,
+            "replay_device_s": 1e-3 * sum(ev0.elapsed_time(ev1)
+                                          for ev0, ev1 in self.replays)}
+        for name, v in self.seconds.items():
+            recorder.counter(name, v)
+
+
+@contextlib.contextmanager
+def device_window(recorder, device):
+    """Time this thread's replays on ``device`` into a
+    :class:`DeviceWindow` for the block and land it on ``recorder`` at the
+    end (module doc); a no-op without a recorder or off CUDA."""
+    if recorder is None or device is None or device.type != "cuda":
+        yield None
+        return
+    prev = getattr(_window, "value", None)
+    win = _window.value = DeviceWindow(device)
+    try:
+        yield win
+    finally:
+        _window.value = prev
+    win.land(recorder)

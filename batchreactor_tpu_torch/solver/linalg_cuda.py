@@ -47,6 +47,9 @@ import time
 
 import torch
 
+from ..obs.recorder import current as current_recorder
+from ..obs.recorder import span_or_null
+
 #: panel width of the plain version and of the CTA kernel; also the
 #: padding granule (GRI n=53 pads to 56)
 _BLOCK = 8
@@ -179,7 +182,16 @@ def library_path():
 def load_library():
     """Build (once, at first use) and load the kernel library; an entered
     ``obs.CompileWatch`` counts the build, or the load from the build
-    cache."""
+    cache, and the current recorder gets a ``lib_load`` span (``built``:
+    whether nvcc ran)."""
+    if _lib is not None:
+        return _lib
+    with span_or_null(current_recorder(), "lib_load",
+                      built=not os.path.exists(library_path())):
+        return _load_library()
+
+
+def _load_library():
     from ..obs import retrace
 
     global _lib

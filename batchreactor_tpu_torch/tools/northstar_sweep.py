@@ -164,7 +164,7 @@ def run_sweep(n_T=64, n_phi=64, T_lo=1500.0, T_hi=2000.0, phi_lo=0.6,
     is armed for the run, dumping into ``flight_dir`` (default
     ``build/northstar/``)."""
     from .. import compile_gaschemistry, create_thermo
-    from ..obs import Recorder
+    from ..obs import Recorder, recording
     from ..obs import counters as obs_counters
     from ..obs.live import arm_flight
     from ..ops.rhs import make_gas_jac, make_gas_rhs
@@ -174,18 +174,18 @@ def run_sweep(n_T=64, n_phi=64, T_lo=1500.0, T_hi=2000.0, phi_lo=0.6,
     from ..parallel.sweep import resolve_pipeline_defaults
     from ..solver import linalg_cuda as lc
     from ..solver.common import SUCCESS
-    from ..utils.profiling import Phases
 
     dev = resolve_device(device)
-    ph = Phases()
-    with ph("parse"):
+    # the phases: the program's own parse spans, then this tool's
+    ph = Recorder()
+    with recording(ph):
         gm = compile_gaschemistry(os.path.join(LIB, "grimech.dat"),
                                   device=dev)
         th = create_thermo(list(gm.species), os.path.join(LIB, "therm.dat"),
                            device=dev)
     sp = list(gm.species)
 
-    with ph("build"):
+    with ph.span("build"):
         grid, y0s = map_states(gm, th, n_T, n_phi, T_lo, T_hi, phi_lo,
                                phi_hi, p)
         B = int(grid["T"].shape[0])
@@ -227,7 +227,7 @@ def run_sweep(n_T=64, n_phi=64, T_lo=1500.0, T_hi=2000.0, phi_lo=0.6,
     launches0 = dict(lc.LAUNCHES_BY_PATH)
     solved0 = ck.COUNTS["chunks_solved"]
     t_start = time.perf_counter()
-    with ph("solve"):
+    with ph.span("solve"):
         if ckpt_dir:
             res = checkpointed_sweep(rhs, y0s, 0.0, t1, cfgs, ckpt_dir,
                                      chunk_size=chunk_size,
@@ -292,7 +292,7 @@ def run_sweep(n_T=64, n_phi=64, T_lo=1500.0, T_hi=2000.0, phi_lo=0.6,
                    .astype(int)] if ign.size else [])
         T_h, phi_h, y0_h = _host(grid["T"]), _host(grid["phi"]), _host(y0s)
         ch4 = sp.index("CH4")
-        with ph("spot_check"):
+        with ph.span("spot_check"):
             for b in idx:
                 tau_n = _spot_tau(native, gm, th, float(T_h[b]), y0_h[b],
                                   t1, ch4, rtol, atol)

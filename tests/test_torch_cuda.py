@@ -276,3 +276,92 @@ def test_contract_tier_on_the_card(cuda, capsys):
     assert lu["programs"] and all(
         p["captured"] and p["lu32p_launches"].get("warp", 0) > 0
         for p in lu["programs"])
+
+
+def test_recording_on_the_card_spans_captures_and_times_replays(cuda):
+    """Inside ``obs.recording`` a sweep on the card records one ``capture``
+    span per graph captured (``graphs.CAPTURES``), the same host syncs and
+    lanes as without a recorder, and its device window with the replays'
+    device time inside it; under ``torch.profiler`` its spans are ``br:``
+    ranges among the host events, and the card's idle time between the
+    profiled sweep's device operations lies mostly in ``br:sweep/segment``
+    (the profiler's ``cudaGraphLaunch`` between replays)."""
+    import os
+
+    import batchreactor_tpu_torch as bt
+    from batchreactor_tpu_torch import obs
+    from batchreactor_tpu_torch.solver import graphs
+    from torch.profiler import ProfilerActivity, profile
+
+    fix = os.path.join(os.path.dirname(__file__), "fixtures")
+    rec = obs.Recorder()
+    graphs.reset_counts()
+    with obs.recording(rec):
+        gm = bt.compile_gaschemistry(os.path.join(fix, "h2o2.dat"))
+        th = bt.create_thermo(list(gm.species), os.path.join(fix, "therm.dat"))
+
+        def sweep():
+            return bt.batch_reactor_sweep(
+                {"H2": 0.3, "O2": 0.15, "N2": 0.55},
+                np.linspace(1100.0, 1500.0, 64), 1e5, 5e-4,
+                chem=bt.Chemistry(gaschem=True), thermo_obj=th, md=gm,
+                segment_steps=64, jac_window=8, setup_economy=True,
+                linsolve="lu32p", device=cuda)
+
+        first = sweep()
+    caps = [s for s in rec.spans if s["name"] == "capture"]
+    assert caps and len(caps) == graphs.captures()
+    assert sorted(s["attrs"]["step"] for s in caps) == sorted(
+        k for k, v in graphs.CAPTURES.items() for _ in range(v))
+    assert {s["attrs"]["B"] for s in caps} == {64}
+    assert all(s["path"].startswith("sweep/") for s in caps)
+    c = rec.counters
+    assert 0.0 < c["replay_device_s"] <= c["sweep_device_window_s"]
+    top = [s for s in rec.spans if s["depth"] == 0]
+    assert [s["attrs"].get("what") for s in top[:2]] == ["gas", "thermo"]
+
+    graphs.reset_counts()
+    plain = sweep()
+    syncs = graphs.COUNTS["host_syncs"]
+    graphs.reset_counts()
+    again = obs.Recorder()
+    with obs.recording(again):
+        got = sweep()
+    assert graphs.COUNTS["host_syncs"] == syncs and graphs.captures() == 0
+    for out in (first, got):
+        for k in ("t", "status"):
+            np.testing.assert_array_equal(out[k], plain[k])
+        for s in plain["x"]:
+            np.testing.assert_array_equal(out["x"][s], plain["x"][s])
+    (sp,) = [s for s in again.spans if s["name"] == "sweep"]
+    assert 0.0 < sp["attrs"]["replay_device_s"] <= sp["attrs"][
+        "sweep_device_window_s"]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        with obs.recording(obs.Recorder()):
+            sweep()
+    events = prof.events()
+    names = {e.name for e in events}
+    assert {"br:sweep", "br:sweep/prep", "br:sweep/segment",
+            "br:sweep/finish"} <= names
+    # device work: the card's events bar the host ranges' own annotations
+    cuda_t = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type != cuda_t]
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in host
+              if e.name.startswith("br:")]
+    [(s0, s1, _)] = [r for r in ranges if r[2] == "br:sweep"]
+    hnames = {e.name for e in host}
+    work = sorted((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == cuda_t and e.name not in hnames
+                  and s0 <= e.time_range.start <= s1)
+    idle, end = {}, work[0][1]
+    for s, e in work[1:]:
+        if s > end:
+            mid = 0.5 * (s + end)
+            inner = min((r for r in ranges if r[0] <= mid <= r[1]),
+                        key=lambda r: r[1] - r[0])[2]
+            idle[inner] = idle.get(inner, 0.0) + s - end
+        end = max(end, e)
+    print("idle us between the profiled sweep's device ops, by span:", idle)
+    assert max(idle, key=idle.get) == "br:sweep/segment"

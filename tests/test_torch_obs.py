@@ -26,7 +26,6 @@ from batchreactor_tpu import obs as obs_j
 from batchreactor_tpu.obs import live as live_j
 from batchreactor_tpu.solver import bdf as bdf_j
 from batchreactor_tpu.solver import sdirk as sdirk_j
-from batchreactor_tpu.utils import profiling as prof_j
 from batchreactor_tpu_torch import obs
 from batchreactor_tpu_torch.obs import counters as C
 from batchreactor_tpu_torch.obs import live
@@ -325,13 +324,6 @@ def test_recorder_api_matches_jax():
     assert acc["precond_age"].tolist() == [3, 0]
     assert acc["n_accepted"].tolist() == [240, 0]
     assert C.totals(acc) == obs_j.counters.totals(acc_j)
-    ph, ph_j = prof.Phases(), prof_j.Phases()
-    for p in (ph, ph_j):
-        for name in ("parse", "solve", "solve"):
-            with p(name):
-                pass
-    assert ph.counts == ph_j.counts == {"parse": 1, "solve": 2}
-    assert set(ph.summary()) == set(ph_j.summary())
 
 
 # ---------------------------------------------------------------------------
@@ -547,3 +539,121 @@ def test_device_trace_means_cuda_and_traces_the_cpu_by_name(tmp_path):
         torch.ones(4, dtype=torch.float64).sum()
     with open(path) as f:
         assert "traceEvents" in f.read()
+
+
+# ---------------------------------------------------------------------------
+# the current recorder (obs.recording): the program's own spans
+# ---------------------------------------------------------------------------
+
+def _h2o2_sweep(gm, th, **kw):
+    return bt.batch_reactor_sweep(
+        H2O2_X, H2O2_T[:2], 1e5, 5e-4, chem=bt.Chemistry(gaschem=True),
+        thermo_obj=th, md=gm, linsolve="lu", device="cpu", segment_steps=64,
+        ignition_marker="H2", **kw)
+
+
+def test_recording_spans_set_up_and_sweep(fixtures_dir):
+    """Inside ``obs.recording`` the three parses, the program build and the
+    sweep (its ``prep``, the driver's spans, its ``finish``) land on the
+    entered recorder, each under its parent; under ``torch.profiler`` each
+    span is a ``br:`` range."""
+    therm = os.path.join(fixtures_dir, "therm.dat")
+    rec = obs.Recorder()
+    with obs.recording(rec):
+        gm = bt.compile_gaschemistry(os.path.join(fixtures_dir, "h2o2.dat"),
+                                     device="cpu")
+        th = bt.create_thermo(list(gm.species), therm, device="cpu")
+        bt.compile_mech(os.path.join(fixtures_dir, "h2oni.xml"), th,
+                        list(gm.species), device="cpu")
+        out = _h2o2_sweep(gm, th)
+    assert graphs.current_recorder() is None and "telemetry" not in out
+    top = [s for s in rec.spans if s["depth"] == 0]
+    assert [s["name"] for s in top] == ["parse"] * 3 + ["sweep"]
+    assert [s["attrs"]["what"] for s in top[:3]] == ["gas", "thermo",
+                                                     "surface"]
+    paths = [s["path"] for s in rec.spans]
+    assert {"sweep/prep", "sweep/prep/program_build", "sweep/segment",
+            "sweep/finish"} <= set(paths)
+    # each opened in one layer only
+    assert paths.count("sweep/prep") == paths.count("sweep/finish") == 1
+    for s in rec.spans:
+        assert s["dur"] is not None and s["dur"] >= 0.0
+        if s["depth"]:
+            parent = [p for p in rec.spans if p["seq"] < s["seq"]
+                      and p["path"] == s["path"].rsplit("/", 1)[0]][-1]
+            assert parent["depth"] == s["depth"] - 1
+            assert parent["start"] <= s["start"]
+    assert rec.counters["blocking_syncs"] > 0
+
+
+def test_spans_are_profiler_ranges_only_while_it_records():
+    """While ``torch.profiler`` records, a span is also a ``br:<path>``
+    range on its timeline; after it stops (by its raw disable too, which
+    leaves the module flag set) a span opens none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = obs.Recorder()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with rec.span("sweep"), rec.span("segment"):
+            torch.ones(4).sum()
+    names = [e.name for e in prof.events()]
+    assert "br:sweep" in names and "br:sweep/segment" in names
+    raw = profile(activities=[ProfilerActivity.CPU])
+    raw.start()
+    torch._C._autograd._disable_profiler()
+    calls = []
+    real = torch.autograd.profiler.record_function
+    torch.autograd.profiler.record_function = lambda *a: calls.append(a)
+    try:
+        with rec.span("after"):
+            pass
+    finally:
+        torch.autograd.profiler.record_function = real
+    assert calls == [] and [s["path"] for s in rec.spans] == [
+        "sweep", "sweep/segment", "after"]
+
+
+def test_recording_changes_no_program_and_no_result(h2o2):
+    """A sweep inside ``obs.recording`` replays the program the plain sweep
+    built (same key, no ``stats``/``timeline`` carry) and answers the same
+    lanes bit for bit."""
+    _, _, gm, th = h2o2
+    plain = _h2o2_sweep(gm, th)
+    keys = set(graphs._PROGRAMS)
+    rec = obs.Recorder()
+    with obs.recording(rec):
+        got = _h2o2_sweep(gm, th)
+    assert set(graphs._PROGRAMS) == keys
+    names = rec.by_name()
+    assert "program_build" not in names and names["sweep"]["count"] == 1
+    prog = graphs._PROGRAMS[list(graphs._PROGRAMS)[-1]]
+    assert not {"st", "tl", "audit"} & set(prog.state["w"])
+    for k in ("t", "status", "tau"):
+        np.testing.assert_array_equal(got[k], plain[k])
+    for s in plain["x"]:
+        np.testing.assert_array_equal(got["x"][s], plain["x"][s])
+
+
+def test_telemetry_context_keeps_the_callers_recorder():
+    """A segmented run with no recorder of its own records onto the one
+    its caller entered; ``obs.recording(None)`` turns it off."""
+    y0, cfg = _lanes()
+    rec, own = obs.Recorder(), obs.Recorder()
+    kw = dict(linsolve="lu", jac=_jac, segment_steps=8)
+    with obs.recording(rec):
+        with S._telemetry(None, None, None):
+            assert graphs.current_recorder() is rec
+        with S._telemetry(own, None, None):
+            assert graphs.current_recorder() is own
+        S.ensemble_solve_segmented(_rhs, y0, 0.0, 0.05, cfg, **kw)
+        n = rec.by_name()["segment"]["count"]
+        syncs = rec.counters["blocking_syncs"]
+        with obs.recording(None):
+            S.ensemble_solve_segmented(_rhs, y0, 0.0, 0.05, cfg, **kw)
+        S.ensemble_solve_segmented(_rhs, y0, 0.0, 0.05, cfg, recorder=own,
+                                   **kw)
+    assert n >= 1 and syncs > 0
+    assert rec.by_name()["segment"]["count"] == n
+    assert rec.counters["blocking_syncs"] == syncs
+    assert own.by_name()["segment"]["count"] == n
+    assert obs.recording is graphs.recording
