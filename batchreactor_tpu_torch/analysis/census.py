@@ -171,11 +171,16 @@ def _contract_energy_noop(h):
 # begin/window/end) with and without the counters are pure: the counters are
 # masked int32 adds, never a host read.  The dtype walk stays off for solver
 # programs: the inv32*/lu32p Newton modes narrow to float32 by design
-# (solver/linalg.py).
+# (solver/linalg.py).  On the card the gas rates of every captured step are
+# one kernel, brtorch::gas_wdot (ops/gas_rates_cuda.py), so the step's
+# graphs must name it and its capture tally count it: a silent return to
+# the plain rates' aten ops would keep every parity test green.  On the CPU
+# the plain rates run by design.
 # --------------------------------------------------------------------------
 @program_contract(
     "bdf-step",
-    doc="BDF step program, plain and stats-instrumented: pure",
+    doc="BDF step program, plain and stats-instrumented: pure; on the card "
+        "the gas_wdot kernel present",
     budget=Budget(flops_per_step=_jax_band(2.5e4, 1.1e5),
                   peak_bytes=128 * 1024,
                   doc="h2o2 fixture step attempt at B = 8; the JAX band "
@@ -183,6 +188,12 @@ def _contract_energy_noop(h):
 def _contract_bdf_step(h):
     yield Pure("bdf-step", h.segment_baseline())
     yield Pure("bdf-step-stats", h.segment_stats())
+    if h.on_cuda:
+        yield Contains(
+            "kernel-missing", "bdf-step", h.segment_baseline(), "gas_wdot",
+            "the gas BDF step program does not run the gas_wdot kernel: the "
+            "production rates fell back to the plain aten ops "
+            "(ops/gas_rates_cuda.py)", count="gas_wdot")
 
 
 @program_contract(

@@ -27,7 +27,10 @@ programs**:
   - :class:`Contains` — a kernel is present (``kernel-missing``: on the
     CPU the op log names ``brtorch::lu32p_factor``; on the card the
     captured graph's kernel nodes name the ``lu32p`` kernel and the
-    capture tally (``linalg_cuda.captured_by_path``) counted it);
+    capture tally (``linalg_cuda.captured_by_path``) counted it; the gas
+    ``gas_wdot`` kernel likewise, its launches counted in the steps' own
+    tally (``obs/tally.py``), on the card only, since the CPU takes the
+    plain rates);
 
 * :func:`run_contracts` is the ONE engine: it imports :mod:`.census`
   (populating the registry), builds a shared fixture :class:`Harness`,
@@ -94,7 +97,9 @@ class Recording:
     ``error`` the capture's exception if it failed; ``nodes`` the captured
     graphs' nodes by kind; ``dump_kernels`` their kernel nodes (function
     and launch configuration) in capture order; ``launches`` the
-    ``lu32p`` launches the captures counted, by path.
+    ``lu32p`` launches the captures counted, by path; ``counts`` the
+    counts the captured steps made (``obs/tally.py``: ``gas_wdot``
+    launches, RHS evaluations, Newton iterations).
 
     ``track`` is the cost walker's residency track (:func:`_op_log`),
     beside ``ops`` and never part of :meth:`signature`: per op row the
@@ -113,6 +118,7 @@ class Recording:
     nodes: dict = dataclasses.field(default_factory=dict)
     dump_kernels: tuple = ()
     launches: dict = dataclasses.field(default_factory=dict)
+    counts: dict = dataclasses.field(default_factory=dict)
     seconds: float = 0.0
 
     def signature(self):
@@ -130,6 +136,7 @@ class Recording:
                 "kernels": len(self.dump_kernels),
                 "nodes": dict(self.nodes),
                 "lu32p_launches": dict(self.launches),
+                "gas_wdot_launches": self.counts.get("gas_wdot", 0),
                 "seconds": self.seconds}
 
 
@@ -218,6 +225,44 @@ def _op_log():
     return OpLog()
 
 
+def plain_gas_rows(B, S, R, kf, kr, kc_compat, falloff_compat, exp32):
+    """``(op row, scalars)`` of each aten op that the plain gas rates
+    (``ops/gas_kinetics.py::production_rates_plain``) dispatch for B lanes
+    of S species and R reactions whose stoichiometry lists are kf and kr
+    wide, with these options: its op log follows those shapes alone, so a
+    zero mechanism on the CPU gives it (``costmodel.gas_wdot_work``)."""
+    import types
+
+    import torch
+
+    from ..ops import gas_kinetics, gas_rates_cuda
+
+    f64 = torch.float64
+    fields = {f: torch.zeros((R,), dtype=f64)
+              for f in gas_rates_cuda.MECH_FIELDS}
+    fields.update(troe=torch.zeros((R, 4), dtype=f64),
+                  sri=torch.zeros((R, 5), dtype=f64),
+                  eff=torch.zeros((R, S), dtype=f64))
+    nu_f, nu_r = (torch.zeros((R, S), dtype=f64) for _ in range(2))
+    nu_f[0, :kf] = 1.0
+    nu_r[0, :kr] = 1.0
+    gm = types.SimpleNamespace(nu_f=nu_f, nu_r=nu_r, int_stoich=True,
+                               any_plog=False, any_cheb=False, **fields)
+    th = types.SimpleNamespace(coeffs=torch.zeros((S, 2, 7), dtype=f64),
+                               T_mid=torch.zeros((S,), dtype=f64))
+    T, conc = torch.ones(B, dtype=f64), torch.zeros((B, S), dtype=f64)
+
+    def run():
+        gas_kinetics.production_rates_plain(T, conc, gm, th, kc_compat,
+                                            falloff_compat, exp32)
+
+    run()       # the stoichiometry index, built outside the log
+    log = _op_log()
+    with log:
+        run()
+    return list(zip(log.rows, log.track["scalars"]))
+
+
 _NODE_START = re.compile(r'(?<!-> )"(graph_\d+_node_\d+)"\s*\[')
 _NODE_KINDS = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "EMPTY", "GRAPH",
                "EVENT_RECORD", "WAIT_EVENT", "MEM_ALLOC", "MEM_FREE",
@@ -287,13 +332,16 @@ class Identical:
 @dataclasses.dataclass
 class Contains:
     """The recorded program must contain the kernel named by ``fragment``
-    — the kernel-presence class (a silent fallback must fail loudly)."""
+    — the kernel-presence class (a silent fallback must fail loudly).
+    ``count`` names the key of the steps' tally that counts the kernel's
+    launches (``gas_wdot``); None reads ``lu32p``'s own capture tally."""
 
     rule: str
     tag: str
     recording: Recording
     fragment: str
     message: str
+    count: str = None
 
 
 def _pure_findings(ob):
@@ -363,8 +411,10 @@ def _check_obligation(ob):
         if rec.captured:
             if not any(ob.fragment in k for k in rec.dump_kernels):
                 missing.append("the captured graph's kernel nodes")
-            if sum(rec.launches.values()) <= 0:
+            if ob.count is None and sum(rec.launches.values()) <= 0:
                 missing.append("the capture tally (captured_by_path)")
+            if ob.count is not None and rec.counts.get(ob.count, 0) <= 0:
+                missing.append("the steps' tally (obs/tally.py)")
         if missing:
             return [Finding(ob.rule, f"<step:{ob.tag}>", 0, 0,
                             ob.message + f" (absent from "
@@ -472,9 +522,9 @@ class Harness:
                 raise RuntimeError("the contract tier on --device cuda needs "
                                    "a CUDA device; none is available")
             dev = torch.device("cuda", torch.cuda.current_device())
-            from ..solver import linalg_cuda
+            from .. import kernels
 
-            linalg_cuda.load_library()   # no nvcc: raises here
+            kernels.load_library()   # no nvcc: raises here
         elif dev.type != "cpu":
             raise ValueError(f"the contract tier runs on cpu or cuda, not "
                              f"{device!r}")
@@ -592,14 +642,16 @@ class Harness:
 
     def _read_graphs(self, rec, prog, steps):
         """Fill a captured recording: each graph's DOT dump (nodes by
-        kind, kernel nodes in capture order) and the launches counted at
-        capture."""
+        kind, kernel nodes in capture order) and the launches and counts
+        tallied at capture."""
         dump_names = []
         with tempfile.TemporaryDirectory(prefix="brlint_graph_") as tmp:
             for name in steps:
-                graph, _tally, launches = prog.captured(name)
+                graph, counts, launches = prog.captured(name)
                 for k, v in launches.items():
                     rec.launches[k] = rec.launches.get(k, 0) + v
+                for k, v in counts.items():
+                    rec.counts[k] = rec.counts.get(k, 0) + v
                 path = os.path.join(tmp, f"{name}.dot")
                 with warnings.catch_warnings():
                     # debug_dump announces itself with a UserWarning

@@ -19,6 +19,10 @@ shapes and devices, and a residency track beside it).  So:
   ``expand`` cost nothing.  The factor is charged by its work, not by how
   it runs: ``brtorch::lu32p_factor`` and ``aten::linalg_lu_factor_ex`` both
   cost 2/3·n³ flops per lane, M read once and LU and pivots written once.
+  So are the gas production rates: ``brtorch::gas_wdot`` (the card's one
+  kernel) costs the FLOPs and transcendentals of its plain version's op
+  log at the same shapes (:func:`gas_wdot_work`), its operands read once
+  and wdot written once.
 * :func:`estimate_rung` is the JAX module's stdlib closed form, with its
   formulas and result keys, but for the card: :data:`HBM_BYTES` (the
   H100's 80 GiB) in place of the v5e's 16 GiB, and ``smem_bytes`` (the
@@ -254,6 +258,8 @@ def _op_cost(row, scalars):
     if base in _FACTOR:
         batch, n = _lanes_order(in_sh[0])
         flops = batch * (2.0 / 3.0) * n ** 3
+    elif base == "gas_wdot":
+        flops, trans = gas_wdot_work(in_sh, scalars)
     elif base in _TRISOLVE:
         k_solves, i_mat, i_rhs = _TRISOLVE[base]
         batch, n = _lanes_order(in_sh[i_mat])
@@ -290,6 +296,41 @@ def _op_cost(row, scalars):
         # new heavy op cannot hide at zero cost
         flops = float(out_elems)
     return base, flops, trans, moved
+
+
+# (B, S, R, kf, kr, kc_compat, falloff_compat, exp32) -> (flops, trans)
+_GAS_WDOT_WORK = {}
+
+
+def gas_wdot_work(in_shapes, scalars):
+    """(FLOPs, transcendentals) of one ``brtorch::gas_wdot`` row: those of
+    the plain version (``ops/gas_kinetics.py::production_rates_plain``) at
+    the row's shapes and options, which the CPU walks in its place.  The
+    plain version's op log follows its shapes alone: (B,) T and (B, S)
+    concentrations, R reactions, the widths kf and kr of the stoichiometry
+    lists (the operator's packed ``f_idx``/``r_idx``), and the three
+    options; it is recorded once per such key on a zero mechanism."""
+    from ..ops import gas_rates_cuda as gr
+
+    n_par = len(gr.MECH_FIELDS) + len(gr.THERMO_FIELDS)
+    (B, S), f_idx = in_shapes[1], in_shapes[2 + n_par + 1]
+    r_idx = in_shapes[2 + n_par + 3]
+    R_, kf, kr = f_idx[0], f_idx[1], r_idx[1]
+    kc, fc, x32 = (bool(x) for x in tuple(scalars)[:3])
+    key = (B, S, R_, kf, kr, kc, fc, x32)
+    if key not in _GAS_WDOT_WORK:
+        _GAS_WDOT_WORK[key] = _plain_gas_work(*key)
+    return _GAS_WDOT_WORK[key]
+
+
+def _plain_gas_work(B, S, R_, kf, kr, kc, fc, x32):
+    from .contracts import plain_gas_rows
+
+    flops = trans = 0.0
+    for row, sc in plain_gas_rows(B, S, R_, kf, kr, kc, fc, x32):
+        _, f, t, _ = _op_cost(row, sc)
+        flops, trans = flops + f, trans + t
+    return flops, trans
 
 
 def _fold(rows, idx, marks):

@@ -106,8 +106,12 @@ ADMISSION_KEYS = ("compactions", "admitted_lanes", "bucket_downshifts",
 #: fixed-trip window counts every iteration it runs, masked or not; the
 #: algorithmic count is the device ``newton_iters``).  The host syncs land
 #: as the reference's ``blocking_syncs``.  Absent from a run without a
-#: recorder — ``obs.diff`` maps a missing key to 0.
-GRAPH_KEYS = ("graph_replays", "newton_iters_executed")
+#: recorder — ``obs.diff`` maps a missing key to 0.  ``rhs_fused`` and
+#: ``rhs_plain`` count the gas production-rate evaluations by route (the
+#: ``gas_wdot`` kernel, aten ops; ``ops/gas_kinetics.py``), and
+#: ``gas_wdot_launches`` that kernel's launches (``obs/tally.py``).
+GRAPH_KEYS = ("graph_replays", "newton_iters_executed", "rhs_fused",
+              "rhs_plain", "gas_wdot_launches")
 
 #: step_audit payloads folded into stats (not counters; excluded from sums)
 AUDIT_KEYS = ("accept_ring", "it_matrix")

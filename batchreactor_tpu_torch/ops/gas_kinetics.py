@@ -20,13 +20,19 @@ explicit option that is off by default on every device: the JAX package
 turns it on for accelerators only because the TPU emulates float64, and the
 H100 has native float64.  PLOG and Chebyshev rate tables recover the
 reactor pressure from the state (p = Ctot R T), as in the JAX package.
+
+On the card :func:`production_rates` is one kernel,
+``csrc/gas_rates.cu`` (``ops/gas_rates_cuda.py``), where the mechanism and
+the call allow it; the code below is its plain version.
 """
 
 import math
 
 import torch
 
+from ..obs import tally
 from ..utils.constants import P_ATM, R
+from . import gas_rates_cuda
 from .thermo import gibbs_over_RT
 
 _LOG10 = 2.302585092994046
@@ -349,7 +355,28 @@ def reaction_rates(T, conc, gm, thermo, kc_compat=False, falloff_compat=None,
 
 def production_rates(T, conc, gm, thermo, kc_compat=False,
                      falloff_compat=None, exp32=False):
-    """Species molar production rates wdot (B, S) [mol/m^3/s]."""
+    """Species molar production rates wdot (B, S) [mol/m^3/s].
+
+    A call on CUDA tensors whose mechanism the kernel covers, with no
+    autograd graph or ``torch.func`` transform through it
+    (:func:`.gas_rates_cuda.takes`), launches ``brtorch::gas_wdot``, one
+    kernel; every other call takes :func:`production_rates_plain`.  Each
+    call counts ``rhs_fused`` or ``rhs_plain`` (``obs/tally.py``)."""
+    if falloff_compat is None:
+        falloff_compat = kc_compat
+    if gas_rates_cuda.takes(T, conc, gm, thermo):
+        tally.count("rhs_fused")
+        return gas_rates_cuda.gas_wdot(T, conc, gm, thermo, kc_compat,
+                                       falloff_compat, exp32)
+    tally.count("rhs_plain")
+    return production_rates_plain(T, conc, gm, thermo, kc_compat,
+                                  falloff_compat, exp32)
+
+
+def production_rates_plain(T, conc, gm, thermo, kc_compat=False,
+                           falloff_compat=None, exp32=False):
+    """The plain version of :func:`production_rates` in aten ops (the
+    kernel's CPU version)."""
     q = reaction_rates(T, conc, gm, thermo, kc_compat, falloff_compat, exp32)
     return q @ (gm.nu_r - gm.nu_f)
 

@@ -15,13 +15,15 @@ one dict of static buffers and the named steps that update it in place.
   replays it; every later run replays.  A failure to capture or to replay
   raises.  There is no eager fallback on the card.
 
-The module keeps counters beside ``linalg_cuda.LAUNCHES``: graphs captured
-(:data:`CAPTURES`, also by step name), replays, host syncs (each point
-where the host reads a device value to decide what to launch next: a
-blocking wait on the card) and Newton iterations executed.  A count made
-by code inside a captured step (``lu32p`` launches by path, Newton
-iterations) is recorded once at capture and added on every replay, so a
-count means work the card did.
+The module keeps the graphs captured (:data:`CAPTURES`, also by step
+name) and, through ``obs/tally.py``, the program's counters
+(:data:`COUNTS`): replays, host syncs (each point where the host reads a
+device value to decide what to launch next: a blocking wait on the card),
+Newton iterations executed, gas RHS evaluations by route and ``gas_wdot``
+launches; ``linalg_cuda.LAUNCHES`` counts ``lu32p``'s launches.  A count
+made by code inside a captured step (all of those but replays and host
+syncs, and ``lu32p``'s launches by path) is recorded once at capture
+and added on every replay, so a count means work the card did.
 
 Every blocking host read of the segmented drivers goes through this module
 (:func:`host_any`, :func:`fetch`, :func:`block`, :func:`wait_event`), which
@@ -64,30 +66,18 @@ import time
 
 import torch
 
+from ..obs import tally
 from ..obs.recorder import current as current_recorder
 from ..obs.recorder import recording  # noqa: F401  (obs.recording)
 from ..obs.recorder import span_or_null
+# the counters live in obs/tally.py, which the kinetics count into too
+from ..obs.tally import COUNTS, RECORDER_NAMES, add_count, count  # noqa: F401
 
 #: graphs captured, by step name (``begin``, ``window``, ``end``,
 #: ``compact``) since the counts were last set to 0
 CAPTURES = {}
-#: the graph/poll layer's counters since they were last set to 0:
-#: ``replays`` (graph replays), ``host_syncs`` (blocking reads of a device
-#: value by the host), ``newton_iters`` (Newton iterations executed: a
-#: fixed-trip window counts every iteration it runs, masked or not)
-COUNTS = {"replays": 0, "host_syncs": 0, "newton_iters": 0}
-
-#: the recorder counter each :data:`COUNTS` key lands on inside
-#: :func:`recording` (``host_syncs`` under the JAX package's name)
-RECORDER_NAMES = {"host_syncs": "blocking_syncs", "replays": "graph_replays",
-                  "newton_iters": "newton_iters_executed"}
-
-# guards COUNTS and CAPTURES: the mesh's host threads replay and count at
-# the same time
-_COUNTS_LOCK = threading.Lock()
-# the tally of the graph being captured (None outside a capture): counts
-# made by the captured code, replayed with the graph
-_tally = threading.local()
+# guards CAPTURES: the mesh's host threads capture at the same time
+_CAPTURES_LOCK = threading.Lock()
 # the open device window of this thread (None: off)
 _window = threading.local()
 # whether this thread captures its graphs in debug mode
@@ -131,37 +121,16 @@ def debug_capture():
         _debug.value = prev
 
 
-def add_count(name, k=1):
-    """Add ``k`` to :data:`COUNTS` ``[name]`` (and to the recording
-    recorder, if any)."""
-    with _COUNTS_LOCK:
-        COUNTS[name] += k
-    rec = current_recorder()
-    if rec is not None:
-        rec.counter(RECORDER_NAMES[name], k)
-
-
 def reset_counts():
-    """Set every counter of this module to 0."""
-    with _COUNTS_LOCK:
+    """Set :data:`CAPTURES` and every counter of :data:`COUNTS` to 0."""
+    with _CAPTURES_LOCK:
         CAPTURES.clear()
-        for k in COUNTS:
-            COUNTS[k] = 0
+    tally.reset()
 
 
 def captures():
     """Graphs captured since the counts were last set to 0."""
     return sum(CAPTURES.values())
-
-
-def count(name, k=1):
-    """Add ``k`` to counter ``name``; inside a capture the count goes to
-    the graph's tally instead, and every replay adds it."""
-    tally = getattr(_tally, "value", None)
-    if tally is not None:
-        tally[name] = tally.get(name, 0) + k
-    else:
-        add_count(name, k)
 
 
 # the watchdog deadline of this thread's host reads (None: off)
@@ -337,8 +306,8 @@ class Program:
         else:
             win.replay(graph)
         add_count("replays")
-        tally, launches = self._tallies[name]
-        for k, v in tally.items():
+        counts, launches = self._tallies[name]
+        for k, v in counts.items():
             add_count(k, v)
         if launches:
             from . import linalg_cuda
@@ -347,7 +316,9 @@ class Program:
 
     def captured(self, name):
         """``(graph, tally, lu32p launches by path)`` of step ``name``'s
-        capture, or None (not captured: on the CPU, or not run yet)."""
+        capture, or None (not captured: on the CPU, or not run yet).  The
+        tally holds the counts the step made (``obs/tally.py``), the
+        ``gas_wdot`` launches among them."""
         if name not in self._graphs:
             return None
         return (self._graphs[name],) + self._tallies[name]
@@ -384,25 +355,21 @@ class Program:
             graph.enable_debug_mode()
         else:
             graph = torch.cuda.CUDAGraph()
-        tally = {}
         captured = linalg_cuda.captured_by_path()
         captured.update(warp=0, cta=0)
-        _tally.value = tally
-        try:
+        with tally.capturing({}) as counts:
             with torch.cuda.graph(graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
                 out = fn(self.state)
                 for key, val in out.items():
                     _copy_into(self.state[key], val)
                 del out
-        finally:
-            _tally.value = None
         if self._pool is None:
             self._pool = graph.pool()
         launches = {k: v for k, v in captured.items() if v}
-        self._tallies[name] = (tally, launches)
+        self._tallies[name] = (counts, launches)
         self._graphs[name] = graph
-        with _COUNTS_LOCK:
+        with _CAPTURES_LOCK:
             CAPTURES[name] = CAPTURES.get(name, 0) + 1
         notify_watches("compile", step=name,
                        seconds=time.perf_counter() - t0)

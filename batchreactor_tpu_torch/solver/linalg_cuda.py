@@ -31,24 +31,16 @@ npad) float32 with unit-lower L in place, piv (B, npad) int32 LAPACK-style
 * :func:`lu32p_solve` is plain substitution, as in the JAX package (where
   XLA fuses it); it is not a kernel.
 
-The kernels build at first use with ``nvcc`` into ``build/kernels/`` beside
-the package, as one library named by a hash of every source under
-``csrc/``, so a library on disk was built from exactly these sources.
+The kernels build at first use with ``nvcc`` into the port's one kernel
+library (:func:`..kernels.load_library`, with the other ``csrc/`` sources).
 """
 
-import ctypes
-import glob
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
-from ..obs.recorder import current as current_recorder
-from ..obs.recorder import span_or_null
+from ..kernels import CSRC, load_library
 
 #: panel width of the plain version and of the CTA kernel; also the
 #: padding granule (GRI n=53 pads to 56)
@@ -79,22 +71,9 @@ LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
 # (``solver/graphs.py``), so a count is a launch the card ran
 _captured = threading.local()
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG_DIR, "csrc")
-_SRC = os.path.join(_CSRC, "lu32p.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-# -cudart shared: the library uses the process's libcudart (PyTorch's), so
-# torch.profiler sees its launches
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
-               "-Xptxas", "-v"]
+_SRC = os.path.join(CSRC, "lu32p.cu")
 
-_lock = threading.Lock()
 _count_lock = threading.Lock()
-_lib = None
-#: what the last build printed (``-Xptxas -v``: registers, shared memory)
-#: and how long it took, for ``chip_smoke.py``
-BUILD_INFO = {}
 
 
 def captured_by_path():
@@ -147,86 +126,6 @@ def launch_config(batch, npad):
             f"memory of one block (linsolve='lu' takes any n)")
     return {"path": "cta", "grid": batch, "block": cta_threads(npad),
             "smem": smem}
-
-
-def _nvcc():
-    # the build runs at the library's first load, outside any step
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"  # brlint: disable=env-read-in-trace
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the lu32p kernel cannot be built "
-                           "(set CUDA_HOME or put nvcc on PATH)")
-    return found
-
-
-def _sources():
-    """Every file under ``csrc/`` that the build reads."""
-    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
-                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
-
-
-def library_path():
-    """Build target named by a content hash of the CUDA sources."""
-    h = hashlib.sha256()
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    h.update(" ".join(_NVCC_FLAGS).encode())
-    return os.path.join(_BUILD_DIR, f"liblu32p-{h.hexdigest()[:12]}.so")
-
-
-def load_library():
-    """Build (once, at first use) and load the kernel library; an entered
-    ``obs.CompileWatch`` counts the build, or the load from the build
-    cache, and the current recorder gets a ``lib_load`` span (``built``:
-    whether nvcc ran)."""
-    if _lib is not None:
-        return _lib
-    with span_or_null(current_recorder(), "lib_load",
-                      built=not os.path.exists(library_path())):
-        return _load_library()
-
-
-def _load_library():
-    from ..obs import retrace
-
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            # build to a temp name and rename: the hash-named target is
-            # trusted by existence alone
-            tmp = f"{so}.build{os.getpid()}"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-            os.replace(tmp, so)
-            BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                              log=proc.stderr)
-            retrace.dispatch("compile", step="nvcc",
-                             seconds=BUILD_INFO["seconds"])
-        else:
-            retrace.dispatch("cache_hit")
-        lib = ctypes.CDLL(so)
-        # (M, LU, piv, batch, n, npad, grid, block, smem, stream)
-        lib.lu32p_factor.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.lu32p_factor.restype = ctypes.c_int
-        lib.lu32p_error_string.argtypes = [ctypes.c_int]
-        lib.lu32p_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
 
 
 def _pad_identity(A, npad):

@@ -24,6 +24,7 @@ import subprocess
 import numpy as np
 import torch
 
+from batchreactor_tpu_torch import kernels
 from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
 MARKS = (
@@ -63,13 +64,13 @@ def traced_source():
 
 
 def build():
-    out = os.path.join(lc._BUILD_DIR, "trace")
+    out = os.path.join(kernels.BUILD_DIR, "trace")
     os.makedirs(out, exist_ok=True)
     cu, so = os.path.join(out, "lu32p_trace.cu"), os.path.join(
         out, "liblu32p_trace.so")
     with open(cu, "w") as f:
         f.write(traced_source())
-    proc = subprocess.run([lc._nvcc(), *lc._NVCC_FLAGS, "-o", so, cu],
+    proc = subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", so, cu],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{proc.stderr}")

@@ -9,15 +9,19 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --analysis-only  # phase 26 alone
     python3 chip_smoke.py --cost-only      # phase 26's tier D alone
     python3 chip_smoke.py --northstar-only # phase 27 alone
+    python3 chip_smoke.py --gas-rates-only # phase 2b alone
 
 It builds every kernel of the port's paths from the checkout's sources
-(``csrc/lu32p.cu`` with ``nvcc`` into ``build/kernels/``), holds each kernel
-against its plain PyTorch version on the card (phase 2: random matrices,
-n = 1..240 across both paths, the contract cases on both, and each path's
-own Newton matrices, the coupled path's, the energy path's and the padded
-gas path's at three step sizes, with the coupled ones' condition numbers;
-the CTA path timed at n = 66, 96, 120, 176 and 240), and drives the port's
-paths through its own entry points:
+(``csrc/lu32p.cu`` and ``csrc/gas_rates.cu`` with ``nvcc`` into
+``build/kernels/``), holds each kernel against its plain PyTorch version on
+the card (phase 2: random matrices, n = 1..240 across both paths, the
+contract cases on both, and each path's own Newton matrices, the coupled
+path's, the energy path's and the padded gas path's at three step sizes,
+with the coupled ones' condition numbers; the CTA path timed at n = 66, 96,
+120, 176 and 240; phase 2b: the gas production-rate kernel ``gas_wdot`` at
+the benchmark cells' (B, S), (4096, 53) and (1024, 53), cold and hot,
+against its plain version and its bound), and drives the port's paths
+through its own entry points:
 
 - the gas main path, the GRI-3.0 isothermal ignition sweep at B = 1024
   lanes (the kernel's warp path), its float64 ``lu`` cross-check, and the
@@ -155,12 +159,18 @@ and per kernel); ``--profile-only`` runs only that,
 ``--serving-only`` only phase 3's sweep and phases 23-24,
 ``--native-only`` only phase 3's sweep, phase 5 and phase 25,
 ``--analysis-only`` only phase 26, ``--cost-only`` only phase 26's
-tier D, and ``--northstar-only`` only phase 27, its baseline alone on the
-host first (these seven print no contract line).  Each phase prints one
-JSON line; any failure raises and the script exits non-zero.  The line before the last lists every
-kernel (both paths of ``lu32p``) with its launches by path, its error
-against the plain version and its times on its own path's matrices; the
-last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+tier D, ``--northstar-only`` only phase 27, its baseline alone on the
+host first, and ``--gas-rates-only`` only phase 2b (these eight print no
+contract line).  Each phase prints one
+JSON line; any failure raises and the script exits non-zero.  Each phase
+sets the launch counts to 0 before it and records them after it: lu32p's
+by path and, beside them, the ``gas_wdot`` launches and the gas RHS
+evaluations by route (``rhs_fused``, ``rhs_plain``); the main path and the
+coupled path must evaluate every gas RHS as one ``gas_wdot`` launch.  The
+line before the last lists every kernel (both paths of ``lu32p``, and
+``gas_wdot``) with its launches by phase, its error against the plain
+version and its times (``lu32p`` on its own path's matrices, ``gas_wdot``
+at phase 2b's shapes, the (4096, 53) one of record); the last line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``.
 
 Kernel times are CUDA-event times of launches queued behind a sleep kernel
@@ -338,6 +348,10 @@ SENS_REF_LANE0_COEFFS = (
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# float64 FLOP/s outside the tensor cores, and the FLOPs charged for one
+# float64 exp or log (libdevice's: about 18 DFMA)
+PEAK_F64 = 34e12
+FLOP_PER_TRANSCENDENTAL = 36
 L2_BYTES = 50e6
 EPS32 = float(np.finfo(np.float32).eps)
 # the highest SM clock of the card (H100 SXM: 1980 MHz), to size the sleep
@@ -453,6 +467,39 @@ def cold_hot_ms(fn, inputs, out_bytes, rounds=10, must_queue=True):
     hot, q2 = queued_time([lambda: fn(*copies[0])], rounds * sets,
                           must_queue)
     return cold, hot, sets, q1 and q2
+
+
+def graph_ms(fns, reps):
+    """Mean milliseconds per call of ``fns``, called in turn inside one
+    captured CUDA graph that is replayed ``reps`` times between CUDA
+    events: no host time between the launches.  For a kernel whose large
+    parameter block fills the card's launch queue before the sleep of
+    :func:`queued_time` ends, and for a plain version of many small
+    kernels, which the port runs inside captured graphs too."""
+    import torch
+
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    cur.wait_stream(side)
+    # a timing graph, captured once per measurement and dropped
+    graph = torch.cuda.CUDAGraph()  # brlint: disable=recapture-hazard
+    with torch.cuda.graph(graph):
+        outs = [f() for f in fns]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del outs, graph
+    return start.elapsed_time(stop) / (reps * len(fns))
 
 
 def separated(B, n, gen, device):
@@ -712,6 +759,104 @@ def time_kernel(M, same_pivots=True):
             "flops": flops, **witness}
 
 
+def gas_transcendentals(gm):
+    """float64 exps and logs ``gas_wdot`` evaluates per lane for ``gm``
+    (``csrc/gas_rates.cu``): ln T and ln c0; one Arrhenius exponential a
+    reaction, one more for the low-pressure limit of a falloff row, three
+    exponentials, two logs and one more exponential for a TROE blend,
+    four exponentials and two logs for an SRI blend, and one reverse
+    exponential for each REV row and each other reversible row."""
+    fo = gm.has_falloff > 0
+    troe = int((fo & (gm.has_troe > 0)).sum())
+    sri = int((fo & (gm.has_sri > 0)).sum())
+    rev = int(((gm.rev_mask != 0) | (gm.has_rev > 0)).sum())
+    return (2 + gm.n_reactions + int(fo.sum()) + 6 * troe + 6 * sri + rev)
+
+
+def gas_states(gm, B, device, seed=0):
+    """Lane states of the main path's range: T in 1500..2000 K and a random
+    composition at 1 bar, with a zero and a small negative concentration
+    in most lanes (transient Newton iterates)."""
+    import torch
+
+    from batchreactor_tpu_torch.utils.constants import R
+
+    rng = np.random.default_rng(seed)
+    S = gm.n_species
+    T = rng.uniform(T_LO, T_HI, B)
+    conc = rng.dirichlet(np.ones(S), B) * 1e5 / (R * T[:, None])
+    k = rng.integers(0, S, (B, 2))
+    conc[np.arange(B), k[:, 0]] = 0.0
+    neg = np.arange(B) % 3 > 0
+    conc[np.arange(B)[neg], k[neg, 1]] *= -1e-3
+    return (torch.tensor(T, device=device), torch.tensor(conc, device=device))
+
+
+def phase_gas_rates(gm, th, device, smi):
+    """Phase 2b: ``brtorch::gas_wdot`` at the benchmark cells' shapes
+    (4096, 53) and (1024, 53) against its plain version (each species
+    within 1e-12 of its gross flux sum_j |dnu_jk| (|rf_j| + |rr_j|)), two
+    launches equal to the bit, its cold and hot times and the plain
+    version's, each replayed from a captured graph (:func:`graph_ms`), and
+    its bound: max(bytes / 3.35 TB/s, transcendentals x 36 FLOP / 34
+    TFLOP/s) with T and the state read once, wdot written once and the
+    mechanism's parameters read once; the rest of its float64 arithmetic
+    (the divisions, the NASA-7 polynomials, the sums) is left out, so the
+    bound is a floor."""
+    import torch
+
+    from batchreactor_tpu_torch.ops import gas_kinetics as gk
+    from batchreactor_tpu_torch.ops import gas_rates_cuda as gr
+
+    rows = {}
+    n_t = gas_transcendentals(gm)
+    params = sum(t.numel() * 8 for t in gr._parameters(gm, th))
+    for B in (4096, 1024):
+        T, conc = gas_states(gm, B, device)
+        got = gr.gas_wdot(T, conc, gm, th)
+        again = gr.gas_wdot(T, conc, gm, th)
+        want = gk.production_rates_plain(T, conc, gm, th)
+        kf, tb = gk.forward_rate_constants(T, conc, gm)
+        kr = gk.reverse_rate_constants(T, kf, gm, th)
+        flux = ((kf * gk._stoich_prod(conc, gm.nu_f, True) * tb).abs()
+                + (kr * gk._stoich_prod(conc, gm.nu_r, True) * tb).abs()
+                ) @ (gm.nu_r - gm.nu_f).abs()
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() / (flux + 1e-300)).max())
+        if not err <= 1e-12 or not torch.equal(got, again):
+            raise AssertionError(f"gas_wdot at B = {B}: {err} of the gross "
+                                 f"flux, launches equal "
+                                 f"{torch.equal(got, again)}")
+        out_bytes = B * gm.n_species * 8
+        # cold: rotating over copies of the inputs that exceed three L2s a
+        # round; hot: the first copy again
+        sets = max(2, -(-int(3 * L2_BYTES) // (out_bytes + conc.numel() * 8)))
+        copies = [(T.clone(), conc.clone()) for _ in range(sets)]
+        ms = graph_ms([lambda c=c: gr.gas_wdot(*c, gm, th) for c in copies],
+                      reps=10)
+        hot_ms = graph_ms([lambda: gr.gas_wdot(*copies[0], gm, th)] * sets,
+                          reps=10)
+        del copies
+        plain_ms = graph_ms([lambda: gk.production_rates_plain(T, conc, gm,
+                                                               th)], reps=5)
+        nbytes = B * 8 + 2 * out_bytes + params
+        flops = B * n_t * FLOP_PER_TRANSCENDENTAL
+        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F64
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        rows[B] = {"shape": [B, gm.n_species], "reactions": gm.n_reactions,
+                   "launch": gr.launch_config(B, gm.n_species,
+                                              gm.n_reactions),
+                   "max_err_over_gross_flux": err, "ms": ms,
+                   "hot_ms": hot_ms, "l2_rotation_sets": sets,
+                   "plain_ms": plain_ms,
+                   "transcendentals_per_lane": n_t, "flops": flops,
+                   "bytes": nbytes, "bound_ms": bound_ms,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "share_of_bound": bound_ms / ms}
+        emit({"phase": "gas_rates_timing", "gpu": smi, **rows[B]})
+    return rows
+
+
 def file_driven_h2o2(bt, **kw):
     """``batch_reactor`` on the h2o2 XML (10 s to equilibrium) in a
     temporary directory: (status, the profile's rows as dicts)."""
@@ -757,15 +902,40 @@ def sweep(bt, gm, th, T, device, t1=T1, **kw):
         **cfg)
 
 
-def counted(fn):
-    """Run ``fn`` with the kernel's launch counts set to 0 just before it;
-    return its result, the launches and the launches by path."""
+#: the gas kernel's counts each phase records beside lu32p's launches by
+#: path: ``gas_wdot`` launches and the gas RHS evaluations by route
+GAS_COUNTS = ("gas_wdot", "rhs_fused", "rhs_plain")
+
+
+def zero_launches():
+    """Set the kernels' launch counts to 0: lu32p's (also by path) and
+    :data:`GAS_COUNTS`."""
+    from batchreactor_tpu_torch.obs import tally
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
     lc.LAUNCHES = 0
     lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    tally.reset(*GAS_COUNTS)
+
+
+def launches_by_path():
+    """lu32p's launches by path (``warp``, ``cta``) and, beside them,
+    :data:`GAS_COUNTS`, since :func:`zero_launches`."""
+    from batchreactor_tpu_torch.obs import tally
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    return {**lc.LAUNCHES_BY_PATH,
+            **{k: tally.COUNTS[k] for k in GAS_COUNTS}}
+
+
+def counted(fn):
+    """Run ``fn`` with the kernels' launch counts set to 0 just before it;
+    return its result, lu32p's launches and :func:`launches_by_path`."""
+    from batchreactor_tpu_torch.solver import linalg_cuda as lc
+
+    zero_launches()
     out = fn()
-    return out, lc.LAUNCHES, dict(lc.LAUNCHES_BY_PATH)
+    return out, lc.LAUNCHES, launches_by_path()
 
 
 def coupled_conditions():
@@ -1014,7 +1184,7 @@ def phase_energy(bt, gm, th, device, smi, timing, by_phase):
           "u_drift_median": float(np.median(drift_e)),
           "u_drift_bound": DRIFT_BOUND_V, "u_drift_jax_cpu": DRIFT_REF_V,
           "lu32p_launches": launches_e,
-          "lu32p_launches_by_path": by_phase["energy"],
+          "launches_by_path": by_phase["energy"],
           "kernel_share": launches_e * timing["energy_n54"]["hot_ms"]
           / 1e3 / wall_e})
     memory_line("energy", smi, mem0, estimate_rung(
@@ -1120,7 +1290,7 @@ def phase_sdirk(bt, gm, th, Ts, tau_bdf, rep_bdf, device, smi, by_phase):
           "bdf_mean_accepted_phase3": rep_bdf["n_accepted"]["mean"],
           "tau_max_rel_vs_bdf": float(rel_sd.max()),
           "tau_mean_rel_vs_bdf": float(rel_sd.mean()),
-          "lu32p_launches_by_path": by_sd,
+          "launches_by_path": by_sd,
           "temperature_sweep": {"B": int(T_ts.shape[0]), "t1": T1 / 4,
                                 "T": [float(T_ts[0]), float(T_ts[-1])],
                                 "wall_s": wall_ts,
@@ -1167,7 +1337,7 @@ def phase_linsolve_ab(gm, th, Ts, device, smi, by_phase):
                     "mean_accepted": float(res.n_accepted.double().mean()),
                     "max_accepted": int(res.n_accepted.max()),
                     "mean_rejected": float(res.n_rejected.double().mean()),
-                    "lu32p_launches_by_path": by_ab,
+                    "launches_by_path": by_ab,
                     "tau_max_rel_vs_lu": float(
                         np.abs(taus[name] / taus["lu"] - 1.0).max())}
         by_phase["linsolve_ab_" + name] = by_ab
@@ -1241,7 +1411,7 @@ def phase_padded(bt, gm, th, T, tau_main, rep_main, device, smi, by_phase):
           "tau_max_rel_vs_phase3": float(rel.max()),
           "tau_mean_rel_vs_phase3": float(rel.mean()),
           "lu32p_launches": launches,
-          "lu32p_launches_by_path": by_phase["padded_gas"]})
+          "launches_by_path": by_phase["padded_gas"]})
     memory_line("padded_gas", smi, mem0, estimate_rung(
         B_MAIN, S_PAD, R_PAD, linsolve=out["linsolve"],
         jac_window=out["jac_window"]))
@@ -1343,13 +1513,23 @@ def phase_sens_forward(gm, th, device, smi, by_phase):
           "memory_before_bytes": int(base_mem),
           "tangents_bytes": S.numel() * S.element_size(),
           "lu32p_launches": launches,
-          "lu32p_launches_by_path": by_phase["sens_forward"],
-          "plain_twin_lu32p_launches_by_path": by_plain})
+          "launches_by_path": by_phase["sens_forward"],
+          "plain_twin_launches_by_path": by_plain})
+
+
+def check_gas_fused(name, by_path):
+    """Every gas RHS evaluation of the phase was the ``gas_wdot`` kernel,
+    one launch each, and there were some."""
+    n = by_path["gas_wdot"]
+    if not (n > 0 and by_path["rhs_fused"] == n and by_path["rhs_plain"] == 0):
+        raise AssertionError(f"{name}: gas_wdot launches and gas RHS "
+                             f"evaluations by route {by_path}")
 
 
 def check_launches(name, by_path, want_path):
-    """The kernel launched on ``want_path`` only (``None``: no launch)."""
-    launched = {k for k, v in by_path.items() if v}
+    """The lu32p kernel launched on ``want_path`` only (``None``: no
+    launch)."""
+    launched = {k for k in ("warp", "cta") if by_path.get(k)}
     if launched != ({want_path} if want_path else set()):
         raise AssertionError(f"{name}: lu32p launches by path {by_path}")
 
@@ -1479,7 +1659,7 @@ def gear_run(fn):
 
     graphs.reset_counts()
     res, launches, by_path, wall = timed(fn)
-    return {"res": res, "wall_s": wall, "lu32p_launches_by_path": by_path,
+    return {"res": res, "wall_s": wall, "launches_by_path": by_path,
             "graphs_captured": dict(graphs.CAPTURES),
             **{k: v for k, v in graphs.COUNTS.items()}}
 
@@ -1511,12 +1691,12 @@ def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
         runs[f"pipelined_poll{pe}_warm"] = main(pipeline=True, poll_every=pe)
     ref = lane_fields(runs["blocking_warm"]["res"])
     needed = runs["blocking_warm"]["newton_iters"]
-    blk_warp = runs["blocking_warm"]["lu32p_launches_by_path"]["warp"]
+    blk_warp = runs["blocking_warm"]["launches_by_path"]["warp"]
     report = {}
     for name, r in runs.items():
         got = lane_fields(r.pop("res"))
         equal = int(lanes_equal(ref, got).sum())
-        lp = r["lu32p_launches_by_path"]
+        lp = r["launches_by_path"]
         if equal != B_MAIN:
             raise AssertionError(f"gears: {name} equals the blocking gear on "
                                  f"{equal} of {B_MAIN} lanes")
@@ -1536,7 +1716,7 @@ def phase_gears(bt, gm, th, sm, T, device, smi, by_phase):
                         "newton_iters_over_blocking": r["newton_iters"]
                         / needed}
     by_phase["gears"] = runs["pipelined_poll4_warm"][
-        "lu32p_launches_by_path"]
+        "launches_by_path"]
 
     checks = gear_checks(bt, gm, th, sm, T, device)
     emit({"phase": "gears", "gpu": smi, "B": B_MAIN, "segment_steps": 256,
@@ -1609,10 +1789,10 @@ def phase_stream(gm, th, device, smi, by_phase):
         return r
 
     ref = run(y0s, cfg)
-    by_phase["stream_reference"] = ref["lu32p_launches_by_path"]
+    by_phase["stream_reference"] = ref["launches_by_path"]
     st = run(y0s, cfg, admission=STREAM_RESIDENT, refill=STREAM_REFILL,
              buckets=STREAM_BUCKETS, poll_every=STREAM_POLL)
-    by_phase["stream"] = st["lu32p_launches_by_path"]
+    by_phase["stream"] = st["launches_by_path"]
     a, b = lane_fields(ref.pop("res")), lane_fields(st.pop("res"))
     c = st["stream"]
     rel = np.abs(b["tau"] / a["tau"] - 1.0)
@@ -1626,8 +1806,8 @@ def phase_stream(gm, th, device, smi, by_phase):
             and c["harvested_lanes"] == B_STREAM
             and c["admitted_lanes"] == B_STREAM - STREAM_RESIDENT):
         raise AssertionError(f"stream: counters {c}")
-    if not st["lu32p_launches_by_path"]["warp"] > 0:
-        raise AssertionError(f"stream: {st['lu32p_launches_by_path']}")
+    if not st["launches_by_path"]["warp"] > 0:
+        raise AssertionError(f"stream: {st['launches_by_path']}")
     idx = np.arange(CLIMB_LANES)
     climb = run(y0s[idx], {k: v[idx] for k, v in cfg.items()},
                 admission=CLIMB_RESIDENT, refill=STREAM_REFILL,
@@ -1755,7 +1935,7 @@ def child_main(args):
         np.savez(os.path.join(args["dir"], "multihost.npz"),
                  status=res.status.numpy(), tau=res.observed["tau"].numpy())
     part = {"rank": rank, "multihost_wall_s": wall_a,
-            "multihost_lu32p_launches_by_path": by_a}
+            "multihost_launches_by_path": by_a}
     print("RESULT " + json.dumps(part), flush=True)
     import torch.distributed as dist
 
@@ -1769,7 +1949,7 @@ def child_main(args):
         heartbeat_s=0.5, **kw))
     print("RESULT " + json.dumps({
         **part, "elastic_wall_s": wall_b,
-        "elastic_lu32p_launches_by_path": by_b,
+        "elastic_launches_by_path": by_b,
         "elastic_counts": dict(mh.COUNTS)}), flush=True)
     return 0
 
@@ -1889,7 +2069,7 @@ def phase_resilience(bt, gm, th, T, out3, wall3, device, smi, by_phase):
           "e_lanes_bit_equal": int(lanes_equal(a, e).sum()),
           "e_tau_max_rel": float(rel_e.max()),
           "f_mesh": repr(mesh), "lanes_bit_equal_to_a": B_MAIN,
-          "lu32p_launches_by_path": by_step["a_warm"],
+          "launches_by_path": by_step["a_warm"],
           "lu32p_launches_by_step": by_step})
     return d["a"]
 
@@ -1938,10 +2118,10 @@ def phase_multihost(dir_a, out3, smi, by_phase):
         raise AssertionError(f"multihost: {r0['elastic_counts']}")
     # the launches of both ranks: rank 1's elastic run died before its
     # report, so its count is the collective solve's alone
-    by = {p: r0["multihost_lu32p_launches_by_path"][p]
-          + r0["elastic_lu32p_launches_by_path"][p]
-          + r1["multihost_lu32p_launches_by_path"][p]
-          for p in ("warp", "cta")}
+    by = {p: r0["multihost_launches_by_path"][p]
+          + r0["elastic_launches_by_path"][p]
+          + r1["multihost_launches_by_path"][p]
+          for p in r0["multihost_launches_by_path"]}
     check_launches("multihost", by, "warp")
     by_phase["multihost"] = by
     emit({"phase": "multihost", "gpu": smi, "B": B_MAIN, "processes": 2,
@@ -1950,7 +2130,7 @@ def phase_multihost(dir_a, out3, smi, by_phase):
           "tau_max_rel_vs_phase3": float(rel.max()),
           "tau_lanes_bit_equal_phase3": int((tau == out3["tau"]).sum()),
           "elastic_chunks_bit_equal_phase20a": n_chunks,
-          "lu32p_launches_by_path": by})
+          "launches_by_path": by})
 
 
 # the telemetry cell (phase 22): the main path's sweep with the solver
@@ -2104,7 +2284,7 @@ def phase_telemetry(bt, gm, th, T, out3, counts3, wall3, launches3, device,
     if warm["host_syncs"] != counts3["host_syncs"]:
         raise AssertionError(f"telemetry: {warm['host_syncs']} host syncs "
                              f"warm, phase 3 {counts3['host_syncs']}")
-    lp = warm["lu32p_launches_by_path"]
+    lp = warm["launches_by_path"]
     if lp["warp"] != launches3 or lp["cta"]:
         raise AssertionError(f"telemetry: lu32p launches {lp}, phase 3 "
                              f"{launches3} on the warp path")
@@ -2184,8 +2364,7 @@ def phase_telemetry(bt, gm, th, T, out3, counts3, wall3, launches3, device,
     trace_dir = tempfile.mkdtemp(prefix="br_trace_")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lc.LAUNCHES = 0
-    lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    zero_launches()
     with device_trace(trace_dir) as trace_path:
         sweep(bt, gm, th, T, device, t1=TRACE_T1, **live_kw)
     traced = lc.LAUNCHES
@@ -2243,9 +2422,9 @@ def phase_telemetry(bt, gm, th, T, out3, counts3, wall3, launches3, device,
           "trace": {"kernels": len(kernels), "lu32p": named,
                     "lu32p_counted": traced},
           "checkpointed_spans": recs,
-          "lu32p_launches_by_path": lp,
-          "lu32p_launches_by_path_blocking": blk[
-              "lu32p_launches_by_path"]})
+          "launches_by_path": lp,
+          "launches_by_path_blocking": blk[
+              "launches_by_path"]})
 
 
 def telemetry_main(bt, gm, th, device, smi):
@@ -2263,12 +2442,12 @@ def telemetry_main(bt, gm, th, device, smi):
     out = r["res"]
     emit({"phase": "main_path", "gpu": smi, "wall_s": r["wall_s"],
           "host_syncs": r["host_syncs"],
-          "lu32p_launches_by_path": r["lu32p_launches_by_path"]})
+          "launches_by_path": r["launches_by_path"]})
     t0 = time.perf_counter()
     phase_telemetry(bt, gm, th, T, {k: out[k] for k in ("status", "tau",
                                                           "x")},
                     {"host_syncs": r["host_syncs"]}, r["wall_s"],
-                    r["lu32p_launches_by_path"]["warp"], device, smi, {})
+                    r["launches_by_path"]["warp"], device, smi, {})
     torch.cuda.synchronize()
     emit({"phase": "walls", "telemetry_s": time.perf_counter() - t0})
     print(smi, flush=True)
@@ -2456,13 +2635,12 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
                                             (i + 1) * case.lanes]]}
             for i in range(case.requests)]
     graphs.reset_counts()
-    lc.LAUNCHES = 0
-    lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+    zero_launches()
     with ServingServer(session, Scheduler(session)) as srv:
         client = SolveClient(srv.url, timeout=SERVE_TIMEOUT_S)
         results, wall_b = fire(client, reqs)
         health = client.healthz()["serving"]
-    by_b = dict(lc.LAUNCHES_BY_PATH)
+    by_b = launches_by_path()
     by_phase["serving"] = by_b
     captured = graphs.captures()
     check_served("serving", results, B)
@@ -2498,7 +2676,7 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
           "lanes_bit_equal_phase3": bit_equal,
           "graphs_captured": captured,
           "program_compiles": session.program_compiles(),
-          "lu32p_launches_by_path": by_b,
+          "launches_by_path": by_b,
           "server_stage_max_s": {k: max(v) for k, v in stages.items()},
           "healthz_program_compiles": health["program_compiles"]})
 
@@ -2510,7 +2688,7 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
         req_e = {"id": "energy", "T": [float(v) for v in T_e], "X": comp_e,
                  "t1": t1_e, "energy": "adiabatic_v"}
         seen = {"inflight": 0, "scrapes": 0}
-        lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
+        zero_launches()
         with ServingServer(session, Scheduler(session)) as srv:
             client = SolveClient(srv.url, timeout=SERVE_TIMEOUT_S)
             stop = threading.Event()
@@ -2533,7 +2711,7 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
             (res_e,), wall_e = fire(client, [req_e])
             stop.set()
             scr.join()
-        by_phase["serving_energy"] = dict(lc.LAUNCHES_BY_PATH)
+        by_phase["serving_energy"] = launches_by_path()
         check_served("serving energy", [res_e], T_e.shape[0])
         delay = np.asarray([np.nan if v is None else v
                             for v in res_e[1]["ignition_delay"]])
@@ -2547,7 +2725,7 @@ def phase_serving(bt, gm, th, case, out3, wall3, device, smi, by_phase):
               "delay_max_rel_vs_energy_path": float(rel_e.max()),
               "scrapes": seen["scrapes"],
               "scrapes_with_inflight": seen["inflight"],
-              "lu32p_launches_by_path": by_phase["serving_energy"]})
+              "launches_by_path": by_phase["serving_energy"]})
 
     # ---- (d) the refusals and the drain ---------------------------------------
     small = [float(v) for v in case.T[:case.lanes // 2]]
@@ -3254,7 +3432,7 @@ def phase_native(bt, gm, th, T, out3, file_row, dir_a, device, smi,
                                  "max_excess_over_bound": dx},
           "c1_lanes_bit_equal_phase20a": int(eq_c1.sum()),
           "c1_wall_s": walls["c1"],
-          "c1_lu32p_launches_by_path": by_phase["native_c1"],
+          "c1_launches_by_path": by_phase["native_c1"],
           "c2_chunk": ORACLE_CHUNK, "c2_lanes": [lo + j for j in
                                                  ORACLE_LANES],
           "c2_passes": passes,
@@ -3268,7 +3446,7 @@ def phase_native(bt, gm, th, T, out3, file_row, dir_a, device, smi,
           "c2_oracle_cpu_copy_accepted": out_cpu.n_accepted,
           "c2_others_bit_equal": int(eq_c2[others].sum()),
           "c2_wall_s": walls["c2"],
-          "c2_lu32p_launches_by_path": by_phase["native_c2"],
+          "c2_launches_by_path": by_phase["native_c2"],
           "d_rc": d["rc"], "d_fault_kinds": d["kinds"],
           "d_started_before_phase": kid["before"],
           "walls_s": walls})
@@ -3355,7 +3533,7 @@ def phase_analysis(device, smi, by_phase):
     emit({"phase": "analysis", "gpu": smi,
           "static": {"findings": len(doc["findings"]),
                      "suppressed": doc["suppressed"]}, **summary,
-          "lu32p_launches_by_path": by_phase["analysis"], "walls": walls})
+          "launches_by_path": by_phase["analysis"], "walls": walls})
 
 
 def analysis_on_card(smi, by_phase, walls):
@@ -3708,10 +3886,11 @@ def phase_northstar(gm, th, device, smi, by_phase, kid):
             raise AssertionError(f"northstar: sorted "
                                  f"{rec['lane_cost_sorted']}, chunks "
                                  f"{rec['chunks']}")
-        if rec["lu32p_launches"] != by_phase["northstar"]:
+        lu = {p: by_phase["northstar"][p] for p in ("warp", "cta")}
+        if rec["lu32p_launches"] != lu:
             raise AssertionError(f"northstar: the record's launches "
-                                 f"{rec['lu32p_launches']} against "
-                                 f"{by_phase['northstar']}")
+                                 f"{rec['lu32p_launches']} against {lu}")
+        check_gas_fused("northstar", by_phase["northstar"])
         map_b = lane_fields(res)
         emit({"phase": "northstar", "gpu": smi, "B": B,
               "workload": rec["workload"], "exp32": rec["exp32"],
@@ -3729,7 +3908,7 @@ def phase_northstar(gm, th, device, smi, by_phase, kid):
               / rec["wall_s"],
               "mean_accepted": float(map_b["n_accepted"].mean()),
               "max_accepted": int(map_b["n_accepted"].max()),
-              "lu32p_launches_by_path": by_phase["northstar"],
+              "launches_by_path": by_phase["northstar"],
               "graphs_captured": graphs.captures(),
               "graph_replays": graphs.COUNTS["replays"],
               "host_syncs": graphs.COUNTS["host_syncs"]})
@@ -3747,7 +3926,7 @@ def phase_northstar(gm, th, device, smi, by_phase, kid):
         emit({"phase": "northstar_resume", "call_s": wall_c,
               "wall_s": rec_c["wall_s"], "chunks": rec_c["chunks"],
               "lanes_equal": int(eq.sum()),
-              "lu32p_launches_by_path": by_phase["northstar_resume"]})
+              "launches_by_path": by_phase["northstar_resume"]})
 
         # (d) float64 exponentials on the map's diagonal
         grid, y0s = ns.map_states(gm, th, NS_N, NS_N)
@@ -3781,7 +3960,7 @@ def phase_northstar(gm, th, device, smi, by_phase, kid):
               "no_ignition": int(both_nan.sum()),
               "tau_max_rel": float(np.nanmax(rel)),
               "tau_mean_rel": float(np.nanmean(rel)), "wall_s": wall_d,
-              "lu32p_launches_by_path": by_phase["northstar_f64"]})
+              "launches_by_path": by_phase["northstar_f64"]})
     finally:
         live.disarm_flight()
         drop_kid(kid)
@@ -3942,6 +4121,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     import batchreactor_tpu_torch as bt
+    from batchreactor_tpu_torch import kernels
     from batchreactor_tpu_torch.solver import graphs
     from batchreactor_tpu_torch.solver import linalg_cuda as lc
 
@@ -3954,9 +4134,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    lc.load_library()
+    kernels.load_library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in lc.BUILD_INFO.get("log", "").splitlines()
+    ptxas = [ln.strip() for ln in kernels.BUILD_INFO.get("log",
+                                                          "").splitlines()
              if any(w in ln for w in ("entry function", "registers",
                                       "spill"))]
     emit({"phase": "env", "gpu": smi, "torch": torch.__version__,
@@ -3971,6 +4152,7 @@ def main():
     serving_only = "--serving-only" in sys.argv[1:]
     native_only = "--native-only" in sys.argv[1:]
     northstar_only = "--northstar-only" in sys.argv[1:]
+    gas_rates_only = "--gas-rates-only" in sys.argv[1:]
     if "--analysis-only" in sys.argv[1:]:
         return analysis_main(device, smi)
     if "--cost-only" in sys.argv[1:]:
@@ -3989,6 +4171,9 @@ def main():
         return native_main(bt, gm, th, device, smi)
     if northstar_only:
         return northstar_main(gm, th, device, smi)
+    if gas_rates_only:
+        phase_gas_rates(gm, th, device, smi)
+        return 0
     check_kernel(device)
     sm = bt.compile_mech(os.path.join(FIXTURES, "ch4ni.xml"), th,
                          list(gm.species))
@@ -4032,6 +4217,7 @@ def main():
         emit({"phase": "kernel_timing", "case": name, "gpu": smi,
               **timing[name]})
     del J_e, eye_e
+    gas_timing = phase_gas_rates(gm, th, device, smi)
     emit({"phase": "kernel_checked", "seconds": time.perf_counter() - t0})
 
     # ---- phase 3: the main path -----------------------------------------
@@ -4043,15 +4229,14 @@ def main():
     sweep(bt, gm, th, T, device)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    lc.LAUNCHES = 0
-    lc.LAUNCHES_BY_PATH.update(warp=0, cta=0)
     graphs.reset_counts()
+    zero_launches()
     t0 = time.perf_counter()
     out = sweep(bt, gm, th, T, device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lc.LAUNCHES
-    by_path = dict(lc.LAUNCHES_BY_PATH)
+    by_path = launches_by_path()
     counts3 = dict(graphs.COUNTS)
     tau = out["tau"]
     rep = rep_main = out["report"]
@@ -4060,6 +4245,7 @@ def main():
     if launches <= 0 or by_path["warp"] != launches or by_path["cta"] != 0:
         raise AssertionError(f"the main path's lu32p launches by path: "
                              f"{by_path} of {launches}")
+    check_gas_fused("main_path", by_path)
     if rep["counts"] != {"success": B_MAIN}:
         raise AssertionError(f"lanes not all successful: {rep['counts']}")
     if not np.all(np.isfinite(tau)):
@@ -4073,7 +4259,7 @@ def main():
           "mean_accepted": rep["n_accepted"]["mean"],
           "max_accepted": rep["n_accepted"]["max"],
           "tau_min": float(tau.min()), "tau_max": float(tau.max()),
-          "lu32p_launches": launches, "lu32p_launches_by_path": by_path,
+          "lu32p_launches": launches, "launches_by_path": by_path,
           "kernel_share": launches * hot_ms / 1e3 / wall,
           "gear": "pipelined", "graph_replays": counts3["replays"],
           "host_syncs": counts3["host_syncs"],
@@ -4127,6 +4313,7 @@ def main():
     torch.cuda.synchronize()
     wall_c = time.perf_counter() - t0
     dev_c = check_sweep("coupled", out_c, B_C, by_phase["coupled"], None)
+    check_gas_fused("coupled", by_phase["coupled"])
     rep = out_c["report"]
     emit({"phase": "coupled", "gpu": smi, "B": B_C,
           "mechanism": "GRI-3.0 (53 species) + CH4/Ni (13 surface species, "
@@ -4138,7 +4325,7 @@ def main():
           "max_accepted": rep["n_accepted"]["max"],
           "min_accepted": rep["n_accepted"]["min"],
           "covg_sum_max_dev": dev_c,
-          "lu32p_launches_by_path": by_phase["coupled"]})
+          "launches_by_path": by_phase["coupled"]})
     # the coupled state: n = 53 gas + 13 coverages, R = 325 + 42
     memory_line("coupled", smi, mem0, estimate_rung(
         B_C, gm.n_species + sm.n_surface_species,
@@ -4176,7 +4363,7 @@ def main():
           "max_rel_diff_vs_lu": float((diff[big] / np.abs(want[big])).max()),
           "bound": "1e-5 + 1e-3 |lu|",
           "lu32p_launches": launches_k,
-          "lu32p_launches_by_path": by_phase["coupled_lu32p"],
+          "launches_by_path": by_phase["coupled_lu32p"],
           "kernel_share": launches_k * timing["coupled_n66"]["hot_ms"]
           / 1e3 / wall_k, "seconds": time.perf_counter() - t0})
 
@@ -4203,7 +4390,7 @@ def main():
           "max_accepted": out_s["report"]["n_accepted"]["max"],
           "covg_sum_max_dev": dev_s, "T_syngas": float(Ts[lane]),
           "x_H2": float(x_h2), "x_CO": float(x_co),
-          "lu32p_launches_by_path": by_phase["surface"]})
+          "launches_by_path": by_phase["surface"]})
 
     # ---- phase 9: the user-defined-chemistry path ------------------------
     gm_h = bt.compile_gaschemistry(os.path.join(FIXTURES, "h2o2.dat"))
@@ -4231,7 +4418,7 @@ def main():
           "mean_accepted": out_u["report"]["n_accepted"]["mean"],
           "x_H2_max_rel_err": float(rel_u.max()),
           "lu32p_launches": launches_u,
-          "lu32p_launches_by_path": by_phase["udf"]})
+          "launches_by_path": by_phase["udf"]})
 
     # ---- phase 10: the file-driven surface entry point -------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -4337,6 +4524,27 @@ def main():
                 "shape", "ms", "hot_ms", "plain_ms", "library_ms",
                 "bound_ms", "bound_by", "share_of_bound", "max_abs_err")}
                 for c in timing if timing[c]["path"] == path}})
+    gt = gas_timing[4096]
+    kernels.append({
+        "name": "gas_wdot", "route": "cuda",
+        "source": "batchreactor_tpu_torch/csrc/gas_rates.cu",
+        "replaces": None,
+        "launches": sum(c.get("gas_wdot", 0) for c in by_phase.values()),
+        "launches_by_phase": {p: c["gas_wdot"] for p, c in by_phase.items()
+                              if "gas_wdot" in c},
+        "rhs_plain_by_phase": {p: c["rhs_plain"] for p, c in by_phase.items()
+                               if c.get("rhs_plain")},
+        "on_paths": [p for p, c in by_phase.items() if c.get("gas_wdot")],
+        "timing_case": "map_b4096", "pass": True, "shape": gt["shape"],
+        "max_err_over_gross_flux": max(
+            r["max_err_over_gross_flux"] for r in gas_timing.values()),
+        "ms": gt["ms"], "hot_ms": gt["hot_ms"], "plain_ms": gt["plain_ms"],
+        "bound_ms": gt["bound_ms"], "bound_by": gt["bound_by"],
+        "share_of_bound": gt["share_of_bound"],
+        "by_case": {f"b{B}": {k: r[k] for k in (
+            "shape", "ms", "hot_ms", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "max_err_over_gross_flux")}
+            for B, r in gas_timing.items()}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
